@@ -1,8 +1,10 @@
-"""flate_tpu_torch — the DEFLATE device encoder in PyTorch with hand-written
-CUDA kernels for the H100 (a port of flate_tpu's JAX device side).
+"""flate_tpu_torch — the DEFLATE device encoder and decoder in PyTorch with
+hand-written CUDA kernels for the H100 (a port of flate_tpu's JAX device
+side).
 
     import flate_tpu_torch as ftt
     blob = ftt.gzip.compress(data, level=1)          # runs on "cuda"
+    data = ftt.gzip.decompress(blob)                 # runs on "cuda"
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 a missing card raises.  Kernels build with nvcc at first use.

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/encode_kernels.cu` is compiled with nvcc at first use into
-`build/` beside the package (a shared library with a plain C interface),
-named by the hash of its source so an edited source is rebuilt, and
-loaded with ctypes.  Nothing here runs at import: the CPU tests import
-every module on a machine without nvcc or a card.
+Each source under `csrc/` (`SOURCES`) is compiled with nvcc at first use
+into `build/` beside the package (one shared library per source, with a
+plain C interface), named by the hash of its source so an edited source is
+rebuilt, and loaded with ctypes.  The compilers of all sources run at the
+same time.  Nothing here runs at import: the CPU tests import every module
+on a machine without nvcc or a card.
 
 `LAUNCHES` counts kernel launches by name.  Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
@@ -26,7 +27,6 @@ import tempfile
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parent
-SOURCE = PKG / "csrc" / "encode_kernels.cu"
 BUILD_DIR = PKG.parent / "build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -34,14 +34,32 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of each C entry point (pointers and the stream as void*)
-KERNELS = {
+# argument types of each C entry point (pointers and the stream as void*),
+# by the source that holds it
+ENCODE_KERNELS = {
     "flate_prep": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "flate_matcher": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flate_small_runs": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flate_extend": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flate_pack": [_P, _P, _P, _I, _I, _I, _P],
 }
+DECODE_KERNELS = {
+    "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flate_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+KERNELS_BY_SOURCE = {PKG / "csrc" / "encode_kernels.cu": ENCODE_KERNELS,
+                     PKG / "csrc" / "decode_kernels.cu": DECODE_KERNELS}
+SOURCES = tuple(KERNELS_BY_SOURCE)
+KERNELS = {**ENCODE_KERNELS, **DECODE_KERNELS}
+
+
+def source_of(name: str) -> str:
+    """Path, relative to the repository root, of the source that holds C
+    entry point `name`."""
+    for src, kernels in KERNELS_BY_SOURCE.items():
+        if name in kernels:
+            return src.relative_to(PKG.parent).as_posix()
+    raise KeyError(name)
 
 
 def _nvcc() -> str:
@@ -55,45 +73,65 @@ def _nvcc() -> str:
     return found
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernel library if no build of this source exists;
-    returns its path.  verbose prints ptxas' register/spill report."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libflate_encode_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, lib)                 # atomic: no half-written library
-    return lib
+def _library_path(source: pathlib.Path) -> pathlib.Path:
+    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def build(verbose: bool = False) -> list[pathlib.Path]:
+    """Compile every source that has no build yet, all compilers started
+    together; returns the libraries' paths in the order of SOURCES.
+    verbose prints ptxas' register/spill report."""
+    libs = [_library_path(src) for src in SOURCES]
+    jobs = []
+    for src, lib in zip(SOURCES, libs):
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, str(src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, lib, tmp, proc))
+    failures = []
+    for src, lib, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed on {src.name} "
+                            f"({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err, end="")
+        os.replace(tmp, lib)             # atomic: no half-written library
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in KERNELS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def library() -> dict:
+    """C entry point name -> loaded ctypes function (built on first
+    call)."""
+    fns = {}
+    for src, path in zip(SOURCES, build()):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in KERNELS_BY_SOURCE[src].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return fns
 
 
 def launch(name: str, *args) -> None:
     """Call C entry point `name` on the current CUDA stream, raise on a
     launch error, and count the launch."""
-    fn = getattr(library(), name)
+    fn = library()[name]
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:

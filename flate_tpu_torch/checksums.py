@@ -8,11 +8,22 @@ with the byte-shift operator (a 32x32 GF(2) matrix power).
 from __future__ import annotations
 
 import functools
+import zlib
 
 import numpy as np
 
 ADLER_MOD = 65521
 CRC_POLY = 0xEDB88320  # reflected CRC-32 (IEEE 802.3)
+
+
+def crc32(data: bytes, value: int = 0) -> int:
+    """Running CRC-32 of host bytes (the decoder's footer check)."""
+    return zlib.crc32(data, value) & 0xFFFFFFFF
+
+
+def adler32(data: bytes, value: int = 1) -> int:
+    """Running Adler-32 of host bytes (the decoder's footer check)."""
+    return zlib.adler32(data, value) & 0xFFFFFFFF
 
 
 def _gf2_matrix_times(mat, vec: int) -> int:

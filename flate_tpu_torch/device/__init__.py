@@ -1,5 +1,5 @@
-"""PyTorch device side of the encoder; each module mirrors its namesake in
-the JAX package's `jx/`."""
+"""PyTorch device side of the encoder and the decoder; each module mirrors
+its namesake in the JAX package's `jx/`."""
 
 from __future__ import annotations
 

@@ -27,3 +27,24 @@ def build_index_extra(comp_lens, out_lens, flags: int = 0) -> bytes:
                       np.asarray(out_lens, np.uint32)],
                      axis=1).tobytes()
     return INDEX_SI + struct.pack("<H", len(body)) + body
+
+
+def parse_index_extra(extra: bytes):
+    """Find and parse the FLT1 subfield; None when absent/foreign.
+    Returns (comp_lens i64, out_lens i64, flags)."""
+    pos = 0
+    while pos + 4 <= len(extra):
+        si, ln = extra[pos:pos + 2], struct.unpack_from("<H", extra,
+                                                        pos + 2)[0]
+        body = extra[pos + 4:pos + 4 + ln]
+        pos += 4 + ln
+        if si != INDEX_SI or len(body) < 4:
+            continue
+        ver, flags, n = struct.unpack_from("<BBH", body, 0)
+        if ver != INDEX_VERSION or len(body) != 4 + 8 * n:
+            continue
+        arr = np.frombuffer(body, np.uint32, count=2 * n, offset=4)
+        arr = arr.reshape(n, 2)
+        return (arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64),
+                flags)
+    return None

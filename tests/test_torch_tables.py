@@ -14,6 +14,8 @@ import torch
 from flate_tpu import checksums as j_checksums
 from flate_tpu import consts as j_consts
 from flate_tpu import containers as j_containers
+from flate_tpu import errors as j_errors
+from flate_tpu import inflate as j_inflate
 from flate_tpu import shard_index as j_shard_index
 from flate_tpu import tables as j_tables
 from flate_tpu.jx import encode as j_encode
@@ -24,6 +26,7 @@ from flate_tpu.jx import pipeline2 as j_pipeline2
 import flate_tpu_torch
 from flate_tpu_torch import checksums, consts, containers, errors, \
     shard_index, tables
+from flate_tpu_torch import inflate as hinf
 from flate_tpu_torch.device import encode, encode2, header, pipeline2
 
 
@@ -108,6 +111,178 @@ def test_container_framing_equal(kind, meta):
     assert containers.write_footer(c, h) == j_containers.write_footer(jc, jh)
 
 
+ERROR_NAMES = [
+    "FlateError", "EndOfStream", "BadGzipHeader", "BadZlibHeader",
+    "WrongGzipChecksum", "WrongGzipSize", "WrongZlibChecksum", "InvalidCode",
+    "InvalidMatch", "InvalidBlockType", "WrongStoredBlockNlen",
+    "InvalidDynamicBlockHeader", "OversubscribedHuffmanTree",
+    "IncompleteHuffmanTree", "MissingEndOfBlockCode", "UnfinishedBits"]
+
+
+@pytest.mark.parametrize("name", ERROR_NAMES)
+def test_error_taxonomy_equal(name):
+    """Every error of the JAX package has its namesake, with the same
+    bases by name."""
+    a, b = getattr(errors, name), getattr(j_errors, name)
+    assert [c.__name__ for c in a.__mro__] == [c.__name__ for c in b.__mro__]
+    assert set(ERROR_NAMES) == {
+        n for n in dir(j_errors)
+        if isinstance(getattr(j_errors, n), type)}
+
+
+def test_parse_index_extra_equal():
+    extra = shard_index.build_index_extra([123, 45678, 1], [7168, 7168, 33], 1)
+    for blob in (extra, b"XX\x03\x00abc" + extra, b"XX\x03\x00abc", b"",
+                 extra[:-1], b"FT\x04\x00\x02\x00\x00\x00"):
+        got = shard_index.parse_index_extra(blob)
+        want = j_shard_index.parse_index_extra(blob)
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            assert got[0].dtype == want[0].dtype and got[2] == want[2]
+
+
+def _both(fn, jfn, *args):
+    """(result or error class name) of the port's and the JAX package's
+    function on the same arguments."""
+    out = []
+    for f in (fn, jfn):
+        try:
+            out.append(f(*args))
+        except (errors.FlateError, j_errors.FlateError) as e:
+            out.append(type(e).__name__)
+    return out
+
+
+GZ_FULL = j_containers.write_header(
+    j_containers.Container.GZIP, j_containers.GzipMetadata(
+        filename=b"f.txt", comment=b"c", extra=b"XX\x01\x00a", mtime=77,
+        text=True, hcrc=True))
+HEADERS = {
+    "gzip_plain": ("GZIP", bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 0, 3]) + b"z"),
+    "gzip_full": ("GZIP", GZ_FULL + b"rest"),
+    "gzip_bad_hcrc": ("GZIP", GZ_FULL[:-1] + bytes([GZ_FULL[-1] ^ 1])),
+    "gzip_bad_magic": ("GZIP", b"\x1f\x8c" + GZ_FULL[2:]),
+    "gzip_reserved_flag": ("GZIP", bytes([0x1F, 0x8B, 8, 0x20]) + b"\0" * 6),
+    "gzip_short": ("GZIP", GZ_FULL[:7]),
+    "gzip_cut_extra": ("GZIP", GZ_FULL[:13]),
+    "gzip_cut_name": ("GZIP", GZ_FULL[:19]),
+    "zlib_plain": ("ZLIB", b"\x78\x9c\x00"),
+    "zlib_bad_check": ("ZLIB", b"\x78\x9d"),
+    "zlib_fdict": ("ZLIB", b"\x78\xbb\x00\x00\x00\x01"),
+    "zlib_short": ("ZLIB", b"\x78"),
+    "raw": ("RAW", b"anything"),
+}
+
+
+@pytest.mark.parametrize("case", list(HEADERS))
+def test_parse_header_equal(case):
+    kind, data = HEADERS[case]
+    c, jc = containers.Container[kind], j_containers.Container[kind]
+    assert c.header_size == jc.header_size
+    assert c.footer_size == jc.footer_size
+    for allow in (False, True):
+        got, want = _both(lambda d: containers.parse_header(c, d, allow),
+                          lambda d: j_containers.parse_header(jc, d, allow),
+                          data)
+        if isinstance(want, str):
+            assert got == want
+            continue
+        assert got[0] == want[0]
+        assert (got[1] is None) == (want[1] is None)
+        if got[1] is not None:
+            assert vars(got[1]) == vars(want[1])
+
+
+@pytest.mark.parametrize("fault", [None, "checksum", "size", "short"])
+@pytest.mark.parametrize("kind", ["GZIP", "ZLIB", "RAW"])
+def test_parse_footer_equal(kind, fault):
+    c, jc = containers.Container[kind], j_containers.Container[kind]
+    data = b"some bytes " * 7000             # past the native-CRC threshold
+    h, jh = containers.Hasher(c), j_containers.Hasher(jc)
+    for part in (data[:100], data[100:]):
+        h.update(part)
+        jh.update(part)
+    assert (h.chksum(), h.nbytes) == (jh.chksum(), jh.nbytes)
+    foot = bytearray(containers.write_footer(c, h))
+    if fault == "checksum" and foot:
+        foot[0] ^= 1
+    elif fault == "size" and kind == "GZIP":
+        foot[5] ^= 1
+    elif fault == "short":
+        foot = foot[:-1]
+    got, want = _both(lambda f: containers.parse_footer(c, f, h),
+                      lambda f: j_containers.parse_footer(jc, f, jh),
+                      bytes(foot))
+    assert got == want
+
+
+def test_host_checksums_equal():
+    data = bytes(range(256)) * 300
+    assert checksums.crc32(data) == j_checksums.crc32(data)
+    assert checksums.adler32(data) == j_checksums.adler32(data)
+    assert checksums.crc32(data[5:], 77) == j_checksums.crc32(data[5:], 77)
+    assert checksums.adler32(data[5:], 77) == j_checksums.adler32(data[5:], 77)
+
+
+@pytest.mark.parametrize("case", ["complete", "oversubscribed", "incomplete",
+                                  "single", "empty", "no_eob"])
+def test_check_completeness_equal(case):
+    lens = np.zeros(286, np.int32)
+    if case == "complete":
+        lens[:256] = 9
+        lens[256:] = 6              # 256/512 + 30/64 < 1: pad to complete
+        lens[:4] = 8
+        lens[4:8] = 7
+    elif case == "oversubscribed":
+        lens[:] = 7
+    elif case == "incomplete":
+        lens[250:260] = 9
+    elif case == "single":
+        lens[256] = 1
+    elif case == "no_eob":
+        lens[:4] = 2
+    for is_ll in (True, False):
+        got, want = _both(
+            lambda l: hinf.check_completeness(l, 15, is_ll),
+            lambda l: j_inflate.check_completeness(l, 15, is_ll), lens)
+        assert got == want
+
+
+def test_dynamic_header_and_block_decode_equal():
+    """The host block loop: the dynamic header's code lengths, the decode
+    tables and the decoded bytes of a zlib stream."""
+    import zlib as pyzlib
+    data = (DATA_TEXT * 2)[:50000]
+    raw = pyzlib.compress(data, 9)[2:-4]
+    a, b = hinf._BitCursor(raw), j_inflate._BitCursor(raw)
+    assert (a.read(1), a.read(2)) == (b.read(1), b.read(2)) == (1, 2)
+    la, lb = hinf.decode_dynamic_header_lens(a), \
+        j_inflate.decode_dynamic_header_lens(b)
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(x, y)
+    assert a.pos == b.pos
+    for x, y in zip(hinf.build_decode_table(la[0], 15, True),
+                    j_inflate.build_decode_table(lb[0], 15, True)):
+        np.testing.assert_array_equal(x, y)
+    out = bytearray()
+    hinf._decode_coded_block(
+        a, out, hinf.build_decode_table(la[0], 15, True),
+        hinf.build_decode_table(la[1], 15, False))
+    assert bytes(out) == data
+    with pytest.raises(errors.EndOfStream):
+        hinf._BitCursor(b"\x00").read(9)
+    stored = hinf._BitCursor(b"\x05\x00\xfa\xffhello")
+    sink = bytearray()
+    hinf._decode_stored(stored, sink)
+    assert bytes(sink) == b"hello"
+
+
+DATA_TEXT = (pathlib.Path(__file__).parent / "data" / "rfc1951.txt"
+             ).read_bytes()
+
+
 def test_length_and_dist_codes_equal():
     lengths = np.arange(3, 259, dtype=np.int32)
     lc = j_encode.length_code(lengths)
@@ -159,8 +334,10 @@ def test_port_imports_no_jax_and_no_flate_tpu():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import flate_tpu_torch, flate_tpu_torch.api, flate_tpu_torch._build\n"
-        "from flate_tpu_torch.device import checksum, encode, encode2, "
-        "header, huff, match2, onehot, pack, parse, pipeline2, runs\n"
+        "import flate_tpu_torch.inflate\n"
+        "from flate_tpu_torch.device import anyinflate, checksum, encode, "
+        "encode2, header, huff, inflate2, match2, onehot, pack, parse, "
+        "pipeline2, runs\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or "
         "m.startswith('jax.') or m == 'flate_tpu' or "
@@ -174,7 +351,8 @@ def test_port_imports_no_jax_and_no_flate_tpu():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/torch_stage_profile.py"])
+                                    "tools/torch_stage_profile.py",
+                                    "tools/lane_join_probe.py"])
 def test_card_scripts_import_no_jax_and_no_flate_tpu(script):
     """The card scripts run where there is no JAX: every import statement
     in them, at any depth, names neither jax nor flate_tpu."""

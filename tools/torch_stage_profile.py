@@ -1,6 +1,7 @@
-"""Stage times of the PyTorch port's encode on one CUDA card.
+"""Stage times of the PyTorch port's encode and decode on one CUDA card.
 
     python3 tools/torch_stage_profile.py [--level 1] [--reps 3]
+    python3 tools/torch_stage_profile.py --decode [--level 3] [--reps 3]
 
 Runs the stages of flate_tpu_torch.device.pipeline2.encode_batch_packed
 one by one on an 8 MiB batch (64 shards of 128 KiB after 32 KiB of
@@ -9,6 +10,13 @@ torch.cuda.synchronize() and a host clock around each, and prints one JSON line 
 milliseconds (median over reps), the parse loop's iteration count, the
 whole batch's time, and the device-busy share of one whole-batch run
 from torch.profiler (sum of CUDA kernel time over wall time).
+
+With --decode it encodes chip_smoke.py's text corpus at each level and
+times the indexed decode of its first batch (8 shards of 128 KiB) stage by
+stage: host planning (index parse, plan_shard, pack_coded_run with its
+copy to the card), _pass1, the lane walk, _extract, _resolve, and the
+fetch of flags and bytes; then the whole text decode and the serial-walk
+batch, and the device-busy share of one whole decode.
 """
 
 from __future__ import annotations
@@ -25,9 +33,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import B, CTX, S, mixed_corpus, smi  # noqa: E402
-from flate_tpu_torch.device import encode2, match2, pack  # noqa: E402
+from chip_smoke import B, CTX, S, mixed_corpus, smi, text_corpus  # noqa: E402
+from flate_tpu_torch import api  # noqa: E402
+from flate_tpu_torch.containers import Container, parse_header  # noqa: E402
+from flate_tpu_torch.device import encode2, inflate2, match2, pack  # noqa: E402
 from flate_tpu_torch.device import parse, pipeline2  # noqa: E402
+from flate_tpu_torch.shard_index import parse_index_extra  # noqa: E402
 
 
 def stages(shards, ctx0, meta, kern):
@@ -99,16 +110,110 @@ def parse_hops(ml, md, kern) -> int:
     return hops
 
 
+def device_busy(fn) -> dict:
+    """Wall ms, summed device ms and the largest device items of one
+    profiled fn()."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    evs = prof.key_averages()
+    total = sum(dev_us(e) for e in evs)
+    top = sorted(evs, key=lambda e: -dev_us(e))[:8]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": total / 1e3,
+            "device_busy_share": total / 1e3 / wall_ms,
+            "top_device_ops": [(e.key, dev_us(e) / 1e3, e.count)
+                               for e in top]}
+
+
+def decode_stages(blob: bytes, dev, nshards: int = 8) -> dict:
+    """The indexed decode of the member's first `nshards` shards, stage by
+    stage with a synchronise around each; returns {stage: ms}."""
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) * 1e3
+        return r
+
+    def plan():
+        hdr, meta = parse_header(Container.GZIP, blob)
+        comp_lens, out_lens, _ = parse_index_extra(meta.extra)
+        run, off = [], hdr
+        for c, o in zip(comp_lens[:nshards], out_lens[:nshards]):
+            sh = blob[off:off + int(c)]
+            off += int(c)
+            run.append((inflate2.plan_shard(sh, int(o)), sh))
+        return run
+    run = timed("host_plan", plan)
+    a = timed("host_pack_and_copy",
+              lambda: inflate2.pack_coded_run(run, b"", dev))
+    word = timed("pass1", lambda: inflate2._pass1(a[0], *a[3:9]))
+    mask, joined = timed("lane_walk",
+                         lambda: inflate2._lane_walk(word, a[2], 8 * a[1]))
+    ex = timed("extract", lambda: inflate2._extract(
+        word, mask, joined, a[2], S + 128))
+    o, err = timed("resolve", lambda: inflate2._resolve(
+        ex[0], ex[1], a[9], a[10], S))
+    timed("fetch", lambda: (inflate2._pack_flags(err, ex[2]).cpu(), o.cpu()))
+    timed("serial_walk", lambda: inflate2._walk(word, a[2], 8 * a[1],
+                                                S + 128))
+    return out
+
+
+def decode_profile(levels, reps: int, card: str) -> None:
+    dev = torch.device("cuda")
+    text = text_corpus(3_359_630)
+    for level in levels:
+        blob = api.gzip.compress(text, level=level)
+        runs_ = [decode_stages(blob, dev) for _ in range(reps + 1)][1:]
+        med = {k: statistics.median(r[k] for r in runs_) for k in runs_[0]}
+        walk = med.pop("serial_walk")
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = api.gzip.decompress(blob)
+            secs.append(time.perf_counter() - t)
+            if got != text:
+                raise AssertionError("decode differs from the input")
+        whole = statistics.median(secs)
+        inflate2.STATS.clear()
+        busy = device_busy(lambda: api.gzip.decompress(blob))
+        print(json.dumps({
+            "card": card, "mode": "decode", "level": level,
+            "batch_shards": 8, "batch_bytes": 8 * S, "stage_ms": med,
+            "stage_sum_ms": sum(med.values()), "serial_walk_ms": walk,
+            "text_bytes": len(text), "text_decode_s": whole,
+            "text_decode_GBps": len(text) / whole / 1e9,
+            "stats": dict(inflate2.STATS), **busy}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--level", type=int, action="append")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--decode", action="store_true",
+                    help="profile the decode instead of the encode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     card = smi()
+    if args.decode:
+        decode_profile(args.level or [1, 3], args.reps, card)
+        return 0
     head = mixed_corpus(CTX + B * S)     # context, then one 8 MiB batch
     ctx0 = torch.frombuffer(bytearray(head[:CTX]), dtype=torch.uint8).to(dev)
     shards = torch.frombuffer(bytearray(head[CTX:]), dtype=torch.uint8
@@ -140,30 +245,12 @@ def main() -> int:
         t = time.perf_counter()
         whole()
         batch_ms = (time.perf_counter() - t) * 1e3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            whole()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        evs = prof.key_averages()
-        dev_us = sum(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-                     for e in evs)
-        top = sorted(evs, key=lambda e: -getattr(
-            e, "self_device_time_total", getattr(e, "self_cuda_time_total",
-                                                 0)))[:8]
+        busy = device_busy(whole)
         print(json.dumps({
             "card": card, "level": level, "batch_bytes": B * S,
             "stage_ms": med, "stage_sum_ms": sum(med.values()),
             "parse_hops": hops, "batch_ms": batch_ms,
-            "profiled_wall_ms": wall_ms, "device_busy_ms": dev_us / 1e3,
-            "device_busy_share": dev_us / 1e3 / wall_ms,
-            "top_device_ops": [(e.key, getattr(
-                e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count)
-                for e in top]}), flush=True)
+            **busy}), flush=True)
     return 0
 
 
