@@ -31,7 +31,27 @@ Phases, one line each:
      (d) the first 8 text shards with walk="serial".  Each output must
      equal its input; the launch counters are reset before and read after
      each run, and each run prints its route, seconds, GB/s of output,
-     launches, batches walked again serially and re-routes.
+     launches, batches walked again serially and re-routes;
+  7. (run right after phase 3, on its batch) the kernels of the other
+     levels and of the fp/top-2 matcher, against their plain versions at
+     the same full width: B1 and B2 at level 6's and level 9's knobs
+     (K=48, nw=8; K=160, nw=16; level 9's 3-byte K3 pass), B1 with
+     fingerprint words and B2 ranking by them with both outputs (K=48,
+     nw=8, fp=True), B8 (top-2 chain extension) on those outputs, and B9
+     (parse walk) three ways: rows = level 6's parse blocks (8192 x 1024),
+     rows = level 9's (2048 x 4096), rows = shards (64 x 131072, the
+     parse_walk entry point);
+  8. the main path: api.gzip.compress at level 6 of 32 MiB mixed, decoded
+     by zlib and by the port's own gzip.decompress; levels 2, 4, 5, 7, 8, 9
+     on 8 MiB; sizes against zlib at the same level (must be <= 1.0), with
+     the text and 8 MiB mixed ratios at levels 6 and 9 beside the JAX
+     package's (BENCH_r05.json: sizes, a property of the bytes); CUDA
+     bytes against the port's CPU bytes at levels 6 and 9 on 8 shards,
+     with the count of greedy code lengths (ll_bits, d_bits: rounded
+     float32 -log2) that differ between card and CPU; and one batch
+     through find_matches_fused(fp=True) -> parse -> fields -> pack ->
+     compaction, decoded by zlib, with parse_walk held against
+     parse_doubling on the same matches.
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON, and last `{"ok": true, "device": {...}}`.  Any failure exits
 non-zero without the last line.  Imports nothing of JAX or flate_tpu.
@@ -57,6 +77,10 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM memory rate (data sheet)
 INT_OPS_PER_S = 64 * 132 * 1.98e9
 HERE = os.path.dirname(os.path.abspath(__file__))
 LEVELS = (1, 3)
+# size / zlib's size at the same level, from the JAX package's last bench
+# (BENCH_r05.json size_vs_zlib_corpora): byte counts, equal on any hardware
+JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
+              9: {"text": 0.9787, "mixed 8 MiB": 0.9365}}
 
 
 def text_corpus(size: int) -> bytes:
@@ -106,6 +130,10 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def tupled(r) -> tuple:
+    return r if isinstance(r, tuple) else (r,)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -114,7 +142,7 @@ def main() -> int:
     from flate_tpu_torch import _build, api
     from flate_tpu_torch.containers import Container, parse_header
     from flate_tpu_torch.device import encode2, inflate2, match2, parse
-    from flate_tpu_torch.device import pack, pipeline2, runs
+    from flate_tpu_torch.device import pack, pipeline2, runs, squeeze
     from flate_tpu_torch.shard_index import parse_index_extra
 
     card = smi()
@@ -152,9 +180,13 @@ def main() -> int:
         count the case reports; bytes_moved: what the function must move
         at its own widths (u32 keys, words and field values), each input
         read once and each output written once; ops: the integer
-        operations this run's data needs (a lower bound)."""
+        operations this run's data needs (a lower bound).  plain_reps=0
+        times the one plain run that the comparison needs."""
         k_out = kernel()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         p_out = plain()
+        ev[1].record()
         torch.cuda.synchronize()
         err = 0
         for a, b in zip(k_out, p_out):
@@ -166,7 +198,8 @@ def main() -> int:
             raise AssertionError(f"{label}: kernel != plain "
                                  f"(max abs err {err})")
         ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, plain_reps)
+        plain_ms = cuda_ms(plain, plain_reps) if plain_reps \
+            else ev[0].elapsed_time(ev[1])
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = float(ops) / INT_OPS_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -252,7 +285,95 @@ def main() -> int:
              vals.numel() * 4 + nbytes(off) + B * nwords * 4,  # u32 values
              2 * int((vals != 0).sum()))   # shift + atomic OR per field
         del key, words, skey, order, ld, vals, off
-    del window, shards
+
+    # ---- phase 7: the kernels of levels 2-9 and of the fp/top-2 matcher ----
+    def bucket_visits(skey, K):
+        """Candidates a K-deep scan visits: same bucket, nearest first."""
+        bucket = skey >> match2.POS_BITS
+        same = skey != match2.SENTINEL
+        visits = torch.zeros((), dtype=torch.int64, device=dev)
+        for k in range(1, K + 1):
+            same = same & torch.nn.functional.pad(
+                bucket[:, k:] == bucket[:, :-k], (k, 0))
+            visits += same.sum()
+        return int(visits)
+
+    def matcher_cases(path, tag, K, ne, nf, hash_bytes, max_dist, top2):
+        """B1 then B2 at these knobs; returns B2's outputs."""
+        nc = ne + nf
+        key, words = case(
+            7, path, f"prep_{tag}", "flate_prep",
+            "flate_tpu/jx/match2.py:107",
+            lambda: match2._prep(window, ne, hash_bytes, nf),
+            lambda: match2._prep_plain(window, ne, hash_bytes, nf),
+            nbytes(window) + B * Wp * 4 * (1 + nc),
+            B * Wp * ((4 * ne << nf) + hash_bytes), plain_reps=1)
+        skey, order = torch.sort(key, dim=1)
+        return case(
+            7, path, f"matcher_{tag}", "flate_matcher",
+            "flate_tpu/jx/match2.py:187",
+            lambda: tupled(match2._run_matcher(
+                skey, order, words, min_src, limit, W, K, max_dist, nf,
+                top2)),
+            lambda: tupled(match2._run_matcher_plain(
+                skey, order, words, min_src, limit, W, K, max_dist, nf,
+                top2)),
+            B * Wp * 4 * (1 + nc) + B * W * 4 * (2 if top2 else 1),
+            bucket_visits(skey, K) * (ne + 1), reps=5, plain_reps=1)
+
+    for L in (6, 9):
+        lvl = pipeline2.level_params(L, S)
+        matcher_cases(("encode", L), f"l{L}", lvl["K"], lvl["nw"], 0, 4,
+                      32768, False)
+        if lvl["K3"]:
+            matcher_cases(("encode", L), f"k3_l{L}", lvl["K3"], 1, 0, 3,
+                          4096, False)
+        # B9 on the level's real step array, rows = parse blocks
+        mlen, mdist = match2.find_matches_fused(
+            window, ctx_len, valid, K=lvl["K"], nw=lvl["nw"], ctx=CTX,
+            K3=lvl["K3"])
+        if L == 6:
+            whole_l, whole_d = mlen, mdist        # untruncated, for (c)
+        mlen, mdist = parse.truncate_matches(mlen, mdist, CTX, lvl["blk"])
+        _, step = parse.decide(mlen, mdist, lvl["lazy"], lvl["max_lazy"])
+        sb = step[:, CTX:].to(torch.int32).reshape(-1, lvl["blk"]
+                                                   ).contiguous()
+        (mask,) = case(
+            7, ("encode", L), f"parse_walk_blocks_l{L}", "flate_parse_walk",
+            "flate_tpu/jx/parse.py:66",
+            lambda: (parse._parse_walk(sb),),
+            lambda: (parse._parse_walk_plain(sb),),
+            5 * sb.numel(),                # i32 steps in, u8 mask out
+            2 * int(parse._parse_walk(sb).sum()),  # a load + an add a step
+            plain_reps=1)
+        print(f"[7] level {L} block walk: {sb.shape[0]} rows x "
+              f"{sb.shape[1]}, {int(mask.sum())} steps, longest row "
+              f"{int(mask.sum(dim=1).max())}", flush=True)
+    _, step = parse.decide(whole_l, whole_d, True, 32)
+    sub = step[:, CTX:].to(torch.int32).contiguous()
+    (mask,) = case(
+        7, ("fp",), "parse_walk_shards", "flate_parse_walk",
+        "flate_tpu/jx/parse.py:66",
+        lambda: (parse._parse_walk(sub),),
+        lambda: (parse._parse_walk_plain(sub),),
+        5 * sub.numel(), 2 * int(parse._parse_walk(sub).sum()),
+        reps=3, plain_reps=0)
+    print(f"[7] shard walk: {sub.shape[0]} rows x {sub.shape[1]}, "
+          f"{int(mask.sum())} steps, longest row "
+          f"{int(mask.sum(dim=1).max())}", flush=True)
+    del whole_l, whole_d, sub, sb, mask
+
+    ne, nf = match2._split_words(8, True)
+    ld, ld2 = matcher_cases(("fp",), "fp", 48, ne, nf, 4, 32768, True)
+    cands = (ld >> 16, ld & 0xFFFF, ld2 >> 16, ld2 & 0xFFFF)
+    case(7, ("fp",), "extend2_fp", "flate_extend2",
+         "flate_tpu/jx/runs.py:196",
+         lambda: runs.extend_chains2(*cands, limit, 4 * ne),
+         lambda: runs._extend_chains2_plain(*cands, limit, 4 * ne),
+         nbytes(*cands) + 2 * B * W * 4,
+         6 * B * W + 3 * sum(int(((l == 4 * ne) & (d > 0)).sum())
+                             for l, d in (cands[:2], cands[2:])))
+    del ld, ld2, cands, window, shards
 
     # ---- phase 4: the main path through the public entry point ----
     data32 = mixed_corpus(4 * B * S)
@@ -260,6 +381,15 @@ def main() -> int:
     text = text_corpus(3_359_630)      # bench.py's text corpus
     launches = {}
     blobs = {}
+    # B8 runs under find_matches_fused(fp=True) only, which no level sets
+    level_kernels = [k for k in _build.ENCODE_KERNELS if k != "flate_extend2"]
+
+    def need_launched(what, counts, names=level_kernels):
+        for name in names:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"{what}: kernel {name} never launched "
+                                     f"on the main path: {counts}")
+
     for L in LEVELS:
         api.gzip.compress(data8, level=L)            # warm-up (allocator)
         torch.cuda.synchronize()
@@ -268,10 +398,7 @@ def main() -> int:
         blob = api.gzip.compress(data32, level=L)
         secs = time.time() - t
         counts = dict(_build.LAUNCHES)
-        for name in _build.ENCODE_KERNELS:
-            if counts.get(name, 0) <= 0:
-                raise AssertionError(f"level {L}: kernel {name} never "
-                                     f"launched on the main path: {counts}")
+        need_launched(f"level {L}", counts)
         launches[("encode", L)] = counts
         if zlib.decompress(blob, 31) != data32:
             raise AssertionError(f"level {L}: zlib round trip differs")
@@ -384,6 +511,135 @@ def main() -> int:
               f"{stats.get('serial_retries', 0)}; re-routes "
               f"{stats.get('segmented_reroutes', 0)}; stats {stats}",
               flush=True)
+
+    # ---- phase 8: every other level through the public entry point ----
+    def ratio(blob, data, L):
+        zl = len(zlib.compress(data, L))
+        if len(blob) > zl:
+            raise AssertionError(f"level {L}: {len(blob)} bytes exceed "
+                                 f"zlib's {zl}")
+        return len(blob) / zl
+
+    def batch_of(data):
+        """The first B shards of `data` as encode_batch_packed takes them:
+        (shards, ctx0, meta) on the card, no carried context, the last
+        shard final."""
+        shards = torch.frombuffer(bytearray(data[:B * S]), dtype=torch.uint8
+                                  ).reshape(B, S).to(dev)
+        meta = torch.zeros(3 * B + 1, dtype=torch.int32)
+        meta[1:B] = CTX
+        meta[B:2 * B] = S
+        meta[3 * B - 1] = 1
+        meta[3 * B] = B
+        return (shards, torch.zeros(CTX, dtype=torch.uint8, device=dev),
+                meta.to(dev))
+
+    def code_length_flips(L):
+        """Entries of the greedy pass's (ll_bits, d_bits) on the 8 MiB
+        batch that differ between the card and the CPU, from the same
+        parse: only the float32 -log2 and its rounding can differ."""
+        lvl = pipeline2.level_params(L, S)
+        shards, ctx0, meta = batch_of(data8)
+        window = pipeline2._prime_windows(shards, ctx0, CTX)
+        ml, md = match2.find_matches_fused(
+            window, meta[:B], meta[B:2 * B], K=lvl["K"], nw=lvl["nw"],
+            ctx=CTX, K3=lvl["K3"])
+        ml, md = parse.truncate_matches(ml, md, CTX, lvl["blk"])
+        take, _ = parse.decide(ml, md, lvl["lazy"], lvl["max_lazy"])
+        starts = parse.parse_blocks(ml, md, start=CTX, lazy=lvl["lazy"],
+                                    max_lazy=lvl["max_lazy"], blk=lvl["blk"])
+        args = [x[:, CTX:] for x in (window, ml, md, starts, take)]
+        on_card = squeeze.greedy_code_lengths(*args, meta[B:2 * B])
+        on_cpu = squeeze.greedy_code_lengths(*(a.cpu() for a in args),
+                                             meta[B:2 * B].cpu())
+        return sum(int((a.cpu() != b).sum()) for a, b in zip(on_card, on_cpu))
+
+    mixed1 = data32[:8 * S]
+    for L, data in ((6, data32), (2, data8), (4, data8), (5, data8),
+                    (7, data8), (8, data8), (9, data8)):
+        api.gzip.compress(mixed1, level=L)           # warm-up (allocator)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t = time.time()
+        blob = api.gzip.compress(data, level=L)
+        secs = time.time() - t
+        counts = dict(_build.LAUNCHES)
+        need_launched(f"level {L}", counts)
+        launches[("encode", L)] = counts
+        if zlib.decompress(blob, 31) != data:
+            raise AssertionError(f"level {L}: zlib round trip differs")
+        line = (f"[8] level {L}: {len(data) >> 20} MiB mixed in {secs:.4f} s"
+                f" = {len(data) / secs / 1e9:.4f} GB/s; launches {counts}; "
+                f"zlib round trip ok; {len(blob)} bytes = "
+                f"{ratio(blob, data, L):.4f} of zlib -{L}")
+        if L in JAX_RATIOS:
+            if L == 6:
+                t = time.time()
+                if api.gzip.decompress(blob) != data:
+                    raise AssertionError("level 6: the port's own decode "
+                                         "differs from the input")
+                line += f"; own decode ok in {time.time() - t:.4f} s"
+            sized = {"text": api.gzip.compress(text, level=L),
+                     "mixed 8 MiB": blob if data is data8
+                     else api.gzip.compress(data8, level=L)}
+            for cname, cdata in (("text", text), ("mixed 8 MiB", data8)):
+                if zlib.decompress(sized[cname], 31) != cdata:
+                    raise AssertionError(f"level {L}: {cname} round trip")
+                line += (f"; {cname} {len(sized[cname])} bytes = "
+                         f"{ratio(sized[cname], cdata, L):.4f} of zlib "
+                         f"(JAX package {JAX_RATIOS[L][cname]})")
+            # card against CPU: bytes, and the rounded -log2 code lengths
+            t = time.time()
+            cpu = api.gzip.compress(mixed1, level=L, device="cpu", batch=8)
+            cpu_s = time.time() - t
+            gpu = api.gzip.compress(mixed1, level=L, batch=8)
+            flips = code_length_flips(L)
+            line += (f"; 8 shards: cuda == cpu bytes {gpu == cpu} (cpu twin "
+                     f"{cpu_s:.1f} s), ll_bits/d_bits entries of the 8 MiB "
+                     f"batch that differ between card and CPU: {flips}")
+            if gpu != cpu:
+                if flips == 0:
+                    raise AssertionError(f"level {L}: cuda bytes != cpu "
+                                         f"bytes with equal code lengths")
+                if zlib.decompress(gpu, 31) != mixed1:
+                    raise AssertionError(f"level {L}: 8-shard round trip")
+        print(line, flush=True)
+
+    # one batch through the fp/top-2 matcher to a stream
+    _build.LAUNCHES.clear()
+    t = time.time()
+    shards, ctx0, meta = batch_of(data8)
+    window = pipeline2._prime_windows(shards, ctx0, CTX)
+    mlen, mdist = match2.find_matches_fused(
+        window, meta[:B], meta[B:2 * B], K=48, nw=8, ctx=CTX, fp=True)
+    walked = parse.parse_walk(mlen, mdist, start=CTX, lazy=True, max_lazy=32)
+    doubled = parse.parse_doubling(mlen, mdist, CTX, lazy=True, max_lazy=32)
+    if not torch.equal(walked, doubled):
+        raise AssertionError("fp: parse_walk != parse_doubling")
+    mlen, mdist = parse.truncate_matches(mlen, mdist, CTX, 1024)
+    take, _ = parse.decide(mlen, mdist, True, 32)
+    starts = parse.parse_blocks(mlen, mdist, start=CTX, lazy=True,
+                                max_lazy=32, blk=1024)
+    seg = encode2.seg_size(S, 1024)
+    vals, bits, _, _ = encode2.build_fields(
+        window[:, CTX:], mlen[:, CTX:], mdist[:, CTX:], starts[:, CTX:],
+        take[:, CTX:], meta[B:2 * B], meta[2 * B:3 * B], S, seg)
+    words, tbits = pack.pack_fields(vals, bits, pipeline2._nwr(S, seg))
+    buf, mo = pipeline2._compact_stage(words, tbits, shards, meta[B:2 * B],
+                                       meta[3 * B])
+    raw = buf[:int(mo[0])].cpu().numpy().tobytes()
+    secs = time.time() - t
+    counts = dict(_build.LAUNCHES)
+    need_launched("fp batch", counts, _build.ENCODE_KERNELS)
+    launches[("fp",)] = counts
+    if zlib.decompress(raw, -15) != data8:
+        raise AssertionError("fp batch: zlib round trip differs")
+    print(f"[8] fp=True batch (K=48, nw=8: 2 exact + 2 fingerprint words, "
+          f"top-2 extension, cap 8): 8 MiB in {secs:.4f} s; launches "
+          f"{counts}; parse_walk == parse_doubling ({int(walked.sum())} "
+          f"token starts); zlib round trip ok; {len(raw)} raw bytes = "
+          f"{len(raw) / len(zlib.compress(data8, 6)):.4f} of zlib -6",
+          flush=True)
 
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)

@@ -37,10 +37,12 @@ _I = ctypes.c_int
 # argument types of each C entry point (pointers and the stream as void*),
 # by the source that holds it
 ENCODE_KERNELS = {
-    "flate_prep": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "flate_matcher": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flate_prep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flate_matcher": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "flate_small_runs": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flate_extend": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "flate_extend2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "flate_parse_walk": [_P, _P, _I, _I, _P],
     "flate_pack": [_P, _P, _P, _I, _I, _I, _P],
 }
 DECODE_KERNELS = {

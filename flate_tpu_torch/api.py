@@ -1,13 +1,13 @@
 """Public surface of the PyTorch port.
 
     import flate_tpu_torch as ftt
-    blob = ftt.gzip.compress(data, level=1)              # on the CUDA card
+    blob = ftt.gzip.compress(data, level=6)              # on the CUDA card
     blob = ftt.zlib.compress(data, level=3, device="cpu")
     data = ftt.gzip.decompress(blob)                     # on the CUDA card
     data = ftt.gzip.decompress(blob, device="cpu", walk="serial")
 
 Each namespace runs the one-shot device encode (device/pipeline2.py,
-levels 1 and 3 in this release) and the device decode
+levels 1-9) and the device decode
 (device/inflate2.py, device/anyinflate.py) with its container.
 """
 
@@ -28,8 +28,8 @@ class _Namespace:
                  device: str | torch.device = "cuda",
                  shard_len: int = consts.SHARD_LEN,
                  batch: int = 64) -> bytes:
-        """Compress `data` into one member of this container, in batches
-        of `batch` shards of `shard_len` bytes."""
+        """Compress `data` at level 1-9 into one member of this container,
+        in batches of `batch` shards of `shard_len` bytes."""
         return pipeline2.compress_device2(
             bytes(data), level=level, container=self._container,
             shard_len=shard_len, batch=batch, device=device)

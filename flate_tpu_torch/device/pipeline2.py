@@ -1,19 +1,17 @@
 """Device-resident compression pipeline (one-shot encode).
 
 Counterpart of flate_tpu/jx/pipeline2.py: LEVEL_KERNEL, _nwr,
-_prime_windows (:120), encode_batch_packed (:261), _compact_stage (:223),
-compress_device2 / _compress_device2_impl (:338) and _assemble (:593).
-Per batch of B shards of S bytes:
+_prime_windows (:120), _squeeze_stage (:157), encode_batch_packed (:261),
+_compact_stage (:223), compress_device2 / _compress_device2_impl (:338)
+and _assemble (:593).  Per batch of B shards of S bytes:
 
-    windows -> matcher -> parse -> field build -> bit-pack -> compaction
+    windows -> matcher -> parse -> [squeeze cost DP] -> field build ->
+    bit-pack -> compaction
 
 The host moves bytes: it uploads a batch, fetches its compacted stream
 and a small meta array, and wraps the container.  Batches are dispatched
 two ahead on one CUDA stream; the 32 KiB context is carried on the device
-from batch to batch.
-
-This slice runs levels 1 and 3 (no squeeze cost DP); the other levels
-raise NotImplementedError naming the missing stage.
+from batch to batch.  Levels 1-9; levels 2 and 4-9 run the squeeze.
 """
 
 from __future__ import annotations
@@ -28,6 +26,7 @@ from ..containers import (Container, GzipMetadata, Hasher, write_footer,
 from . import checksum, encode2, match2, resolve_device
 from . import pack as pk
 from . import parse as prs
+from . import squeeze as sq
 
 CTX = consts.MAX_DISTANCE
 PACK_WIN = 640                   # the packer's placement window (words)
@@ -52,20 +51,15 @@ HASH_NONE, HASH_CRC32, HASH_ADLER32 = 0, 1, 2
 
 def level_params(level: int, shard_len: int = consts.SHARD_LEN) -> dict:
     """Kernel knobs of a level, with the parse block fitted to the shard.
-    Raises ValueError for an unknown level and NotImplementedError for a
-    level whose stages the port does not have yet."""
+    Raises ValueError for an unknown level."""
     if level not in LEVEL_KERNEL:
         raise ValueError(f"invalid level {level}")
     K, nw, lazy, max_lazy, K3, squeeze, blk = LEVEL_KERNEL[level]
-    if squeeze:
-        raise NotImplementedError(
-            f"level {level} needs the squeeze cost DP (jx/squeeze.py), "
-            "which the PyTorch port does not have yet: levels 2 and 4-9 "
-            "are unsupported; use level 1 or 3")
     blk = min(blk, shard_len)
     while shard_len % blk:
         blk //= 2
-    return dict(K=K, nw=nw, lazy=lazy, max_lazy=max_lazy, K3=K3, blk=blk)
+    return dict(K=K, nw=nw, lazy=lazy, max_lazy=max_lazy, K3=K3,
+                squeeze=squeeze, blk=blk)
 
 
 def _nwr(S: int, seg: int) -> int:
@@ -120,10 +114,27 @@ def _compact_stage(words: torch.Tensor, tbits: torch.Tensor,
     return buf, torch.cat(parts)
 
 
+def _squeeze_stage(window_tail, m_r, d_r, take_r, starts_r, valid_lens,
+                   blk: int = prs.PARSE_BLK, grid_only: bool | None = None,
+                   hist_stride: int | None = None):
+    """Greedy code lengths, then the cost DP: (take, starts, lengths) of
+    the cheaper parse.  grid_only and hist_stride default to
+    FLATE_TPU_SQUEEZE_GRID and FLATE_TPU_SQUEEZE_HIST_STRIDE, read when
+    called."""
+    if grid_only is None:
+        grid_only = sq.grid_only_default()
+    ll_bits, d_bits = sq.greedy_code_lengths(
+        window_tail, m_r, d_r, starts_r, take_r, valid_lens,
+        stride=hist_stride)
+    take2, starts2, sel = sq.squeeze_parse(
+        window_tail, m_r, d_r, ll_bits, d_bits, blk=blk, grid_only=grid_only)
+    return take2, starts2, torch.where(take2, sel, 0)
+
+
 def encode_batch_packed(shards: torch.Tensor, ctx0: torch.Tensor,
                         meta_in: torch.Tensor, *, S: int, ctx: int, K: int,
                         nw: int, lazy: bool, max_lazy: int, K3: int = 0,
-                        blk: int = prs.PARSE_BLK,
+                        squeeze: bool = False, blk: int = prs.PARSE_BLK,
                         hash_kind: int = HASH_NONE):
     """One batch through the whole encode.  shards (B, S) uint8, ctx0
     (ctx,) uint8, meta_in (3B+1,) int32 = [ctx_lens | valid | finals |
@@ -138,10 +149,16 @@ def encode_batch_packed(shards: torch.Tensor, ctx0: torch.Tensor,
     take, _ = prs.decide(mlen, mdist, lazy, max_lazy)
     starts = prs.parse_blocks(mlen, mdist, start=ctx, lazy=lazy,
                               max_lazy=max_lazy, blk=blk)
+    m_r, d_r = mlen[:, ctx:], mdist[:, ctx:]
+    take_r, starts_r = take[:, ctx:], starts[:, ctx:]
+    if squeeze:
+        take_r, starts_r, m_r = _squeeze_stage(
+            windows[:, ctx:], m_r, d_r, take_r, starts_r, valid_lens,
+            blk=blk)
     seg = encode2.seg_size(S, blk)
     vals, bits, _, _ = encode2.build_fields(
-        windows[:, ctx:], mlen[:, ctx:], mdist[:, ctx:], starts[:, ctx:],
-        take[:, ctx:], valid_lens, finals, S, seg)
+        windows[:, ctx:], m_r, d_r, starts_r, take_r, valid_lens, finals,
+        S, seg)
     words, tbits = pk.pack_fields(vals, bits, _nwr(S, seg))
     return _compact_stage(words, tbits, shards, valid_lens, nb,
                           hash_kind=hash_kind)

@@ -1,10 +1,10 @@
 """Run-length helpers of the matcher: small-distance runs and same-distance
 chain extension.
 
-Counterparts of flate_tpu/jx/runs.py:small_dist_runs (:119) and
-extend_chains (:296).  Each wrapper launches its CUDA kernel
-(csrc/encode_kernels.cu, B3 and B4) for CUDA tensors and runs the plain
-PyTorch version beside it for CPU tensors.
+Counterparts of flate_tpu/jx/runs.py:small_dist_runs (:119),
+extend_chains (:296) and extend_chains2 (:269).  Each wrapper launches its
+CUDA kernel (csrc/encode_kernels.cu, B3, B4 and B8) for CUDA tensors and
+runs the plain PyTorch version beside it for CPU tensors.
 """
 
 from __future__ import annotations
@@ -131,3 +131,64 @@ def extend_chains(mlen: torch.Tensor, mdist: torch.Tensor,
     _build.launch("flate_extend", mlen.data_ptr(), mdist.data_ptr(),
                   limit.data_ptr(), out.data_ptr(), B, W, cap)
     return out
+
+
+# ---------------------------------------------------------------------------
+# top-2 same-distance chain extension (kernel B8)
+# ---------------------------------------------------------------------------
+
+def _extend_chains2_plain(l1: torch.Tensor, d1: torch.Tensor,
+                          l2: torch.Tensor, d2: torch.Tensor,
+                          limit: torch.Tensor, cap: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rounds of t = chain ? min(cap + t[p+cap], 516) : len over both
+    candidates, with whole-row shifts, as the TPU kernel composes them."""
+    W = l1.shape[1]
+    l1, d1, l2, d2 = (x.to(torch.int32) for x in (l1, d1, l2, d2))
+    nd1, nd2 = _fwd(d1, cap), _fwd(d2, cap)
+    c1a = (l1 == cap) & (nd1 == d1) & (d1 > 0)
+    c1b = (l1 == cap) & ~c1a & (nd2 == d1) & (d1 > 0)
+    c2a = (l2 == cap) & (nd1 == d2) & (d2 > 0)
+    c2b = (l2 == cap) & ~c2a & (nd2 == d2) & (d2 > 0)
+    t1, t2 = l1, l2
+    rounds = -(-consts.MAX_MATCH_LEN // cap) + 1
+    for _ in range(rounds):
+        v1 = torch.clamp(cap + _fwd(t1, cap), max=2 * consts.MAX_MATCH_LEN)
+        v2 = torch.clamp(cap + _fwd(t2, cap), max=2 * consts.MAX_MATCH_LEN)
+        t1 = torch.where(c1a, v1, torch.where(c1b, v2, l1))
+        t2 = torch.where(c2a, v1, torch.where(c2b, v2, l2))
+    maxlen = _maxlen(limit, W, l1.device)
+    t1 = torch.minimum(torch.clamp(t1, max=consts.MAX_MATCH_LEN), maxlen)
+    t2 = torch.minimum(torch.clamp(t2, max=consts.MAX_MATCH_LEN), maxlen)
+    s1 = torch.where(t1 >= consts.MIN_MATCH_LEN, (t1 << SCORE_SHIFT) - d1, -1)
+    s2 = torch.where(t2 >= consts.MIN_MATCH_LEN, (t2 << SCORE_SHIFT) - d2, -1)
+    pick2 = s2 > s1
+    out_l = torch.where(pick2, t2, t1)
+    out_d = torch.where(pick2, d2, d1)
+    # the maxlen clip can shorten tail matches below the minimum: drop them
+    live = out_l >= consts.MIN_MATCH_LEN
+    return torch.where(live, out_l, 0), torch.where(live, out_d, 0)
+
+
+def extend_chains2(l1: torch.Tensor, d1: torch.Tensor, l2: torch.Tensor,
+                   d2: torch.Tensor, limit: torch.Tensor, cap: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-2 chain extension: a cap-saturated candidate at p with distance
+    d continues through p+cap when either of p+cap's two candidates has
+    distance d.  l1, d1, l2, d2 (B, W) int32 (best and runner-up per
+    position); limit (B,).  Returns (mlen, mdist) (B, W) int32: the better
+    of the two extended candidates."""
+    if _build.use_plain(l1):
+        return _extend_chains2_plain(l1, d1, l2, d2, limit, cap)
+    B, W = l1.shape
+    limit = limit.to(torch.int32).contiguous()
+    ins = (l1, d1, l2, d2)
+    for name, x in zip(("l1", "d1", "l2", "d2"), ins):
+        _build.check_cuda(f"extend_chains2.{name}", x, torch.int32, (B, W))
+    _build.check_cuda("extend_chains2.limit", limit, torch.int32, (B,))
+    out_len = torch.empty((B, W), dtype=torch.int32, device=l1.device)
+    out_dist = torch.empty_like(out_len)
+    _build.launch("flate_extend2", *(x.data_ptr() for x in ins),
+                  limit.data_ptr(), out_len.data_ptr(), out_dist.data_ptr(),
+                  B, W, cap)
+    return out_len, out_dist

@@ -14,7 +14,7 @@ import torch
 from flate_tpu_torch import _build
 from flate_tpu_torch import api
 from flate_tpu_torch.device import anyinflate, encode2, inflate2, match2
-from flate_tpu_torch.device import pack, parse, pipeline2, runs
+from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
 
 from _torch_corpora import CTX, KINDS, S, corpus, windows
 
@@ -82,15 +82,142 @@ def test_pack_equal_plain(cuda):
     _eq(pack._place(vals, off, n), pack._place_plain(vals, off, n))
 
 
-@pytest.mark.parametrize("level", [1, 3])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6, 7, 8, 9])
 def test_cuda_bytes_equal_cpu(cuda, level):
     data = corpus("mixed", 5 * S - 77, seed=level)
     kw = dict(level=level, shard_len=S, ctx=CTX, batch=2)
     _build.LAUNCHES.clear()
     out = pipeline2.compress_device2(data, device=cuda, **kw)
-    assert all(_build.LAUNCHES[n] > 0 for n in _build.ENCODE_KERNELS)
+    assert all(_build.LAUNCHES[n] > 0 for n in _build.ENCODE_KERNELS
+               if n != "flate_extend2")          # B8: fp=True only
     assert out == pipeline2.compress_device2(data, device="cpu", **kw)
     assert zlib.decompress(out, 31) == data
+
+
+def _bounds(cuda):
+    min_src = torch.tensor([0, CTX - 100], dtype=torch.int32, device=cuda)
+    limit = torch.tensor([CTX + S, CTX + 2000], dtype=torch.int32,
+                         device=cuda)
+    return min_src, limit
+
+
+@pytest.mark.parametrize("nw,fp", [(8, True), (8, 4), (16, True), (8, False)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_fp_top2_kernels_equal_plain(cuda, kind, nw, fp):
+    """B1 with fingerprint words, B2 ranking by them with both outputs, B8
+    on those outputs."""
+    win = torch.from_numpy(windows(kind, seed=3)).to(cuda)
+    W = win.shape[1]
+    min_src, limit = _bounds(cuda)
+    ne, nf = match2._split_words(nw, fp)
+    k = match2._prep(win, ne, 4, nf)
+    p = match2._prep_plain(win, ne, 4, nf)
+    _eq(k[0], p[0])
+    _eq(k[1], p[1])
+    skey, order = torch.sort(k[0], dim=1)
+    for K in (8, 48):
+        kk = match2._run_matcher(skey, order, k[1], min_src, limit, W, K,
+                                 32768, nf, True)
+        pp = match2._run_matcher_plain(skey, order, k[1], min_src, limit, W,
+                                       K, 32768, nf, True)
+        _eq(kk[0], pp[0])
+        _eq(kk[1], pp[1])
+        _eq(match2._run_matcher(skey, order, k[1], min_src, limit, W, K,
+                                32768, nf), pp[0])
+    args = (kk[0] >> 16, kk[0] & 0xFFFF, kk[1] >> 16, kk[1] & 0xFFFF, limit,
+            4 * ne)
+    for a, b in zip(runs.extend_chains2(*args),
+                    runs._extend_chains2_plain(*args)):
+        _eq(a, b)
+    ml, md = match2.find_matches_fused(
+        win, torch.tensor([0, 100], device=cuda),
+        torch.tensor([S, 2000], device=cuda), K=8, nw=nw, ctx=CTX, fp=fp)
+    cl, cd = match2.find_matches_fused(
+        win.cpu(), torch.tensor([0, 100]), torch.tensor([S, 2000]), K=8,
+        nw=nw, ctx=CTX, fp=fp)
+    _eq(ml, cl)
+    _eq(md, cd)
+
+
+@pytest.mark.parametrize("cap", [8, 16])
+def test_extend_chains2_equal_plain(cuda, cap):
+    """Dense synthetic candidates: long chains that switch between the two
+    candidates, rows that end inside a chain, limits that cut the tail."""
+    g = torch.Generator().manual_seed(cap)
+    B, W = 3, 2 * 8192 + 37
+
+    def cand():
+        l = torch.where(torch.rand((B, W), generator=g) < 0.75, cap,
+                        torch.randint(0, cap + 1, (B, W), generator=g))
+        d = torch.where(torch.rand((B, W), generator=g) < 0.6,
+                        torch.randint(4, 7, (B, W), generator=g),
+                        torch.randint(0, 40, (B, W), generator=g))
+        return l.to(torch.int32).to(cuda), d.to(torch.int32).to(cuda)
+    l1, d1 = cand()
+    l2, d2 = cand()
+    limit = torch.tensor([W, W - 300, 40], dtype=torch.int32, device=cuda)
+    for a, b in zip(runs.extend_chains2(l1, d1, l2, d2, limit, cap),
+                    runs._extend_chains2_plain(l1, d1, l2, d2, limit, cap)):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("R,n", [(64, 1024), (16, 4096), (3, 8192),
+                                 (2, 131072), (5, 100), (2, 8200),
+                                 (2, 8208)])
+def test_parse_walk_equal_plain(cuda, R, n):
+    """B9 on rows staged in shared memory (n <= 8192) and chased in device
+    memory, with and without 16-byte rows; steps overshoot the row's end."""
+    g = torch.Generator().manual_seed(n)
+    step = torch.where(torch.rand((R, n), generator=g) < 0.6, 1,
+                       torch.randint(3, 259, (R, n), generator=g))
+    step[0, : n // 2] = 1                     # a long literal run
+    step = step.to(torch.int32).to(cuda)
+    _eq(parse._parse_walk(step), parse._parse_walk_plain(step))
+
+
+@pytest.mark.parametrize("lazy,max_lazy,blk", [(False, 0, 1024),
+                                               (True, 32, 1024),
+                                               (True, 258, 4096)])
+def test_parse_entry_points_equal_cpu(cuda, lazy, max_lazy, blk):
+    """parse_blocks, parse_walk and parse_doubling on the card (B9) against
+    the CPU (the looped plain version)."""
+    win = torch.from_numpy(windows("mixed", seed=9))
+    ctx_len, valid = torch.tensor([CTX, 0]), torch.tensor([S, 1500])
+    ml, md = match2.find_matches_fused(win, ctx_len, valid, K=12, nw=4,
+                                       ctx=CTX)
+    kw = dict(start=CTX, lazy=lazy, max_lazy=max_lazy)
+    _build.LAUNCHES.clear()
+    _eq(parse.parse_blocks(ml.to(cuda), md.to(cuda), blk=blk, **kw),
+        parse.parse_blocks(ml, md, blk=blk, **kw))
+    _eq(parse.parse_walk(ml.to(cuda), md.to(cuda), **kw),
+        parse.parse_walk(ml, md, **kw))
+    assert _build.LAUNCHES["flate_parse_walk"] == 2
+    _eq(parse.parse_doubling(ml.to(cuda), md.to(cuda), **kw),
+        parse.parse_walk(ml, md, **kw))
+
+
+@pytest.mark.parametrize("grid_only", [False, True])
+@pytest.mark.parametrize("blk", [1024, 4096])
+def test_squeeze_equal_cpu(cuda, blk, grid_only):
+    """The cost DP on the card against the CPU: code lengths (the float32
+    log2 rounds to the same lengths), chosen lengths and masks."""
+    win = torch.from_numpy(windows("text", seed=2))
+    ctx_len, valid = torch.tensor([CTX, 0]), torch.tensor([S, 3000])
+    ml, md = match2.find_matches_fused(win, ctx_len, valid, K=12, nw=4,
+                                       ctx=CTX)
+    ml, md = parse.truncate_matches(ml, md, CTX, blk)
+    take, _ = parse.decide(ml, md, True, 32)
+    starts = parse.parse_blocks(ml, md, start=CTX, blk=blk)
+
+    def run(dev):
+        a = [x[:, CTX:].to(dev) for x in (win, ml, md, starts, take)]
+        ll, dd = squeeze.greedy_code_lengths(*a, valid.to(dev))
+        return (ll, dd) + squeeze.squeeze_parse(*a[:3], ll, dd, blk=blk,
+                                                grid_only=grid_only)
+    _build.LAUNCHES.clear()
+    for a, b in zip(run(cuda), run("cpu")):
+        _eq(a, b)
+    assert _build.LAUNCHES["flate_parse_walk"] == 1
 
 
 def test_wrappers_reject_bad_tensors(cuda):
@@ -101,6 +228,13 @@ def test_wrappers_reject_bad_tensors(cuda):
     ml = torch.zeros((2, 100), dtype=torch.int32, device=cuda)[:, ::2]
     with pytest.raises(ValueError):
         runs.extend_chains(ml, ml, torch.zeros(2, device=cuda), 8)
+    with pytest.raises(ValueError):
+        runs.extend_chains2(ml, ml, ml, ml, torch.zeros(2, device=cuda), 8)
+    with pytest.raises(TypeError):
+        parse._parse_walk(torch.ones((2, 64), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        parse._parse_walk(torch.ones((2, 64), dtype=torch.int32,
+                                     device=cuda)[:, ::2])
 
 
 # ---------------------------------------------------------------------------

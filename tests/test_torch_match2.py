@@ -86,3 +86,68 @@ def test_find_matches_fused_corpora_equal(level, kind):
                                        nw=nw, ctx=CTX, K3=K3)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("nw,fp", [(8, True), (8, 4), (16, True), (4, 1)])
+def test_prep_fingerprints_equal(nw, fp):
+    """ne exact words, then nf FNV fingerprint words (u32 wraparound)."""
+    win = windows("mixed", seed=6)
+    B, W = win.shape
+    ne, nf = match2._split_words(nw, fp)
+    assert (ne, nf) == j_match2._split_words(nw, fp)
+    assert nf > 0
+    jkey, jwords = j_match2._prep(jnp.asarray(win), ne, nf, 4,
+                                  interpret=True)
+    jwords = np.asarray(jwords)
+    T = jwords.shape[1]
+    jwords = jwords.transpose(0, 2, 1, 3, 4).reshape(B, ne + nf, T * 8 * 1024)
+    key, words = match2._prep(tt(win), ne, 4, nf)
+    np.testing.assert_array_equal(u32(key), u32(jkey))
+    np.testing.assert_array_equal(u32(words), u32(jwords))
+
+
+def test_split_words_rejects_a_bad_reach():
+    with pytest.raises(ValueError):
+        match2._split_words(12, True)        # 12 is not 2 * 2^k
+
+
+@pytest.mark.parametrize("fp", [False, True, 4])
+@pytest.mark.parametrize("kind", ["text", "runs", "mixed"])
+def test_candidate_pass_top2_equal(kind, fp):
+    """Best and runner-up, both outputs, exact-only and fingerprint-ranked
+    (the runner-up depends on the order of the candidates)."""
+    win = windows(kind, seed=4)
+    min_src = np.asarray([0, CTX - 100], np.int32)
+    limit = np.asarray([CTX + S, CTX + 2500], np.int32)
+    jld, jld2 = j_match2._candidate_pass(
+        jnp.asarray(win), jnp.asarray(min_src), jnp.asarray(limit), K=8,
+        nw=8, hash_bytes=4, max_dist=32768, interpret=True, fp=fp,
+        top2=True)
+    ld, ld2 = match2._candidate_pass(tt(win), tt(min_src), tt(limit), K=8,
+                                     nw=8, hash_bytes=4, max_dist=32768,
+                                     fp=fp, top2=True)
+    np.testing.assert_array_equal(u32(ld), u32(jld))
+    np.testing.assert_array_equal(u32(ld2), u32(jld2))
+    assert (u32(ld2) != 0).any()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_find_matches_fused_fp_equal(kind):
+    """fp=True at K=8, nw=8 (the JAX package's own fp case): fingerprint
+    ranking, top-2 extension with cap 8, then the common tail."""
+    win = windows(kind, seed=13)
+    ctx_len = np.asarray([CTX, 300], np.int32)
+    valid = np.asarray([S, 3333], np.int32)
+    jl, jd = j_match2.find_matches_fused(
+        jnp.asarray(win), jnp.asarray(ctx_len), jnp.asarray(valid), K=8,
+        nw=8, ctx=CTX, fp=True, interpret=True)
+    tl, td = match2.find_matches_fused(tt(win), tt(ctx_len), tt(valid), K=8,
+                                       nw=8, ctx=CTX, fp=True)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    # every match is a valid back-reference
+    ml, md = tl.numpy(), td.numpy()
+    for b, p in zip(*np.nonzero(ml >= 3)):
+        l, d = int(ml[b, p]), int(md[b, p])
+        assert 1 <= d <= p
+        assert all(win[b, p + i] == win[b, p + i - d] for i in range(l))

@@ -1,11 +1,16 @@
 """End to end: the port's compress_device2 (device="cpu") against
-flate_tpu.jx.pipeline2.compress_device2(interpret=True), byte for byte,
-and zlib decodes it back to the input."""
+flate_tpu.jx.pipeline2.compress_device2(interpret=True), byte for byte at
+every level, and zlib decodes it back to the input.
+
+Levels 8 and 9 (K = 96 / 160 with 16 carry words) take minutes each to
+trace in interpret mode and are marked slow; level 7 holds their code path
+(4 KiB parse blocks, the 3-byte K3 pass) in the fast tier."""
 
 import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from flate_tpu.containers import Container as JContainer
 from flate_tpu.jx import pipeline2 as j_pipeline2
@@ -17,6 +22,8 @@ from flate_tpu_torch.device import pipeline2
 from _torch_corpora import CTX, S, corpus
 
 WBITS = {"GZIP": 31, "ZLIB": 15, "RAW": -15}
+
+torch.set_num_threads(1)         # the squeeze DP is thousands of tiny ops
 
 
 def _both(data, level, container="GZIP", independent=False, batch=2):
@@ -36,7 +43,7 @@ def _check(data, ref, out, container="GZIP"):
 
 @pytest.mark.parametrize("independent", [False, True])
 @pytest.mark.parametrize("container", ["GZIP", "ZLIB", "RAW"])
-@pytest.mark.parametrize("level", [1, 3])
+@pytest.mark.parametrize("level", [1, 3, 6])
 def test_compress_device2_equal(level, container, independent):
     """rfc1951 text over two batches with a tail shard: the context carry
     from batch to batch, the FLT1 index and every container."""
@@ -46,11 +53,38 @@ def test_compress_device2_equal(level, container, independent):
 
 
 @pytest.mark.parametrize("kind", ["random", "runs", "mixed"])
-@pytest.mark.parametrize("level", [1, 3])
+@pytest.mark.parametrize("level", [1, 3, 6])
 def test_corpora_equal(level, kind):
     data = corpus(kind, 5 * S - 1000, seed=7)
     ref, out = _both(data, level)
     _check(data, ref, out)
+
+
+@pytest.mark.parametrize("level,kind", [
+    (2, "text"), (4, "mixed"), (5, "runs"), (7, "text"),
+    pytest.param(8, "mixed", marks=pytest.mark.slow),
+    pytest.param(9, "text", marks=pytest.mark.slow)])
+def test_squeeze_levels_equal(level, kind):
+    """The other levels that run the cost DP, one corpus each, over two
+    batches with a tail shard."""
+    data = corpus(kind, 3 * S + 333, seed=level)
+    ref, out = _both(data, level)
+    _check(data, ref, out)
+
+
+def test_squeeze_knobs_follow_the_environment(monkeypatch):
+    """FLATE_TPU_SQUEEZE_GRID and _HIST_STRIDE are read per call (the JAX
+    package reads them at import): another parse, still a valid stream."""
+    data = corpus("text", 2 * S, seed=5)
+    kw = dict(level=6, shard_len=S, ctx=CTX, batch=2, device="cpu")
+    base = pipeline2.compress_device2(data, **kw)
+    monkeypatch.setenv("FLATE_TPU_SQUEEZE_GRID", "1")
+    grid = pipeline2.compress_device2(data, **kw)
+    monkeypatch.setenv("FLATE_TPU_SQUEEZE_HIST_STRIDE", "4")
+    both = pipeline2.compress_device2(data, **kw)
+    assert len({base, grid, both}) == 3
+    for out in (grid, both):
+        assert zlib.decompress(out, 31) == data
 
 
 @pytest.mark.parametrize("n", [0, 1, 20, 147, 301])
@@ -70,5 +104,8 @@ def test_api_namespaces():
                           (flate_tpu_torch.flate, "RAW")):
         out = ns.compress(data, level=3, device="cpu", shard_len=S, batch=2)
         assert zlib.decompress(out, WBITS[container]) == data
-    with pytest.raises(NotImplementedError, match="squeeze"):
-        flate_tpu_torch.gzip.compress(data, level=6, device="cpu")
+        blob = ns.compress(data, level=6, device="cpu", shard_len=S, batch=2)
+        assert zlib.decompress(blob, WBITS[container]) == data
+        assert ns.decompress(blob, device="cpu", batch=2) == data
+    with pytest.raises(ValueError, match="invalid level"):
+        flate_tpu_torch.gzip.compress(data, level=10, device="cpu")

@@ -305,14 +305,16 @@ def test_length_and_dist_codes_equal():
 
 
 def test_level_params():
-    for level in (1, 3):
+    assert pipeline2.LEVEL_KERNEL == j_pipeline2.LEVEL_KERNEL
+    for level in range(1, 10):
         p = pipeline2.level_params(level)
-        K, nw, lazy, max_lazy, K3, _, blk = j_pipeline2.LEVEL_KERNEL[level]
+        K, nw, lazy, max_lazy, K3, sq, blk = j_pipeline2.LEVEL_KERNEL[level]
         assert p == dict(K=K, nw=nw, lazy=lazy, max_lazy=max_lazy, K3=K3,
-                         blk=blk)
-    for level in (2, 4, 5, 6, 7, 8, 9):
-        with pytest.raises(NotImplementedError, match="squeeze"):
-            pipeline2.level_params(level)
+                         squeeze=sq, blk=blk)
+        assert sq == (level not in (1, 3))
+    # the parse block is fitted to a small shard
+    assert pipeline2.level_params(9, 4096)["blk"] == 4096
+    assert pipeline2.level_params(9, 5120)["blk"] == 1024
     for level in (0, 10, -1):
         with pytest.raises(ValueError):
             pipeline2.level_params(level)

@@ -1,15 +1,18 @@
 """Stage times of the PyTorch port's encode and decode on one CUDA card.
 
-    python3 tools/torch_stage_profile.py [--level 1] [--reps 3]
+    python3 tools/torch_stage_profile.py [--level 6] [--reps 3]
     python3 tools/torch_stage_profile.py --decode [--level 3] [--reps 3]
 
 Runs the stages of flate_tpu_torch.device.pipeline2.encode_batch_packed
 one by one on an 8 MiB batch (64 shards of 128 KiB after 32 KiB of
 context; bench.py's mixed corpus, as chip_smoke.py makes it), with
-torch.cuda.synchronize() and a host clock around each, and prints one JSON line per level: the stage
-milliseconds (median over reps), the parse loop's iteration count, the
-whole batch's time, and the device-busy share of one whole-batch run
-from torch.profiler (sum of CUDA kernel time over wall time).
+torch.cuda.synchronize() and a host clock around each, and prints one JSON
+line per level (--level may be given several times; default 1, 3 and 6):
+the stage milliseconds (median over reps), the steps of the block walk
+(kernel B9), the whole batch's time, and the device-busy share of one
+whole-batch run from torch.profiler (sum of CUDA kernel time over wall
+time).  At a level with the squeeze cost DP its three parts are timed
+apart: the greedy code lengths, the DP, and the DP's token-start walk.
 
 With --decode it encodes chip_smoke.py's text corpus at each level and
 times the indexed decode of its first batch (8 shards of 128 KiB) stage by
@@ -37,12 +40,12 @@ from chip_smoke import B, CTX, S, mixed_corpus, smi, text_corpus  # noqa: E402
 from flate_tpu_torch import api  # noqa: E402
 from flate_tpu_torch.containers import Container, parse_header  # noqa: E402
 from flate_tpu_torch.device import encode2, inflate2, match2, pack  # noqa: E402
-from flate_tpu_torch.device import parse, pipeline2  # noqa: E402
+from flate_tpu_torch.device import parse, pipeline2, squeeze  # noqa: E402
 from flate_tpu_torch.shard_index import parse_index_extra  # noqa: E402
 
 
 def stages(shards, ctx0, meta, kern):
-    """One batch, stage by stage; returns {stage: ms} and parse hops."""
+    """One batch, stage by stage; returns {stage: ms}."""
     out = {}
 
     def timed(name, fn):
@@ -64,6 +67,15 @@ def stages(shards, ctx0, meta, kern):
     skey, order = timed("sort", lambda: torch.sort(key, dim=1))
     ld = timed("matcher", lambda: match2._run_matcher(
         skey, order, words, min_src, limit, win.shape[1], K, 32768))
+    if K3:
+        def k3_pass():
+            ld3 = match2._candidate_pass(win, min_src, limit, K=K3, nw=1,
+                                         hash_bytes=3, max_dist=4096)
+            l3, d3 = torch.clamp(ld3 >> 16, max=3), ld3 & 0xFFFF
+            upd = match2._score(l3, d3) > match2._score(ld >> 16,
+                                                        ld & 0xFFFF)
+            return torch.where(upd, (l3 << 16) | d3, ld)
+        ld = timed("k3_pass", k3_pass)
     rl, rd = timed("small_runs",
                    lambda: match2.runs.small_dist_runs(win, limit, min_src))
 
@@ -80,10 +92,24 @@ def stages(shards, ctx0, meta, kern):
     take, _ = parse.decide(ml, md, lazy, max_lazy)
     starts = timed("parse_blocks", lambda: parse.parse_blocks(
         ml, md, start=CTX, lazy=lazy, max_lazy=max_lazy, blk=blk))
+    wt, m_r, d_r = win[:, CTX:], ml[:, CTX:], md[:, CTX:]
+    take_r, starts_r = take[:, CTX:], starts[:, CTX:]
+    if kern["squeeze"]:
+        ll, dd = timed("squeeze_greedy_lengths",
+                       lambda: squeeze.greedy_code_lengths(
+                           wt, m_r, d_r, starts_r, take_r, valid))
+        # squeeze_parse ends in the block walk: time the walk alone on
+        # its output and take it off
+        take_r, starts_r, sel = timed(
+            "squeeze_dp", lambda: squeeze.squeeze_parse(
+                wt, m_r, d_r, ll, dd, blk=blk))
+        sel_rows = sel.reshape(-1, blk).contiguous()
+        timed("squeeze_walk", lambda: parse._parse_walk(sel_rows))
+        out["squeeze_dp"] -= out["squeeze_walk"]
+        m_r = torch.where(take_r, sel, 0)
     seg = encode2.seg_size(S, blk)
     vals, bits, _, _ = timed("build_fields", lambda: encode2.build_fields(
-        win[:, CTX:], ml[:, CTX:], md[:, CTX:], starts[:, CTX:],
-        take[:, CTX:], valid, finals, S, seg))
+        wt, m_r, d_r, starts_r, take_r, valid, finals, S, seg))
     words_, tbits = timed("pack", lambda: pack.pack_fields(
         vals, bits, pipeline2._nwr(S, seg)))
     buf, meta_out = timed("compact_crc", lambda: pipeline2._compact_stage(
@@ -92,22 +118,14 @@ def stages(shards, ctx0, meta, kern):
     return out
 
 
-def parse_hops(ml, md, kern) -> int:
-    """Iterations of parse_blocks' loop on this batch (its host syncs)."""
-    blk = kern["blk"]
+def walk_steps(ml, md, kern) -> dict:
+    """Steps the block walk takes on this batch: all rows, and the longest
+    row (the serial depth of kernel B9)."""
     _, step = parse.decide(ml, md, kern["lazy"], kern["max_lazy"])
-    sb = step[:, CTX:].reshape(-1, blk)
-    run1 = parse._runs_of_ones(sb == 1, blk)
-    lanes = torch.arange(sb.shape[0], device=sb.device)
-    cur = torch.zeros(sb.shape[0], dtype=torch.int64, device=sb.device)
-    hops = 0
-    while bool((cur < blk).any()):
-        live = cur < blk
-        c = torch.where(live, cur, 0)
-        s, r = sb[lanes, c], run1[lanes, c]
-        cur = torch.where(live, cur + torch.where(s == 1, r, s), cur)
-        hops += 1
-    return hops
+    mask = parse._parse_walk(
+        step[:, CTX:].to(torch.int32).reshape(-1, kern["blk"]).contiguous())
+    return {"rows": mask.shape[0], "steps": int(mask.sum()),
+            "longest_row": int(mask.sum(dim=1).max())}
 
 
 def device_busy(fn) -> dict:
@@ -223,7 +241,7 @@ def main() -> int:
     meta[B:2 * B] = S
     meta[3 * B] = B
     meta = meta.to(dev)
-    for level in args.level or [1, 3]:
+    for level in args.level or [1, 3, 6]:
         kern = pipeline2.level_params(level, S)
         runs_ = [stages(shards, ctx0, meta, kern) for _ in
                  range(args.reps + 1)][1:]
@@ -231,9 +249,9 @@ def main() -> int:
         win = pipeline2._prime_windows(shards, ctx0, CTX)
         ml, md = match2.find_matches_fused(win, meta[:B], meta[B:2 * B],
                                            K=kern["K"], nw=kern["nw"],
-                                           ctx=CTX)
+                                           ctx=CTX, K3=kern["K3"])
         ml, md = parse.truncate_matches(ml, md, CTX, kern["blk"])
-        hops = parse_hops(ml, md, kern)
+        steps = walk_steps(ml, md, kern)
 
         def whole():
             buf, mo = pipeline2.encode_batch_packed(
@@ -249,7 +267,7 @@ def main() -> int:
         print(json.dumps({
             "card": card, "level": level, "batch_bytes": B * S,
             "stage_ms": med, "stage_sum_ms": sum(med.values()),
-            "parse_hops": hops, "batch_ms": batch_ms,
+            "block_walk": steps, "batch_ms": batch_ms,
             **busy}), flush=True)
     return 0
 
