@@ -6,12 +6,14 @@ Phases, one line each:
   1. the card: `nvidia-smi --query-gpu=name,power.limit` (needs CUDA);
   2. the kernel build (nvcc, sm_90a, one compiler per source, all started
      together) and its seconds;
-  3. for levels 1 and 3, each encode kernel (B1-B5) against its plain
-     PyTorch version on the card, at the main path's full-width shapes
-     (64 shards of 128 KiB with 32 KiB context) and that level's knobs, on
-     one 8 MiB batch of bench.py's mixed corpus: exact equality, kernel and
-     plain times, and the bound (bytes over the memory rate or integer
-     operations over the int32 issue rate, whichever is larger);
+  3. each encode kernel (B1-B5, B9) against its plain PyTorch version on
+     the card, at the main path's full-width shapes (64 shards of 128 KiB
+     with 32 KiB context) and the knobs of levels 1 and 3 (levels 6 and 9
+     and the fp/top-2 matcher: phase 7, the same loop), on one 8 MiB batch
+     of bench.py's mixed corpus, every kernel fed with the real outputs of
+     the stages before it: exact equality, kernel and plain times, and the
+     bound (bytes over the memory rate or the integer operations this
+     data needs over the int32 issue rate, whichever is larger);
   4. the main path: flate_tpu_torch.api.gzip.compress of 32 MiB of the
      mixed corpus at levels 1 and 3 with the launch counters reset just
      before each run and read just after; the output must decode with zlib,
@@ -32,15 +34,14 @@ Phases, one line each:
      equal its input; the launch counters are reset before and read after
      each run, and each run prints its route, seconds, GB/s of output,
      launches, batches walked again serially and re-routes;
-  7. (run right after phase 3, on its batch) the kernels of the other
-     levels and of the fp/top-2 matcher, against their plain versions at
-     the same full width: B1 and B2 at level 6's and level 9's knobs
-     (K=48, nw=8; K=160, nw=16; level 9's 3-byte K3 pass), B1 with
-     fingerprint words and B2 ranking by them with both outputs (K=48,
-     nw=8, fp=True), B8 (top-2 chain extension) on those outputs, and B9
-     (parse walk) three ways: rows = level 6's parse blocks (8192 x 1024),
-     rows = level 9's (2048 x 4096), rows = shards (64 x 131072, the
-     parse_walk entry point);
+  7. (phase 3's loop, run right after it on its batch) B1-B5 at level
+     6's and level 9's knobs (K=48, nw=8; K=160, nw=16 with the 3-byte K3
+     pass; extension caps 32 and 64; pack after the squeeze, level 9 with
+     4096-byte parse blocks), B1 with fingerprint words and B2 ranking by
+     them with both outputs (K=48, nw=8, fp=True), B8 (top-2 chain
+     extension) on those outputs, and B9 (parse walk) three ways: rows =
+     level 6's parse blocks (8192 x 1024), rows = level 9's (2048 x 4096),
+     rows = shards (64 x 131072, the parse_walk entry point);
   8. the main path: api.gzip.compress at level 6 of 32 MiB mixed, decoded
      by zlib and by the port's own gzip.decompress; levels 2, 4, 5, 7, 8, 9
      on 8 MiB; sizes against zlib at the same level (must be <= 1.0), with
@@ -76,7 +77,8 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM memory rate (data sheet)
 # boost clock.  All the kernels do integer work only.
 INT_OPS_PER_S = 64 * 132 * 1.98e9
 HERE = os.path.dirname(os.path.abspath(__file__))
-LEVELS = (1, 3)
+LEVELS = (1, 3)                  # 32 MiB end to end in phase 4
+KERNEL_LEVELS = (1, 3, 6, 9)     # knobs at which B1-B5 and B9 are held to plain
 # size / zlib's size at the same level, from the JAX package's last bench
 # (BENCH_r05.json size_vs_zlib_corpora): byte counts, equal on any hardware
 JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
@@ -113,8 +115,8 @@ def smi() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches after one warm-up."""
-    fn()
+    """Mean device time of fn() over reps launches (the caller has run it
+    once before)."""
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -128,10 +130,6 @@ def cuda_ms(fn, reps: int) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def tupled(r) -> tuple:
-    return r if isinstance(r, tuple) else (r,)
 
 
 def main() -> int:
@@ -175,21 +173,21 @@ def main() -> int:
     cases = []
 
     def case(phase, path, label, entry, replaces, kernel, plain, bytes_moved,
-             ops, reps=20, plain_reps=2):
+             ops, reps=20, plain_reps=1, note=None):
         """entry: the C entry point; path: the main-path run whose launch
         count the case reports; bytes_moved: what the function must move
         at its own widths (u32 keys, words and field values), each input
         read once and each output written once; ops: the integer
-        operations this run's data needs (a lower bound).  plain_reps=0
-        times the one plain run that the comparison needs."""
-        k_out = kernel()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        p_out = plain()
-        ev[1].record()
-        torch.cuda.synchronize()
+        operations this run's data needs (a lower bound), or a function of
+        the kernel's outputs that gives them; note: what else the launch
+        count of this entry on that path covers.  The run that is compared
+        is the warm-up of the timed ones."""
+        def outputs(r):
+            return r if isinstance(r, tuple) else (r,)
+
+        k_out, p_out = outputs(kernel()), outputs(plain())
         err = 0
-        for a, b in zip(k_out, p_out):
+        for a, b in zip(k_out, p_out, strict=True):
             if a.shape != b.shape:
                 raise AssertionError(f"{label}: shape {a.shape} vs {b.shape}")
             err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
@@ -197,9 +195,10 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{label}: kernel != plain "
                                  f"(max abs err {err})")
+        if callable(ops):
+            ops = ops(k_out)
         ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, plain_reps) if plain_reps \
-            else ev[0].elapsed_time(ev[1])
+        plain_ms = cuda_ms(plain, plain_reps)
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = float(ops) / INT_OPS_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -210,161 +209,139 @@ def main() -> int:
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None))
+        if note:
+            cases[-1]["launches_cover"] = note
         print(f"[{phase}] {label}: equal, {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
               f"{bytes_moved} bytes {bytes_ms:.4f} ms, {int(ops)} ops "
               f"{ops_ms:.4f} ms)", flush=True)
         return k_out
 
-    for L in LEVELS:
-        lvl = pipeline2.level_params(L, S)
-        nw, K, cap = lvl["nw"], lvl["K"], 4 * lvl["nw"]
+    def matcher_cases(phase, path, tag, K, ne, nf, hash_bytes, max_dist,
+                      top2, note=None):
+        """B1 then B2 at these knobs; returns B2's outputs."""
+        nc = ne + nf
         key, words = case(
-            3, ("encode", L), f"prep_l{L}", "flate_prep",
+            phase, path, f"prep_{tag}", "flate_prep",
             "flate_tpu/jx/match2.py:107",
-            lambda: match2._prep(window, nw, 4),
-            lambda: match2._prep_plain(window, nw, 4),
-            nbytes(window) + B * Wp * 4 * (1 + nw),    # u32 key + nw words
-            B * Wp * (4 * nw + 4))     # one op per byte gathered/hashed
+            lambda: match2._prep(window, ne, hash_bytes, nf),
+            lambda: match2._prep_plain(window, ne, hash_bytes, nf),
+            nbytes(window) + B * Wp * 4 * (1 + nc),    # u32 key + nc words
+            # one op per byte gathered into a word or hashed
+            B * Wp * ((4 * ne << nf) + hash_bytes), note=note)
         skey, order = torch.sort(key, dim=1)
-        # candidates the scan visits: same bucket, nearest first, up to K
-        bucket = skey >> match2.POS_BITS
-        same = skey != match2.SENTINEL
-        visits = torch.zeros((), dtype=torch.int64, device=dev)
-        for k in range(1, K + 1):
-            same = same & torch.nn.functional.pad(
-                bucket[:, k:] == bucket[:, :-k], (k, 0))
-            visits += same.sum()
-        (ld,) = case(
-            3, ("encode", L), f"matcher_l{L}", "flate_matcher",
+        args = (skey, order, words, min_src, limit, W, K, max_dist, nf, top2)
+        # what the scan needs on this data: a bucket test per same-bucket
+        # candidate within K, and for a valid one the word compares up to
+        # and including the first word that differs
+        scan = {}
+        match2._run_matcher_plain(*args, stats=scan)
+        print(f"[{phase}] matcher_{tag}: K={K}, {ne} exact + {nf} "
+              f"fingerprint words; the scan visits {scan['visits']} "
+              f"candidates and compares {scan['compares']} words",
+              flush=True)
+        return case(
+            phase, path, f"matcher_{tag}", "flate_matcher",
             "flate_tpu/jx/match2.py:187",
-            lambda: (match2._run_matcher(skey, order, words, min_src, limit,
-                                         W, K, 32768),),
-            lambda: (match2._run_matcher_plain(skey, order, words, min_src,
-                                               limit, W, K, 32768),),
-            B * Wp * 4 * (1 + nw) + B * W * 4,  # sorted u32 keys + words in
-            visits.item() * (nw + 1))      # bucket test + word compares
+            lambda: match2._run_matcher(*args),
+            lambda: match2._run_matcher_plain(*args),
+            # sorted u32 keys + words in, one or two u32 outputs
+            B * Wp * 4 * (1 + nc) + B * W * 4 * (2 if top2 else 1),
+            scan["visits"] + scan["compares"], note=note)
+
+    def better(l, d, l0, d0):
+        upd = match2._score(l, d) > match2._score(l0, d0)
+        return (torch.where(upd, l, l0).contiguous(),
+                torch.where(upd, d, d0).contiguous())
+
+    def walk_case(phase, path, label, step, reps=20):
+        """B9 on the rows of `step`; returns the mask."""
+        (mask,) = case(
+            phase, path, label, "flate_parse_walk",
+            "flate_tpu/jx/parse.py:66",
+            lambda: parse._parse_walk(step),
+            lambda: parse._parse_walk_plain(step),
+            5 * step.numel(),              # i32 steps in, u8 mask out
+            lambda out: 2 * int(out[0].sum()),   # a load + an add a step
+            reps=reps)
+        print(f"[{phase}] {label}: {step.shape[0]} rows x {step.shape[1]}, "
+              f"{int(mask.sum())} steps, longest row "
+              f"{int(mask.sum(dim=1).max())}", flush=True)
+        return mask
+
+    for L in KERNEL_LEVELS:
+        # the stages of encode_batch_packed, one kernel at a time
+        lvl = pipeline2.level_params(L, S)
+        phase, path = (3 if L in LEVELS else 7), ("encode", L)
+        nw, cap, blk = lvl["nw"], 4 * lvl["nw"], lvl["blk"]
+        both = "the K pass and the K3 pass of a batch" if lvl["K3"] else None
+        (ld,) = matcher_cases(phase, path, f"l{L}", lvl["K"], nw, 0, 4,
+                              32768, False, both)
+        mlen0, mdist0 = ld >> 16, ld & 0xFFFF
+        if lvl["K3"]:
+            (ld3,) = matcher_cases(phase, path, f"k3_l{L}", lvl["K3"], 1, 0,
+                                   3, 4096, False, both)
+            mlen0, mdist0 = better(torch.clamp(ld3 >> 16, max=3),
+                                   ld3 & 0xFFFF, mlen0, mdist0)
         rlen, rdist = case(
-            3, ("encode", L), f"small_runs_l{L}", "flate_small_runs",
+            phase, path, f"small_runs_l{L}", "flate_small_runs",
             "flate_tpu/jx/runs.py:85",
             lambda: runs.small_dist_runs(window, limit, min_src),
             lambda: runs._small_dist_runs_plain(window, limit, min_src),
             nbytes(window) + 2 * B * W * 4,
             sum(int(ln.sum()) for ln in        # one compare per run byte
                 runs._run_lengths(window, limit, min_src)))
-        mlen0, mdist0 = ld >> 16, ld & 0xFFFF
-        upd = match2._score(rlen, rdist) > match2._score(mlen0, mdist0)
-        mlen0 = torch.where(upd, rlen, mlen0).contiguous()
-        mdist0 = torch.where(upd, rdist, mdist0).contiguous()
+        mlen0, mdist0 = better(rlen, rdist, mlen0, mdist0)
         (mlen,) = case(
-            3, ("encode", L), f"extend_l{L}", "flate_extend",
+            phase, path, f"extend_l{L}", "flate_extend",
             "flate_tpu/jx/runs.py:172",
-            lambda: (runs.extend_chains(mlen0, mdist0, limit, cap),),
-            lambda: (runs._extend_chains_plain(mlen0, mdist0, limit, cap),),
+            lambda: runs.extend_chains(mlen0, mdist0, limit, cap),
+            lambda: runs._extend_chains_plain(mlen0, mdist0, limit, cap),
             nbytes(mlen0, mdist0) + B * W * 4,
             3 * B * W + 3 * int(((mlen0 == cap) & (mdist0 > 0)).sum()))
         drop = (mlen == 3) & (mdist0 > 4096)
         mlen = torch.where(drop, 0, mlen)
         mdist = torch.where(drop, 0, mdist0)
-        mlen, mdist = parse.truncate_matches(mlen, mdist, CTX, lvl["blk"])
-        take, _ = parse.decide(mlen, mdist, lvl["lazy"], lvl["max_lazy"])
-        starts = parse.parse_blocks(mlen, mdist, start=CTX, lazy=lvl["lazy"],
-                                    max_lazy=lvl["max_lazy"], blk=lvl["blk"])
-        seg = encode2.seg_size(S, lvl["blk"])
+        whole = match2.find_matches_fused(window, ctx_len, valid, K=lvl["K"],
+                                          nw=nw, ctx=CTX, K3=lvl["K3"])
+        if not (torch.equal(mlen, whole[0]) and torch.equal(mdist, whole[1])):
+            raise AssertionError(f"level {L}: the stages do not give "
+                                 f"find_matches_fused's matches")
+        mlen, mdist = parse.truncate_matches(mlen, mdist, CTX, blk)
+        take, step = parse.decide(mlen, mdist, lvl["lazy"], lvl["max_lazy"])
+        # rows = parse blocks, as parse_blocks and the squeeze walk cut them
+        mask = walk_case(
+            phase, path, f"parse_walk_blocks_l{L}",
+            step[:, CTX:].to(torch.int32).reshape(-1, blk).contiguous())
+        m_r, d_r, take_r = mlen[:, CTX:], mdist[:, CTX:], take[:, CTX:]
+        starts_r = mask.reshape(B, S)
+        if lvl["squeeze"]:
+            take_r, starts_r, m_r = pipeline2._squeeze_stage(
+                window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
+        seg = encode2.seg_size(S, blk)
         vals, bits, _, _ = encode2.build_fields(
-            window[:, CTX:], mlen[:, CTX:], mdist[:, CTX:], starts[:, CTX:],
-            take[:, CTX:], valid, finals, S, seg)
+            window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S,
+            seg)
         bits = bits.to(torch.int32)
         incl = torch.cumsum(bits, dim=1, dtype=torch.int32)
         off = (incl - bits).contiguous()
         nwords = pipeline2._nwr(S, seg) * 128
-        case(3, ("encode", L), f"pack_l{L}", "flate_pack",
+        case(phase, path, f"pack_l{L}", "flate_pack",
              "flate_tpu/jx/pack.py:32",
-             lambda: (pack._place(vals, off, nwords),),
-             lambda: (pack._place_plain(vals, off, nwords),),
+             lambda: pack._place(vals, off, nwords),
+             lambda: pack._place_plain(vals, off, nwords),
              vals.numel() * 4 + nbytes(off) + B * nwords * 4,  # u32 values
              2 * int((vals != 0).sum()))   # shift + atomic OR per field
-        del key, words, skey, order, ld, vals, off
-
-    # ---- phase 7: the kernels of levels 2-9 and of the fp/top-2 matcher ----
-    def bucket_visits(skey, K):
-        """Candidates a K-deep scan visits: same bucket, nearest first."""
-        bucket = skey >> match2.POS_BITS
-        same = skey != match2.SENTINEL
-        visits = torch.zeros((), dtype=torch.int64, device=dev)
-        for k in range(1, K + 1):
-            same = same & torch.nn.functional.pad(
-                bucket[:, k:] == bucket[:, :-k], (k, 0))
-            visits += same.sum()
-        return int(visits)
-
-    def matcher_cases(path, tag, K, ne, nf, hash_bytes, max_dist, top2):
-        """B1 then B2 at these knobs; returns B2's outputs."""
-        nc = ne + nf
-        key, words = case(
-            7, path, f"prep_{tag}", "flate_prep",
-            "flate_tpu/jx/match2.py:107",
-            lambda: match2._prep(window, ne, hash_bytes, nf),
-            lambda: match2._prep_plain(window, ne, hash_bytes, nf),
-            nbytes(window) + B * Wp * 4 * (1 + nc),
-            B * Wp * ((4 * ne << nf) + hash_bytes), plain_reps=1)
-        skey, order = torch.sort(key, dim=1)
-        return case(
-            7, path, f"matcher_{tag}", "flate_matcher",
-            "flate_tpu/jx/match2.py:187",
-            lambda: tupled(match2._run_matcher(
-                skey, order, words, min_src, limit, W, K, max_dist, nf,
-                top2)),
-            lambda: tupled(match2._run_matcher_plain(
-                skey, order, words, min_src, limit, W, K, max_dist, nf,
-                top2)),
-            B * Wp * 4 * (1 + nc) + B * W * 4 * (2 if top2 else 1),
-            bucket_visits(skey, K) * (ne + 1), reps=5, plain_reps=1)
-
-    for L in (6, 9):
-        lvl = pipeline2.level_params(L, S)
-        matcher_cases(("encode", L), f"l{L}", lvl["K"], lvl["nw"], 0, 4,
-                      32768, False)
-        if lvl["K3"]:
-            matcher_cases(("encode", L), f"k3_l{L}", lvl["K3"], 1, 0, 3,
-                          4096, False)
-        # B9 on the level's real step array, rows = parse blocks
-        mlen, mdist = match2.find_matches_fused(
-            window, ctx_len, valid, K=lvl["K"], nw=lvl["nw"], ctx=CTX,
-            K3=lvl["K3"])
         if L == 6:
-            whole_l, whole_d = mlen, mdist        # untruncated, for (c)
-        mlen, mdist = parse.truncate_matches(mlen, mdist, CTX, lvl["blk"])
-        _, step = parse.decide(mlen, mdist, lvl["lazy"], lvl["max_lazy"])
-        sb = step[:, CTX:].to(torch.int32).reshape(-1, lvl["blk"]
-                                                   ).contiguous()
-        (mask,) = case(
-            7, ("encode", L), f"parse_walk_blocks_l{L}", "flate_parse_walk",
-            "flate_tpu/jx/parse.py:66",
-            lambda: (parse._parse_walk(sb),),
-            lambda: (parse._parse_walk_plain(sb),),
-            5 * sb.numel(),                # i32 steps in, u8 mask out
-            2 * int(parse._parse_walk(sb).sum()),  # a load + an add a step
-            plain_reps=1)
-        print(f"[7] level {L} block walk: {sb.shape[0]} rows x "
-              f"{sb.shape[1]}, {int(mask.sum())} steps, longest row "
-              f"{int(mask.sum(dim=1).max())}", flush=True)
-    _, step = parse.decide(whole_l, whole_d, True, 32)
-    sub = step[:, CTX:].to(torch.int32).contiguous()
-    (mask,) = case(
-        7, ("fp",), "parse_walk_shards", "flate_parse_walk",
-        "flate_tpu/jx/parse.py:66",
-        lambda: (parse._parse_walk(sub),),
-        lambda: (parse._parse_walk_plain(sub),),
-        5 * sub.numel(), 2 * int(parse._parse_walk(sub).sum()),
-        reps=3, plain_reps=0)
-    print(f"[7] shard walk: {sub.shape[0]} rows x {sub.shape[1]}, "
-          f"{int(mask.sum())} steps, longest row "
-          f"{int(mask.sum(dim=1).max())}", flush=True)
-    del whole_l, whole_d, sub, sb, mask
+            # rows = shards, as parse_walk cuts them: untruncated matches
+            _, step = parse.decide(*whole, True, 32)
+            walk_case(7, ("fp", "parse_walk"), "parse_walk_shards",
+                      step[:, CTX:].to(torch.int32).contiguous(), reps=3)
+        del ld, vals, off, whole, mask, step
 
+    # the fp/top-2 matcher (no level sets it) and the top-2 extension
     ne, nf = match2._split_words(8, True)
-    ld, ld2 = matcher_cases(("fp",), "fp", 48, ne, nf, 4, 32768, True)
+    ld, ld2 = matcher_cases(7, ("fp",), "fp", 48, ne, nf, 4, 32768, True)
     cands = (ld >> 16, ld & 0xFFFF, ld2 >> 16, ld2 & 0xFFFF)
     case(7, ("fp",), "extend2_fp", "flate_extend2",
          "flate_tpu/jx/runs.py:196",
@@ -613,6 +590,7 @@ def main() -> int:
     mlen, mdist = match2.find_matches_fused(
         window, meta[:B], meta[B:2 * B], K=48, nw=8, ctx=CTX, fp=True)
     walked = parse.parse_walk(mlen, mdist, start=CTX, lazy=True, max_lazy=32)
+    launches[("fp", "parse_walk")] = dict(_build.LAUNCHES)  # the shard walk
     doubled = parse.parse_doubling(mlen, mdist, CTX, lazy=True, max_lazy=32)
     if not torch.equal(walked, doubled):
         raise AssertionError("fp: parse_walk != parse_doubling")

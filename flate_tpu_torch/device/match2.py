@@ -133,7 +133,13 @@ def _tz_bytes(x: torch.Tensor) -> torch.Tensor:
 def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
                        words: torch.Tensor, min_src: torch.Tensor,
                        limit: torch.Tensor, W: int, K: int,
-                       max_dist: int, nf: int = 0, top2: bool = False):
+                       max_dist: int, nf: int = 0, top2: bool = False,
+                       stats: dict | None = None):
+    """The scan as K whole-row shifts.  With `stats`, also counts what the
+    data asks of any scan: stats["visits"] same-bucket candidates within K
+    (one bucket test each) and stats["compares"] word compares, one per
+    exact word up to and including the first that differs and one per
+    fingerprint word likewise, for the valid candidates."""
     B, Wp = skey.shape
     nc = words.shape[1]
     ne = nc - nf
@@ -155,6 +161,8 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
 
     best_score, best_ld = blank(-1), blank(0)
     sec_score, sec_ld = blank(-1), blank(0)
+    visits = torch.zeros((), dtype=torch.int64, device=skey.device)
+    compares = torch.zeros_like(visits)
     for d in range(1, K + 1):
         ck = back(skey, d, SENTINEL)
         cpos = (ck & POS_MASK).to(torch.int32)
@@ -163,7 +171,11 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
             & (dist <= max_dist) & (cpos >= ms) & (cpos < lim)
         ml = torch.zeros_like(tpos)
         run = torch.ones_like(valid)
+        if stats is not None:
+            visits += ((ck >> POS_BITS == tbucket) & (skey != SENTINEL)).sum()
         for t in range(ne):
+            if stats is not None:
+                compares += (valid & run).sum()
             c = _tz_bytes(tw[t] ^ back(tw[t], d, 0))
             ml = ml + torch.where(run, c, 0)
             run = run & (c == 4)
@@ -173,6 +185,8 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
         est = ml
         fp_run = ml == cap
         for j in range(nf):
+            if stats is not None:
+                compares += (valid & fp_run).sum()
             fp_run = fp_run & (tw[ne + j] == back(tw[ne + j], d, 0))
             est = est + torch.where(fp_run, cap << j, 0)
         score = (est << 16) - dist
@@ -195,6 +209,9 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
         # >= W and are cut
         return torch.empty_like(x).scatter_(1, order, x)[:, :W]
 
+    if stats is not None:
+        stats["visits"] = int(visits)
+        stats["compares"] = int(compares)
     if top2:
         return unsort(best_ld), unsort(sec_ld)
     return unsort(best_ld)

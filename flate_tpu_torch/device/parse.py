@@ -60,9 +60,9 @@ def _runs_of_ones(x: torch.Tensor, limit: int) -> torch.Tensor:
     return cnt
 
 
-def _block_walk_plain(sb: torch.Tensor, run1: torch.Tensor) -> torch.Tensor:
+def _parse_walk_plain(sb: torch.Tensor) -> torch.Tensor:
     """Token-start mask of every row of sb (L, n) steps >= 1, walked from
-    0; run1 = _runs_of_ones(sb == 1, n).
+    0.
 
     Each iteration advances every unfinished row by one token (or one
     literal run, every position of which is a start) and costs one host
@@ -70,6 +70,7 @@ def _block_walk_plain(sb: torch.Tensor, run1: torch.Tensor) -> torch.Tensor:
     they are recorded as +1/-1 marks and summed once at the end."""
     L, n = sb.shape
     dev = sb.device
+    run1 = _runs_of_ones(sb == 1, n)
     lanes = torch.arange(L, device=dev)
     cur = torch.zeros(L, dtype=torch.int64, device=dev)
     marks = torch.zeros((L, n + 1), dtype=torch.int32, device=dev)
@@ -89,10 +90,6 @@ def _block_walk_plain(sb: torch.Tensor, run1: torch.Tensor) -> torch.Tensor:
         adv = torch.where(islit, r, torch.clamp(s, min=1)).to(torch.int64)
         cur = torch.where(live, cur + adv, cur)
     return torch.cumsum(marks[:, :n], dim=1) > 0
-
-
-def _parse_walk_plain(step: torch.Tensor) -> torch.Tensor:
-    return _block_walk_plain(step, _runs_of_ones(step == 1, step.shape[1]))
 
 
 def _parse_walk(step: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@ uint32)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from flate_tpu.jx import match2 as j_match2
 from flate_tpu.jx import pipeline2 as j_pipeline2
@@ -151,3 +152,52 @@ def test_find_matches_fused_fp_equal(kind):
         l, d = int(ml[b, p]), int(md[b, p])
         assert 1 <= d <= p
         assert all(win[b, p + i] == win[b, p + i - d] for i in range(l))
+
+
+@pytest.mark.parametrize("ne,nf", [(2, 0), (8, 0), (2, 2)])
+def test_run_matcher_plain_counts_the_scan(ne, nf):
+    """stats= counts what a serial scan does on the data: one bucket test
+    per same-bucket candidate within K, then for a valid candidate one
+    compare per exact word up to the first that differs and, past a full
+    exact run, per fingerprint word likewise.  The outputs do not change."""
+    K, max_dist = 8, 32768
+    win = tt(windows("mixed", seed=5))
+    W = win.shape[1]
+    min_src = np.asarray([0, CTX - 100], np.int32)
+    limit = np.asarray([CTX + S, CTX + 2500], np.int32)
+    key, words = match2._prep(win, ne, 4, nf)
+    skey, order = torch.sort(key, dim=1)
+    args = (skey, order, words, tt(min_src), tt(limit), W, K, max_dist, nf)
+    stats = {}
+    counted = match2._run_matcher_plain(*args, stats=stats)
+    assert torch.equal(counted, match2._run_matcher_plain(*args))
+    sk, wd = skey.numpy(), words.numpy()
+    visits = compares = 0
+    for b in range(sk.shape[0]):
+        live = sk[b][sk[b] != match2.SENTINEL]
+        pos = live & match2.POS_MASK
+        bucket = live >> match2.POS_BITS
+        for i in range(len(live)):
+            for k in range(1, min(K, i) + 1):
+                if bucket[i - k] != bucket[i]:
+                    break
+                visits += 1
+                t, c = int(pos[i]), int(pos[i - k])
+                if not (1 <= t - c <= max_dist and min_src[b] <= c < limit[b]):
+                    continue
+                ml = 0
+                for w in range(ne):
+                    compares += 1
+                    if wd[b, w, t] != wd[b, w, c]:
+                        x = int(wd[b, w, t] ^ wd[b, w, c]) & 0xFFFFFFFF
+                        ml += ((x & -x).bit_length() - 1) // 8
+                        break
+                    ml += 4
+                if min(ml, 258, limit[b] - t) != 4 * ne:
+                    continue
+                for j in range(nf):
+                    compares += 1
+                    if wd[b, ne + j, t] != wd[b, ne + j, c]:
+                        break
+    assert (stats["visits"], stats["compares"]) == (visits, compares)
+    assert visits > 0 and compares > visits // 2
