@@ -52,14 +52,34 @@ Phases, one line each:
      float32 -log2) that differ between card and CPU; and one batch
      through find_matches_fused(fp=True) -> parse -> fields -> pack ->
      compaction, decoded by zlib, with parse_walk held against
-     parse_doubling on the same matches.
+     parse_doubling on the same matches;
+  9. B10, the bitonic sort probe's network (tools/bitonic_probe.py), on
+     the level-6 payload of phase 3's batch: B1's keys and 8 carry words
+     padded from 163,840 to 2^18 (key 0xFFFFFFFF, operands the position),
+     all 171 substages, through device/bitonic.run with the launch counter
+     reset before and read after; then against its plain version (exact),
+     its first W positions against torch.sort + gather (also timed as the
+     library call), and the probe's eight-substage calibrate mix on 8 rows
+     with the full sort extrapolated from it;
+ 10. the streaming encoder through the public entry point:
+     api.gzip.compressor(level=6) takes 32 MiB of the mixed corpus in
+     writes of 3 MiB + 17 bytes with a flush() at 11 MiB; the bytes written
+     by then decode with zlib to the first 11 MiB, the member decodes with
+     zlib, every level-6 kernel launched, and its seconds stand beside
+     phase 8's one-shot level 6; api.zlib.compress(text x 4, dictionary=
+     32 KiB of text) decodes with zlib's zdict and is smaller than without
+     it; a split DeviceEncoder at level 6 on 8 shards in batches of 8 gives
+     the same bytes on the card and the CPU.
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON, and last `{"ok": true, "device": {...}}`.  Any failure exits
 non-zero without the last line.  Imports nothing of JAX or flate_tpu.
+About 155 s on an H100 (the kernel build ~5 s, the CPU twins of phases 8
+and 10 ~30-50 s).
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -139,8 +159,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from flate_tpu_torch import _build, api
     from flate_tpu_torch.containers import Container, parse_header
-    from flate_tpu_torch.device import encode2, inflate2, match2, parse
-    from flate_tpu_torch.device import pack, pipeline2, runs, squeeze
+    from flate_tpu_torch.device import bitonic, encode2, inflate2, match2
+    from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
+    from flate_tpu_torch.device import to_i32
     from flate_tpu_torch.shard_index import parse_index_extra
 
     card = smi()
@@ -173,15 +194,17 @@ def main() -> int:
     cases = []
 
     def case(phase, path, label, entry, replaces, kernel, plain, bytes_moved,
-             ops, reps=20, plain_reps=1, note=None):
+             ops, reps=20, plain_reps=1, note=None, library=None):
         """entry: the C entry point; path: the main-path run whose launch
         count the case reports; bytes_moved: what the function must move
         at its own widths (u32 keys, words and field values), each input
         read once and each output written once; ops: the integer
         operations this run's data needs (a lower bound), or a function of
         the kernel's outputs that gives them; note: what else the launch
-        count of this entry on that path covers.  The run that is compared
-        is the warm-up of the timed ones."""
+        count of this entry on that path covers; library: one PyTorch call
+        that computes the same function, timed beside the kernel (the port
+        never calls it).  The run that is compared is the warm-up of the
+        timed ones."""
         def outputs(r):
             return r if isinstance(r, tuple) else (r,)
 
@@ -199,6 +222,10 @@ def main() -> int:
             ops = ops(k_out)
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, plain_reps)
+        library_ms = None
+        if library is not None:
+            library()
+            library_ms = cuda_ms(library, reps)
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = float(ops) / INT_OPS_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -208,13 +235,14 @@ def main() -> int:
                           replaces=replaces,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None))
+                          library_ms=library_ms))
         if note:
             cases[-1]["launches_cover"] = note
+        lib = "" if library is None else f", library {library_ms:.4f} ms"
         print(f"[{phase}] {label}: equal, {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
-              f"{bytes_moved} bytes {bytes_ms:.4f} ms, {int(ops)} ops "
-              f"{ops_ms:.4f} ms)", flush=True)
+              f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms by "
+              f"{bound_by}: {bytes_moved} bytes {bytes_ms:.4f} ms, "
+              f"{int(ops)} ops {ops_ms:.4f} ms)", flush=True)
         return k_out
 
     def matcher_cases(phase, path, tag, K, ne, nf, hash_bytes, max_dist,
@@ -545,6 +573,8 @@ def main() -> int:
         launches[("encode", L)] = counts
         if zlib.decompress(blob, 31) != data:
             raise AssertionError(f"level {L}: zlib round trip differs")
+        if L == 6:
+            oneshot6 = secs
         line = (f"[8] level {L}: {len(data) >> 20} MiB mixed in {secs:.4f} s"
                 f" = {len(data) / secs / 1e9:.4f} GB/s; launches {counts}; "
                 f"zlib round trip ok; {len(blob)} bytes = "
@@ -618,6 +648,166 @@ def main() -> int:
           f"token starts); zlib round trip ok; {len(raw)} raw bytes = "
           f"{len(raw) / len(zlib.compress(data8, 6)):.4f} of zlib -6",
           flush=True)
+
+    # ---- phase 9: B10, the bitonic probe's network, full width ----
+    # the level-6 payload of the first 8 MiB batch: B1's keys (hash<<18 |
+    # pos, unique) and its 8 carry words, padded from Wp to 2^18 with the
+    # sentinel key 0xFFFFFFFF and operands equal to the position
+    n10 = bitonic.R * bitonic.C
+    shards = torch.frombuffer(bytearray(head[CTX:]), dtype=torch.uint8
+                              ).reshape(B, S).to(dev)
+    ctx0 = torch.frombuffer(bytearray(head[:CTX]), dtype=torch.uint8).to(dev)
+    window = pipeline2._prime_windows(shards, ctx0, CTX)
+    key6, words6 = match2._prep(window, 8, 4)
+    W = window.shape[1]
+    Wp = key6.shape[1]
+    k10 = torch.full((B, n10), -1, dtype=torch.int32, device=dev)
+    k10[:, :Wp] = to_i32(key6)
+    pos = torch.arange(n10, dtype=torch.int32, device=dev).expand(B, n10)
+    o10 = []
+    for i in range(words6.shape[1]):
+        o = pos.clone()
+        o[:, :Wp] = words6[:, i]
+        o10.append(o.view(torch.uint32).reshape(B, bitonic.R, bitonic.C))
+    k10 = k10.view(torch.uint32).reshape(B, bitonic.R, bitonic.C)
+    del key6, words6, window, shards, pos
+    full = bitonic.bitonic_stages(n10)
+    arrays = 1 + len(o10)
+
+    def as_i32(outs):
+        return tuple(x.view(torch.int32) for x in outs)
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    got = as_i32(bitonic.run(k10, o10, full))
+    torch.cuda.synchronize()
+    launches[("bitonic", "full")] = dict(_build.LAUNCHES)
+    # the library call: torch.sort of the keys (int64: CUDA sorts no
+    # uint32) and a gather per operand, inputs made before the timing
+    k64 = k10.reshape(B, n10).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    o32 = [o.reshape(B, n10).view(torch.int32) for o in o10]
+
+    def library_sort():
+        s_, idx = torch.sort(k64, dim=1)
+        return (s_, *[torch.gather(o, 1, idx) for o in o32])
+
+    lib = library_sort()
+    if int(lib[0][:, W - 1].max()) >= 0xFFFFFFFF:
+        raise AssertionError("B10: a real key reached the sentinel")
+    head_ok = torch.equal(got[0].reshape(B, n10)[:, :W].to(torch.int64)
+                          & 0xFFFFFFFF, lib[0][:, :W]) and all(
+        torch.equal(g.reshape(B, n10)[:, :W], x[:, :W])
+        for g, x in zip(got[1:], lib[1:]))
+    if not head_ok:
+        raise AssertionError("B10: the first W positions differ from "
+                             "torch.sort + gather")
+    tail = got[1].reshape(B, n10)[:, W:].sort(dim=1).values
+    dup = int((tail[:, 1:] == tail[:, :-1]).sum())
+    print(f"[9] bitonic full network: {B} rows x {n10} (W = {W} real keys, "
+          f"{n10 - W} sentinels), {arrays} arrays, {len(full)} substages; "
+          f"launches {launches['bitonic', 'full']}; first W positions == "
+          f"torch.sort + gather; operand entries of the sentinel tail "
+          f"that are copies (equal keys duplicate): {dup}", flush=True)
+    del lib, tail
+    case(9, ("bitonic", "full"), "bitonic_full", "flate_bitonic",
+         "tools/bitonic_probe.py:46",
+         lambda: as_i32(bitonic.run(k10, o10, full)),
+         lambda: as_i32(bitonic._run_plain(k10, o10, full)),
+         arrays * 2 * 4 * B * n10,            # every u32 array in and out
+         2 * len(full) * B * n10,              # compare + select a substage
+         library=library_sort)
+    del k10, o10, k64, o32, got
+    # the probe's calibrate mix: 8 rows of random keys, operands key + i
+    rng = np.random.default_rng(0)
+    kc = rng.integers(0, 2**32, (8, bitonic.R, bitonic.C), dtype=np.uint32)
+    kmix = torch.from_numpy(kc).to(dev)
+    omix = [torch.from_numpy(kc + np.uint32(i)).to(dev)
+            for i in range(arrays - 1)]
+    mix = bitonic.CALIBRATE_MIX
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    bitonic.run(kmix, omix, mix)
+    torch.cuda.synchronize()
+    launches[("bitonic", "mix")] = dict(_build.LAUNCHES)
+    case(9, ("bitonic", "mix"), "bitonic_calibrate_mix", "flate_bitonic",
+         "tools/bitonic_probe.py:46",
+         lambda: as_i32(bitonic.run(kmix, omix, mix)),
+         lambda: as_i32(bitonic._run_plain(kmix, omix, mix)),
+         arrays * 2 * 4 * 8 * n10, 2 * len(mix) * 8 * n10)
+    per_sub = cases[-1]["ms"] / len(mix) / 8
+    print(f"[9] calibrate mix: {len(mix)} substages x 8 rows "
+          f"{cases[-1]['ms']:.4f} ms -> {per_sub * 1e3:.3f} us/substage/row "
+          f"-> full sort est {per_sub * len(full) * B:.4f} ms ({len(full)} "
+          f"substages x {B} rows); measured {cases[-2]['ms']:.4f} ms; "
+          f"torch.sort + gather {cases[-2]['library_ms']:.4f} ms",
+          flush=True)
+    del kmix, omix
+
+    # ---- phase 10: the streaming encoder through the public entry point ----
+    cut, piece = 11 << 20, (3 << 20) + 17
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t = time.time()
+    sink = io.BytesIO()
+    c = api.gzip.compressor(sink, level=6)
+    at, flushed = 0, None
+    while at < len(data32):
+        end = min(at + piece, len(data32))
+        if flushed is None and end >= cut:
+            end = cut
+        c.write(data32[at:end])
+        at = end
+        if flushed is None and at == cut:
+            c.flush()
+            flushed = sink.getvalue()
+    c.finish()
+    secs = time.time() - t
+    counts = dict(_build.LAUNCHES)
+    need_launched("streaming level 6", counts)
+    launches[("stream", 6)] = counts
+    member = sink.getvalue()
+    if zlib.decompressobj(31).decompress(flushed) != data32[:cut]:
+        raise AssertionError("stream: the flushed prefix does not decode to "
+                             "the first 11 MiB")
+    if zlib.decompress(member, 31) != data32:
+        raise AssertionError("stream: zlib round trip differs")
+    print(f"[10] streaming gzip.compressor level 6: 32 MiB mixed in writes of "
+          f"{piece} bytes, flush at {cut}: {secs:.4f} s = "
+          f"{len(data32) / secs / 1e9:.4f} GB/s (one-shot level 6, phase 8: "
+          f"{oneshot6:.4f} s = {len(data32) / oneshot6 / 1e9:.4f} GB/s); "
+          f"launches {counts}; flushed prefix {len(flushed)} bytes decodes "
+          f"to the first 11 MiB; member {len(member)} bytes "
+          f"({len(member) / len(zlib.compress(data32, 6)):.4f} of zlib -6) "
+          f"decodes with zlib", flush=True)
+    zd = text_corpus(32 * 1024)
+    with_d = api.zlib.compress(zd * 4, dictionary=zd)
+    without = api.zlib.compress(zd * 4)
+    dobj = zlib.decompressobj(zdict=zd)
+    if dobj.decompress(with_d) != zd * 4 or not dobj.eof:
+        raise AssertionError("dictionary: zlib round trip differs")
+    if len(with_d) >= len(without):
+        raise AssertionError(f"dictionary: {len(with_d)} bytes, not smaller "
+                             f"than {len(without)} without it")
+
+    def split_encode(device):
+        enc = pipeline2.DeviceEncoder(level=6, batch=8, device=device)
+        raw = (enc.encode(mixed1[:3 * S + 17])
+               + enc.encode(mixed1[3 * S + 17:], final=True))
+        return raw, enc.comp_lens
+
+    t = time.time()
+    cpu = split_encode("cpu")
+    cpu_s = time.time() - t
+    gpu = split_encode(dev)
+    if gpu != cpu:
+        raise AssertionError("stream: split DeviceEncoder cuda bytes != cpu")
+    if zlib.decompress(gpu[0], -15) != mixed1:
+        raise AssertionError("stream: split DeviceEncoder round trip")
+    print(f"[10] zlib.compress(32 KiB text x 4, dictionary=32 KiB text): "
+          f"{len(with_d)} bytes (without: {len(without)}), decodes with "
+          f"zdict; DeviceEncoder level 6, 8 shards in batches of 8, split at "
+          f"3 x 128 KiB + 17: cuda == cpu bytes ({len(gpu[0])}, cpu twin "
+          f"{cpu_s:.1f} s)", flush=True)
 
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)

@@ -5,6 +5,7 @@ side).
     import flate_tpu_torch as ftt
     blob = ftt.gzip.compress(data, level=1)          # runs on "cuda"
     data = ftt.gzip.decompress(blob)                 # runs on "cuda"
+    c = ftt.gzip.compressor(writer, level=6)         # streaming, on "cuda"
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 a missing card raises.  Kernels build with nvcc at first use.

@@ -49,10 +49,14 @@ DECODE_KERNELS = {
     "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flate_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
+SORT_KERNELS = {
+    "flate_bitonic": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P],
+}
 KERNELS_BY_SOURCE = {PKG / "csrc" / "encode_kernels.cu": ENCODE_KERNELS,
-                     PKG / "csrc" / "decode_kernels.cu": DECODE_KERNELS}
+                     PKG / "csrc" / "decode_kernels.cu": DECODE_KERNELS,
+                     PKG / "csrc" / "sort_kernels.cu": SORT_KERNELS}
 SOURCES = tuple(KERNELS_BY_SOURCE)
-KERNELS = {**ENCODE_KERNELS, **DECODE_KERNELS}
+KERNELS = {**ENCODE_KERNELS, **DECODE_KERNELS, **SORT_KERNELS}
 
 
 def source_of(name: str) -> str:

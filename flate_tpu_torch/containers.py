@@ -79,8 +79,11 @@ FLG_FNAME = 8
 FLG_FCOMMENT = 16
 
 
-def write_header(container: Container,
-                 meta: Optional[GzipMetadata] = None) -> bytes:
+def write_header(container: Container, meta: Optional[GzipMetadata] = None,
+                 dictionary: Optional[bytes] = None) -> bytes:
+    """The container's header bytes.  gzip carries `meta` (and ignores
+    `dictionary`); zlib with a preset dictionary sets FDICT and appends its
+    DICTID (RFC 1950 §2.2); raw has none."""
     if container is Container.GZIP:
         if meta is None:
             # fixed 10-byte header: magic, CM=deflate, no flags, mtime=0,
@@ -110,6 +113,12 @@ def write_header(container: Container,
             out += struct.pack("<H", zlib.crc32(bytes(out)) & 0xFFFF)
         return bytes(out)
     if container is Container.ZLIB:
+        if dictionary is not None:
+            # FDICT set: recompute FCHECK, append DICTID
+            flg = 0x20 | (2 << 6)
+            flg |= (31 - ((0x78 << 8 | flg) % 31)) % 31
+            return bytes([0x78, flg]) + struct.pack(
+                ">I", checksums.adler32(dictionary))
         # CM=8 CINFO=7 (32K window), FLEVEL=default, FCHECK -> 0x78 0x9c
         return bytes([0x78, 0x9C])
     return b""

@@ -1,17 +1,19 @@
-"""Device-resident compression pipeline (one-shot encode).
+"""Device-resident compression pipeline (one-shot and streaming encode).
 
 Counterpart of flate_tpu/jx/pipeline2.py: LEVEL_KERNEL, _nwr,
 _prime_windows (:120), _squeeze_stage (:157), encode_batch_packed (:261),
-_compact_stage (:223), compress_device2 / _compress_device2_impl (:338)
-and _assemble (:593).  Per batch of B shards of S bytes:
+_compact_stage (:223), compress_device2 / _compress_device2_impl (:338),
+DeviceEncoder (:506) and _assemble (:593).  Per batch of B shards of S bytes:
 
     windows -> matcher -> parse -> [squeeze cost DP] -> field build ->
     bit-pack -> compaction
 
 The host moves bytes: it uploads a batch, fetches its compacted stream
-and a small meta array, and wraps the container.  Batches are dispatched
-two ahead on one CUDA stream; the 32 KiB context is carried on the device
-from batch to batch.  Levels 1-9; levels 2 and 4-9 run the squeeze.
+and a small meta array, and wraps the container.  compress_device2
+dispatches batches two ahead on one CUDA stream; the 32 KiB context is
+carried on the device from batch to batch.  DeviceEncoder encodes a
+stream call by call, one batch at a time.  Levels 1-9; levels 2 and 4-9
+run the squeeze.
 """
 
 from __future__ import annotations
@@ -284,6 +286,82 @@ def _compress_device2_impl(data, kern, container, shard_len, ctx, batch,
 
     return _assemble(container, index, independent, nshards, S, n,
                      comp_lens, out, hasher)
+
+
+class DeviceEncoder:
+    """Stateful streaming device encoder producing raw DEFLATE bytes.
+
+    `encode(data, final=False)` encodes `data` completely, its tail shard
+    padded, and returns the spliced shard streams.  Every shard stream ends
+    with the empty stored block that byte-aligns it (encode2's trailer), so
+    each call's output extends a decodable prefix: the flush contract of
+    the streaming Compressor (api.py).  Inside a call the context is
+    carried on the device from batch to batch; across calls it is rebuilt
+    from the host history tail `_tail` (the device carry pads the tail
+    shard with zeros), which a preset dictionary primes.  `comp_lens` and
+    `out_lens` grow by each shard's compressed and input byte lengths."""
+
+    def __init__(self, level: int = consts.LEVEL_DEFAULT,
+                 shard_len: int = consts.SHARD_LEN, ctx: int = CTX,
+                 batch: int = 64, dictionary: bytes | None = None,
+                 device: str | torch.device = "cuda"):
+        self._kern = level_params(level, shard_len)
+        self.dev = resolve_device(device)
+        self.S, self.ctx, self.batch = shard_len, ctx, batch
+        self._tail = bytearray((dictionary or b"")[-ctx:])
+        self._finished = False
+        self.comp_lens: list = []
+        self.out_lens: list = []
+
+    def encode(self, data: bytes, final: bool = False) -> bytes:
+        """Encode `data` and return its deflate bytes; final=True closes
+        the stream (an empty final call is one empty shard)."""
+        if self._finished:
+            raise ValueError("encode after the final call")
+        self._finished = final
+        arr = np.frombuffer(data, dtype=np.uint8)
+        n, S, batch, ctx = arr.size, self.S, self.batch, self.ctx
+        nshards = -(-n // S)
+        if final and nshards == 0:
+            nshards = 1
+        hist = len(self._tail)
+        ctx0 = np.zeros(ctx, dtype=np.uint8)
+        if hist:
+            ctx0[ctx - hist:] = np.frombuffer(self._tail, dtype=np.uint8)
+        ctx_dev = torch.from_numpy(ctx0).to(self.dev)
+        kc = -(-ctx // S)
+        pieces = []
+        for base in range(0, nshards, batch):
+            nb = min(batch, nshards - base)
+            lo0 = base * S
+            shards_np = np.zeros((batch, S), dtype=np.uint8)
+            take_n = max(0, min(n - lo0, batch * S))
+            shards_np.reshape(-1)[:take_n] = arr[lo0:lo0 + take_n]
+            meta = np.zeros(3 * batch + 1, dtype=np.int32)
+            meta[:batch] = np.minimum(
+                ctx, hist + lo0 + np.arange(batch, dtype=np.int64) * S)
+            v = meta[batch:2 * batch]
+            for i in range(nb):
+                v[i] = max(0, min(S, n - (base + i) * S))
+            if final and base + nb == nshards:
+                meta[2 * batch + nb - 1] = 1
+            meta[3 * batch] = nb
+            shards_dev = torch.from_numpy(shards_np).to(self.dev)
+            buf, meta_out = encode_batch_packed(
+                shards_dev, ctx_dev, torch.from_numpy(meta).to(self.dev),
+                S=S, ctx=ctx, hash_kind=HASH_NONE, **self._kern)
+            # last ctx bytes of [carry | batch], padding rows included
+            rows = shards_dev[max(0, batch - kc):].reshape(-1)
+            ctx_dev = torch.cat([ctx_dev, rows])[-ctx:]
+            meta_np = meta_out.cpu().numpy()
+            pieces.append(buf[:int(meta_np[0])].cpu().numpy().tobytes())
+            self.comp_lens.extend(int(x) for x in meta_np[1:1 + nb])
+            self.out_lens.extend(int(v[i]) for i in range(nb))
+        if n >= ctx:
+            self._tail = bytearray(bytes(data[-ctx:]))
+        else:
+            self._tail = (self._tail + bytes(data))[-ctx:]
+        return b"".join(pieces)
 
 
 def _assemble(container, index, independent, nshards, S, n, comp_lens,

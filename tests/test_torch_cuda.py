@@ -8,12 +8,14 @@ runs on a machine without it:
 
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
 from flate_tpu_torch import _build
 from flate_tpu_torch import api
-from flate_tpu_torch.device import anyinflate, encode2, inflate2, match2
+from flate_tpu_torch.device import anyinflate, bitonic, encode2, inflate2
+from flate_tpu_torch.device import match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
 
 from _torch_corpora import CTX, KINDS, S, corpus, windows
@@ -351,3 +353,43 @@ def test_cuda_decode_round_trip(cuda, kind, walk):
     assert api.zlib.decompress(zlib.compress(data, 6)) == data
     assert anyinflate.decompress_device_any(
         zlib.compress(data, 9, 31), device=cuda) == data
+
+
+@pytest.mark.parametrize("case", ["full", "mix", "dup_full", "dup_one",
+                                  "no_stages"])
+def test_bitonic_equal_plain(cuda, case):
+    """B10 against its plain version: the full 171-substage network on 2
+    rows, the probe's calibrate mix, keys from 0-15 (operands duplicated),
+    and an empty stage list."""
+    rng = np.random.default_rng(5)
+    shape = (2, bitonic.R, bitonic.C)
+    high = 16 if case.startswith("dup") else 2**32
+    key = torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint32))
+    ops = [torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint32))
+           for _ in range(8)]
+    stages = {"mix": bitonic.CALIBRATE_MIX, "dup_one": ((1, 2),),
+              "no_stages": ()}.get(case,
+                                   bitonic.bitonic_stages(bitonic.R * bitonic.C))
+    key, ops = key.to(cuda), [o.to(cuda) for o in ops]
+    got = bitonic.run(key, ops, stages)
+    want = bitonic._run_plain(key, ops, stages)
+    assert len(got) == len(want) == 9
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint32
+        _eq(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_device_encoder_cuda_equal_cpu(cuda):
+    """The streaming encoder on the card gives the CPU's bytes, split
+    calls, a dictionary and the final call included."""
+    data = corpus("mixed", 7 * S + 17, seed=4)
+    d = corpus("text", 700, seed=5)
+    outs = []
+    for dev in (cuda, "cpu"):
+        enc = pipeline2.DeviceEncoder(level=6, shard_len=S, ctx=CTX, batch=3,
+                                      dictionary=d, device=dev)
+        outs.append(enc.encode(data[:3 * S + 17])
+                    + enc.encode(data[3 * S + 17:], final=True))
+        outs.append((enc.comp_lens, enc.out_lens))
+    assert outs[0] == outs[2] and outs[1] == outs[3]
+    assert zlib.decompressobj(-15, zdict=d).decompress(outs[0]) == data

@@ -337,9 +337,10 @@ def test_port_imports_no_jax_and_no_flate_tpu():
         "before = set(sys.modules)\n"
         "import flate_tpu_torch, flate_tpu_torch.api, flate_tpu_torch._build\n"
         "import flate_tpu_torch.inflate\n"
-        "from flate_tpu_torch.device import anyinflate, checksum, encode, "
-        "encode2, header, huff, inflate2, match2, onehot, pack, parse, "
-        "pipeline2, runs\n"
+        "import flate_tpu_torch.cli.gzip_cli, flate_tpu_torch.cli.gunzip_cli\n"
+        "from flate_tpu_torch.device import anyinflate, bitonic, checksum, "
+        "encode, encode2, header, huff, inflate2, match2, onehot, pack, "
+        "parse, pipeline2, runs, squeeze\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or "
         "m.startswith('jax.') or m == 'flate_tpu' or "
@@ -354,7 +355,10 @@ def test_port_imports_no_jax_and_no_flate_tpu():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/torch_stage_profile.py",
-                                    "tools/lane_join_probe.py"])
+                                    "tools/lane_join_probe.py",
+                                    "tools/torch_bitonic_probe.py",
+                                    "flate_tpu_torch/cli/gzip_cli.py",
+                                    "flate_tpu_torch/cli/gunzip_cli.py"])
 def test_card_scripts_import_no_jax_and_no_flate_tpu(script):
     """The card scripts run where there is no JAX: every import statement
     in them, at any depth, names neither jax nor flate_tpu."""
