@@ -41,7 +41,9 @@ Phases, one line each:
      them with both outputs (K=48, nw=8, fp=True), B8 (top-2 chain
      extension) on those outputs, and B9 (parse walk) three ways: rows =
      level 6's parse blocks (8192 x 1024), rows = level 9's (2048 x 4096),
-     rows = shards (64 x 131072, the parse_walk entry point);
+     rows = shards (64 x 131072, the parse_walk entry point).  B2 at level
+     6 is also timed with the L2 flushed before each launch, and every B2
+     case prints the bound of reading all of B1's words beside its own;
   8. the main path: api.gzip.compress at level 6 of 32 MiB mixed, decoded
      by zlib and by the port's own gzip.decompress; levels 2, 4, 5, 7, 8, 9
      on 8 MiB; sizes against zlib at the same level (must be <= 1.0), with
@@ -56,7 +58,8 @@ Phases, one line each:
   9. B10, the bitonic sort probe's network (tools/bitonic_probe.py), on
      the level-6 payload of phase 3's batch: B1's keys and 8 carry words
      padded from 163,840 to 2^18 (key 0xFFFFFFFF, operands the position),
-     all 171 substages, through device/bitonic.run with the launch counter
+     all 171 substages in the passes plan_passes cuts them into (printed),
+     through device/bitonic.run with the launch counter
      reset before and read after; then against its plain version (exact),
      its first W positions against torch.sort + gather (also timed as the
      library call), and the probe's eight-substage calibrate mix on 8 rows
@@ -71,7 +74,8 @@ Phases, one line each:
      it; a split DeviceEncoder at level 6 on 8 shards in batches of 8 gives
      the same bytes on the card and the CPU.
 Then, on lines of their own: the card's name and power limit, the kernel
-JSON, and last `{"ok": true, "device": {...}}`.  Any failure exits
+JSON (the redesigned B2 and B10 with ms_before, their times before the
+redesign), and last `{"ok": true, "device": {...}}`.  Any failure exits
 non-zero without the last line.  Imports nothing of JAX or flate_tpu.
 About 155 s on an H100 (the kernel build ~5 s, the CPU twins of phases 8
 and 10 ~30-50 s).
@@ -99,6 +103,14 @@ INT_OPS_PER_S = 64 * 132 * 1.98e9
 HERE = os.path.dirname(os.path.abspath(__file__))
 LEVELS = (1, 3)                  # 32 MiB end to end in phase 4
 KERNEL_LEVELS = (1, 3, 6, 9)     # knobs at which B1-B5 and B9 are held to plain
+# ms of the two redesigned kernels before the redesign (B2: one thread a
+# sorted row reading B1's words by position; B10: 28 passes and a gather),
+# from this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel
+# table); printed beside this run's times as ms_before
+MS_BEFORE = {"matcher_l1": 0.3699, "matcher_l3": 0.7565,
+             "matcher_l6": 1.8556, "matcher_l9": 3.5876,
+             "matcher_k3_l9": 0.4039, "matcher_fp": 1.5519,
+             "bitonic_full": 4.8480, "bitonic_calibrate_mix": 0.1599}
 # size / zlib's size at the same level, from the JAX package's last bench
 # (BENCH_r05.json size_vs_zlib_corpora): byte counts, equal on any hardware
 JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
@@ -148,6 +160,25 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean device time of fn() with the L2 flushed before each launch: a
+    64 MB write, then a spin that keeps the card busy while the host
+    enqueues fn, both outside the timed span."""
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    total = 0.0
+    for _ in range(reps):
+        scratch.fill_(1)
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -194,7 +225,7 @@ def main() -> int:
     cases = []
 
     def case(phase, path, label, entry, replaces, kernel, plain, bytes_moved,
-             ops, reps=20, plain_reps=1, note=None, library=None):
+             ops, reps=20, plain_reps=1, note=None, library=None, extra=None):
         """entry: the C entry point; path: the main-path run whose launch
         count the case reports; bytes_moved: what the function must move
         at its own widths (u32 keys, words and field values), each input
@@ -203,8 +234,8 @@ def main() -> int:
         the kernel's outputs that gives them; note: what else the launch
         count of this entry on that path covers; library: one PyTorch call
         that computes the same function, timed beside the kernel (the port
-        never calls it).  The run that is compared is the warm-up of the
-        timed ones."""
+        never calls it); extra: more keys for the case's line.  The run
+        that is compared is the warm-up of the timed ones."""
         def outputs(r):
             return r if isinstance(r, tuple) else (r,)
 
@@ -238,6 +269,9 @@ def main() -> int:
                           library_ms=library_ms))
         if note:
             cases[-1]["launches_cover"] = note
+        if label in MS_BEFORE:
+            cases[-1]["ms_before"] = MS_BEFORE[label]
+        cases[-1].update(extra or {})
         lib = "" if library is None else f", library {library_ms:.4f} ms"
         print(f"[{phase}] {label}: equal, {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms by "
@@ -259,23 +293,40 @@ def main() -> int:
             B * Wp * ((4 * ne << nf) + hash_bytes), note=note)
         skey, order = torch.sort(key, dim=1)
         args = (skey, order, words, min_src, limit, W, K, max_dist, nf, top2)
-        # what the scan needs on this data: a bucket test per same-bucket
-        # candidate within K, and for a valid one the word compares up to
-        # and including the first word that differs
+        kargs = (skey, order, words, window, min_src, limit, W, K, max_dist,
+                 nf, top2, hash_bytes)
+        # what the scan needs on this data: the candidates within K before
+        # its end (another bucket, past max_dist, below min_src) in rows
+        # that can match, and for a valid one the word compares up to and
+        # including the first word that differs
         scan = {}
         match2._run_matcher_plain(*args, stats=scan)
         print(f"[{phase}] matcher_{tag}: K={K}, {ne} exact + {nf} "
               f"fingerprint words; the scan visits {scan['visits']} "
               f"candidates and compares {scan['compares']} words",
               flush=True)
-        return case(
+        outs = B * W * 4 * (2 if top2 else 1)        # u32 outputs
+        # what the kernel reads: the sorted u32 keys, the window, min_src
+        # and limit, and the fingerprint words; beside it the bound of
+        # reading all nc words (the kernel before its redesign)
+        words_ms = (B * Wp * 4 * (1 + nc) + outs) / HBM_BYTES_PER_S * 1e3
+        extra = {"bound_words_ms": words_ms}
+        if tag == "l6":
+            extra["ms_l2_flushed"] = cuda_ms_cold(
+                lambda: match2._run_matcher(*kargs), 20)
+        out = case(
             phase, path, f"matcher_{tag}", "flate_matcher",
             "flate_tpu/jx/match2.py:187",
-            lambda: match2._run_matcher(*args),
+            lambda: match2._run_matcher(*kargs),
             lambda: match2._run_matcher_plain(*args),
-            # sorted u32 keys + words in, one or two u32 outputs
-            B * Wp * 4 * (1 + nc) + B * W * 4 * (2 if top2 else 1),
-            scan["visits"] + scan["compares"], note=note)
+            B * Wp * 4 + nbytes(window) + 8 * B + outs + B * Wp * 4 * nf,
+            scan["visits"] + scan["compares"], note=note, extra=extra)
+        print(f"[{phase}] matcher_{tag}: bound by reading every word "
+              f"{words_ms:.4f} ms" + (
+                  f"; L2 flushed before each launch "
+                  f"{extra['ms_l2_flushed']:.4f} ms" if tag == "l6" else ""),
+              flush=True)
+        return out
 
     def better(l, d, l0, d0):
         upd = match2._score(l, d) > match2._score(l0, d0)
@@ -673,6 +724,12 @@ def main() -> int:
     del key6, words6, window, shards, pos
     full = bitonic.bitonic_stages(n10)
     arrays = 1 + len(o10)
+    plans = {name: bitonic.plan_passes(st, n10) for name, st in
+             (("full", full), ("mix", bitonic.CALIBRATE_MIX))}
+    print("[9] bitonic pass plans: " + "; ".join(
+        f"{name} {len(plan)} passes ("
+        + ", ".join(f"{kind} {len(run)}" for kind, run in plan) + ")"
+        for name, plan in plans.items()), flush=True)
 
     def as_i32(outs):
         return tuple(x.view(torch.int32) for x in outs)

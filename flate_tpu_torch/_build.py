@@ -38,7 +38,8 @@ _I = ctypes.c_int
 # by the source that holds it
 ENCODE_KERNELS = {
     "flate_prep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "flate_matcher": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flate_matcher": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P],
     "flate_small_runs": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flate_extend": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flate_extend2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -50,7 +51,8 @@ DECODE_KERNELS = {
     "flate_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 SORT_KERNELS = {
-    "flate_bitonic": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P],
+    "flate_bitonic": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,
+                      _I, _P],
 }
 KERNELS_BY_SOURCE = {PKG / "csrc" / "encode_kernels.cu": ENCODE_KERNELS,
                      PKG / "csrc" / "decode_kernels.cu": DECODE_KERNELS,

@@ -5,11 +5,12 @@
 // versions tile (8, 1024) vregs, halo neighbouring tiles through extra
 // BlockSpecs and count runs by saturating doubling because VMEM rounds are
 // cheap there.  On the H100 each is one thread per position (or field),
-// reading device memory directly; the parse walk (B9) is one chain per row.
-// All but B9 are bound by memory traffic (a few bytes moved per position, a
-// handful of integer operations); the design keeps each thread's reads
-// within a few cache lines of its neighbours' so warps stay coalesced where
-// the data allows.
+// reading device memory directly, except the matcher (B2: a block stages a
+// tile of sorted rows and their candidates in shared memory) and the parse
+// walk (B9: one chain per row).  B1 and B3-B5 are bound by memory traffic
+// (a few bytes moved per position, a handful of integer operations); the
+// design keeps each thread's reads within a few cache lines of its
+// neighbours' so warps stay coalesced where the data allows.
 //
 // Interface: plain C (ctypes), every entry point launches on the caller's
 // stream and returns cudaGetLastError().  Buffers are allocated by the
@@ -88,88 +89,162 @@ __global__ void prep_kernel(const uint8_t* __restrict__ window,
 
 // --------------------------------------------------------------------------
 // B2 matcher — replaces flate_tpu/jx/match2.py:_matcher_kernel (via
-// _run_matcher).  One thread per sorted row i: scans rows i-1 .. i-K of the
-// same batch row (sorted by (hash, pos), so these are the K most recent
-// same-bucket predecessors); a candidate is valid with the same bucket,
+// _run_matcher).  Per sorted row i: scans rows i-1 .. i-K of the same batch
+// row (sorted by (hash, pos), so these are the K most recent same-bucket
+// predecessors); a candidate is valid with the same bucket,
 // 1 <= dist <= max_dist and a source in [min_src, limit).  Length = equal
 // leading bytes over the ne exact carry words, capped at min(258,
 // limit-pos).  With nf > 0 a candidate that fills the exact cap ranks as
 // longer by cap<<j for every leading fingerprint word j that agrees; the
 // fingerprints themselves are compared, so a collision ranks as it does in
 // the reference, and the length written is always the exact one.  Keeps
-// the best (rank<<16)-dist with len >= 3, ties to the first (nearest)
-// candidate, and with out2 the runner-up too: a new best demotes the old
-// one, otherwise a candidate above the runner-up replaces it, in scan
-// order.  Writes len<<16|dist at the row's POSITION: the unsort is the
+// the best (rank<<16)-dist with len >= 3 and, with out2, the runner-up.
+// Writes len<<16|dist at the row's POSITION: the unsort is the
 // inverse-permutation scatter, fused here, for both outputs.
-// Bound: bytes — the sorted key row is read once (coalesced), the words are
-// gathered by position (random, 4*(ne+nf) bytes per candidate).  Earlier
-// rows in sort order hold smaller keys, so the first candidate of another
-// bucket ends the scan.
+//
+// Design.  Sorted neighbours share almost all their candidates, so one
+// block takes a tile of T consecutive sorted rows of one batch row and
+// stages, once, the T + K keys (as u32) and each staged row's ne carry
+// words in shared memory; each thread then scans its rows' predecessors
+// from there with the target's words in registers (ne is a template
+// parameter, so the compares unroll).  The words are rebuilt from the
+// window (B, W) bytes, which stay in L2 (10.5 MB a batch), instead of read
+// from B1's plane-major words (one 32-byte sector for 4 useful bytes, 336
+// MB at level 6): word t of position pos is the little-endian bytes from
+// pos + 4t, zero past W, word 0 masked to hash_bytes bytes in the 3-byte
+// pass — B1's words exactly.  Fingerprint words (nf > 0) are read from B1's
+// words, only for candidates that fill the exact cap.  A row of ne+1 words
+// (odd) spreads a warp's rows over the banks.  Within a row every candidate
+// has its own distance, so the scores are distinct and the best and
+// runner-up are the two largest whatever the scan order.  Going back in
+// sort order, a bucket's positions fall, so the scan ends at the first
+// candidate of another bucket, past max_dist or below min_src (every later
+// one fails too); a row with fewer than 3 bytes before its limit has no
+// match and is not scanned.  The next candidate's key is loaded while the
+// current one is compared.
+// Bound: bytes — the sorted keys (u32), the window, one or two outputs
+// (scattered 4-byte stores), and the fingerprint words when nf > 0; the
+// window is read (T + K) / T times and every other candidate read comes
+// from shared memory.
 // --------------------------------------------------------------------------
-__global__ void matcher_kernel(const long long* __restrict__ skey,
-                               const uint32_t* __restrict__ words,
-                               const int* __restrict__ min_src,
-                               const int* __restrict__ limit,
-                               int* __restrict__ out,
-                               int* __restrict__ out2,
-                               int B, int W, int Wp, int ne, int nf, int K,
-                               int max_dist) {
-  long long gid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (gid >= static_cast<long long>(B) * Wp) return;
-  long long tk = skey[gid];
-  if (tk == kSentinel) return;                 // pad rows sort last
-  int b = static_cast<int>(gid / Wp);
-  int i = static_cast<int>(gid - static_cast<long long>(b) * Wp);
-  uint32_t tkey = static_cast<uint32_t>(tk);
-  int tpos = static_cast<int>(tkey & kPosMask);
-  uint32_t tbucket = tkey >> kPosBits;
-  int ms = min_src[b];
-  int lim = limit[b];
-  int maxlen = min(kMaxMatch, lim - tpos);
-  int cap = 4 * ne;
+constexpr int kMatchThreads = 256;
+constexpr int kMatchRowsMax = 1024;           // sorted rows a block scans
+constexpr size_t kMatchSmemTarget = 64 * 1024;
+constexpr size_t kSmemMax = 227 * 1024;
+constexpr uint32_t kSentinel32 = 0xFFFFFFFFu;
+
+// Words a staged row takes in shared memory: odd, so a warp's rows fall
+// in different banks.
+__host__ __device__ constexpr int match_stride(int ne) { return ne | 1; }
+
+template <int NE>
+__global__ void __launch_bounds__(kMatchThreads)
+matcher_kernel(const long long* __restrict__ skey,
+               const uint32_t* __restrict__ window,
+               const uint32_t* __restrict__ words,
+               const int* __restrict__ min_src,
+               const int* __restrict__ limit,
+               int* __restrict__ out, int* __restrict__ out2,
+               int W, int Ww, int Wp, int nf, int K, int max_dist,
+               int hash_bytes, int T) {
+  constexpr int stride = match_stride(NE);
+  extern __shared__ uint32_t msm[];
+  const int b = blockIdx.y;
+  const int i0 = blockIdx.x * T;               // first sorted row of the tile
+  const int rows = T + K;                      // staged: rows i0-K .. i0+T-1
+  uint32_t* skeys = msm;
+  uint32_t* cw = msm + rows;
   const long long* krow = skey + static_cast<long long>(b) * Wp;
-  const uint32_t* wrow = words + static_cast<long long>(b) * (ne + nf) * Wp;
-  int best_score = -1, best = 0;
-  int sec_score = -1, sec = 0;
-  for (int k = 1; k <= K && i - k >= 0; ++k) {
-    uint32_t ck = static_cast<uint32_t>(krow[i - k]);
-    if ((ck >> kPosBits) != tbucket) break;
-    int cpos = static_cast<int>(ck & kPosMask);
-    int dist = tpos - cpos;
-    if (dist < 1 || dist > max_dist || cpos < ms || cpos >= lim) continue;
-    int ml = 0;
-    for (int t = 0; t < ne; ++t) {
-      uint32_t x = wrow[static_cast<long long>(t) * Wp + tpos] ^
-                   wrow[static_cast<long long>(t) * Wp + cpos];
-      if (x == 0) { ml += 4; continue; }
-      ml += (__ffs(x) - 1) >> 3;               // equal low-order bytes
-      break;
-    }
-    ml = min(ml, maxlen);
-    if (ml < kMinMatch) continue;
-    int est = ml;
-    if (ml == cap) {
-      for (int j = 0; j < nf; ++j) {
-        if (wrow[static_cast<long long>(ne + j) * Wp + tpos] !=
-            wrow[static_cast<long long>(ne + j) * Wp + cpos]) break;
-        est += cap << j;
-      }
-    }
-    int score = (est << 16) - dist;
-    int ld = (ml << 16) | dist;
-    if (score > best_score) {
-      sec_score = best_score;
-      sec = best;
-      best_score = score;
-      best = ld;
-    } else if (score > sec_score) {
-      sec_score = score;
-      sec = ld;
+  const int nw4 = Ww >> 2;
+  const uint32_t* wrow = window + static_cast<long long>(b) * nw4;
+  const uint32_t mask0 = hash_bytes < 4 ? (1u << (8 * hash_bytes)) - 1u : ~0u;
+  // a thread stages a row: its key, then the NE + 1 aligned window words
+  // under its NE words, loaded together, and NE funnel shifts
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int g = i0 - K + r;
+    const uint32_t k =
+        g >= 0 && g < Wp ? static_cast<uint32_t>(krow[g]) : kSentinel32;
+    skeys[r] = k;
+    uint32_t* dst = cw + r * stride;
+    uint32_t a[NE + 1];
+    const int pos = static_cast<int>(k & kPosMask);
+    const int w0 = pos >> 2;
+#pragma unroll
+    for (int t = 0; t <= NE; ++t)
+      a[t] = k != kSentinel32 && w0 + t < nw4 ? __ldg(wrow + w0 + t) : 0u;
+    const int sh = (pos & 3) * 8;
+#pragma unroll
+    for (int t = 0; t < NE; ++t) {
+      const uint32_t v = __funnelshift_r(a[t], a[t + 1], sh);
+      dst[t] = t == 0 ? v & mask0 : v;
     }
   }
-  out[static_cast<long long>(b) * W + tpos] = best;
-  if (out2 != nullptr) out2[static_cast<long long>(b) * W + tpos] = sec;
+  __syncthreads();
+  const int ms = min_src[b];
+  const int lim = limit[b];
+  constexpr int cap = 4 * NE;
+  const int ne = NE;
+  const uint32_t* frow = words + static_cast<long long>(b) * (ne + nf) * Wp;
+  for (int l = threadIdx.x; l < T; l += blockDim.x) {
+    const int i = i0 + l;
+    if (i >= Wp) break;
+    const uint32_t tkey = skeys[l + K];
+    if (tkey == kSentinel32) continue;         // pad rows sort last
+    const int tpos = static_cast<int>(tkey & kPosMask);
+    const uint32_t tbucket = tkey >> kPosBits;
+    const int maxlen = min(kMaxMatch, lim - tpos);
+    int best_score = -1, best = 0;
+    int sec_score = -1, sec = 0;
+    if (maxlen >= kMinMatch) {
+      uint32_t tw[NE];
+      const uint32_t* trow = cw + (l + K) * stride;
+#pragma unroll
+      for (int t = 0; t < NE; ++t) tw[t] = trow[t];
+      const int kmax = min(K, i);
+      uint32_t ck = kmax >= 1 ? skeys[l + K - 1] : kSentinel32;
+      for (int k = 1; k <= kmax; ++k) {
+        const int r = l + K - k;
+        const uint32_t cur = ck;
+        ck = k < kmax ? skeys[r - 1] : kSentinel32;   // the next candidate
+        const int cpos = static_cast<int>(cur & kPosMask);
+        const int dist = tpos - cpos;
+        if ((cur >> kPosBits) != tbucket || dist > max_dist || cpos < ms) break;
+        if (dist < 1 || cpos >= lim) continue;
+        const uint32_t* crow = cw + r * stride;
+        int ml = 0;
+#pragma unroll
+        for (int t = 0; t < NE; ++t) {
+          const uint32_t x = tw[t] ^ crow[t];
+          if (x == 0) { ml += 4; continue; }
+          ml += (__ffs(x) - 1) >> 3;           // equal low-order bytes
+          break;
+        }
+        ml = min(ml, maxlen);
+        if (ml < kMinMatch) continue;
+        int est = ml;
+        if (ml == cap) {
+          for (int j = 0; j < nf; ++j) {
+            if (frow[static_cast<long long>(ne + j) * Wp + tpos] !=
+                frow[static_cast<long long>(ne + j) * Wp + cpos]) break;
+            est += cap << j;
+          }
+        }
+        const int score = (est << 16) - dist;
+        const int ld = (ml << 16) | dist;
+        if (score > best_score) {
+          sec_score = best_score;
+          sec = best;
+          best_score = score;
+          best = ld;
+        } else if (score > sec_score) {
+          sec_score = score;
+          sec = ld;
+        }
+      }
+    }
+    out[static_cast<long long>(b) * W + tpos] = best;
+    if (out2 != nullptr) out2[static_cast<long long>(b) * W + tpos] = sec;
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -409,17 +484,43 @@ int flate_prep(const void* window, void* key, void* words, int B, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-int flate_matcher(const void* skey, const void* words, const void* min_src,
-                  const void* limit, void* out, void* out2, int B, int W,
-                  int Wp, int ne, int nf, int K, int max_dist, void* stream) {
-  long long n = static_cast<long long>(B) * Wp;
-  if (n > 0)
-    matcher_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(skey), static_cast<const uint32_t*>(words),
-        static_cast<const int*>(min_src), static_cast<const int*>(limit),
-        static_cast<int*>(out), static_cast<int*>(out2), B, W, Wp, ne, nf, K,
-        max_dist);
-  return static_cast<int>(cudaGetLastError());
+// window: (B, Ww) bytes as u32 words, Ww a multiple of 4 >= W with zeros
+// past W; words: B1's (B, ne+nf, Wp), read for the nf fingerprints only.
+int flate_matcher(const void* skey, const void* window, const void* words,
+                  const void* min_src, const void* limit, void* out,
+                  void* out2, int B, int W, int Ww, int Wp, int ne, int nf,
+                  int K, int max_dist, int hash_bytes, void* stream) {
+  if (B == 0 || Wp == 0) return static_cast<int>(cudaGetLastError());
+  if (K < 0 || Ww % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto smem_for = [&](int T) {
+    return static_cast<size_t>(T + K) * (1 + match_stride(ne)) * sizeof(uint32_t);
+  };
+  int T = kMatchRowsMax;
+  while (T > kMatchThreads && smem_for(T) > kMatchSmemTarget) T /= 2;
+  const size_t smem = smem_for(T);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((Wp + T - 1) / T), static_cast<unsigned>(B));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto kernel) {
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+    if (rc != 0) return rc;
+    kernel<<<grid, kMatchThreads, smem, s>>>(
+        static_cast<const long long*>(skey), static_cast<const uint32_t*>(window),
+        static_cast<const uint32_t*>(words), static_cast<const int*>(min_src),
+        static_cast<const int*>(limit), static_cast<int*>(out),
+        static_cast<int*>(out2), W, Ww, Wp, nf, K, max_dist, hash_bytes, T);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (ne) {                                 // the exact words the levels use
+    case 1: return run(matcher_kernel<1>);
+    case 2: return run(matcher_kernel<2>);
+    case 4: return run(matcher_kernel<4>);
+    case 8: return run(matcher_kernel<8>);
+    case 16: return run(matcher_kernel<16>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int flate_small_runs(const void* window, const void* limit,

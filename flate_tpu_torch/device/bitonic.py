@@ -14,7 +14,9 @@ the other's operands while the other keeps its own: operands are
 duplicated, not swapped, and both versions here keep that rule.
 
 `run` launches the CUDA kernel (csrc/sort_kernels.cu, `flate_bitonic`) on
-CUDA tensors and runs `_run_plain` on CPU tensors.
+CUDA tensors and runs `_run_plain` on CPU tensors.  The kernel takes the
+substages in the passes over device memory that `plan_passes` cuts them
+into.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ from .. import _build
 
 R, C = 2048, 128                 # one row: 262,144 elements as (R, C)
 _SIGN = -(1 << 31)               # flips an int32 bit pattern to u32 order
+TILE = 1 << 14                   # elements a tile pass of the kernel holds
+RUN_MAX = 128                    # substages of one tile pass
+DEV_MAX = 4                      # substages of one device-memory pass
 # the probe's representative substage mix (bitonic_probe.calibrate): row
 # swaps, mid and lane swaps, all of the last merge (k = 2^18)
 CALIBRATE_MIX = ((131072, 262144), (1024, 262144), (64, 262144),
@@ -49,6 +54,26 @@ def bitonic_stages(n: int) -> tuple:
     return tuple(stages)
 
 
+def plan_passes(stages, n: int, tile: int = TILE) -> tuple:
+    """Cut a substage list into the kernel's passes over device memory, in
+    order: ("tile", run) for a run of up to RUN_MAX substages with j < tile
+    (one block holds each aligned tile of `tile` elements, or several whole
+    rows of n < tile), ("device", run) for a run of up to DEV_MAX substages
+    with j >= tile (a thread holds the elements its j bits connect).  n is
+    the row length; every j must be a power of two below it."""
+    groups = []
+    for j, k in stages:
+        if j < 1 or j >= n or j & (j - 1):
+            raise ValueError(f"bitonic: substage j={j} is not a power of "
+                             f"two below {n}")
+        kind, cap = ("tile", RUN_MAX) if j < tile else ("device", DEV_MAX)
+        if groups and groups[-1][0] == kind and len(groups[-1][1]) < cap:
+            groups[-1][1].append((j, k))
+        else:
+            groups.append((kind, [(j, k)]))
+    return tuple((kind, tuple(run)) for kind, run in groups)
+
+
 def _check(key: torch.Tensor, ops, stages) -> tuple:
     if key.dim() != 3 or key.dtype not in (torch.uint32, torch.int32):
         raise TypeError(f"bitonic: key must be (B, R, C) uint32 or int32, "
@@ -63,11 +88,7 @@ def _check(key: torch.Tensor, ops, stages) -> tuple:
             raise ValueError("bitonic: every operand must match the key's "
                              "shape, dtype and device")
     stages = tuple((int(j), int(k)) for j, k in stages)
-    for j, _ in stages:
-        if j < 1 or j >= n or j & (j - 1):
-            raise ValueError(f"bitonic: substage j={j} is not a power of "
-                             f"two below {n}")
-    return stages
+    return stages, plan_passes(stages, n)    # raises on a bad substage
 
 
 def _partner(x: torch.Tensor, j: int) -> torch.Tensor:
@@ -79,7 +100,7 @@ def _partner(x: torch.Tensor, j: int) -> torch.Tensor:
 def _run_plain(key: torch.Tensor, ops, stages) -> tuple:
     """The probe's rule substage by substage, on the key and on every
     operand: returns (key, *ops) with the inputs' shape and dtype."""
-    stages = _check(key, ops, stages)
+    stages, _ = _check(key, ops, stages)
     shape, dtype = key.shape, key.dtype
     B = shape[0]
     n = shape[1] * shape[2]
@@ -104,7 +125,7 @@ def run(key: torch.Tensor, ops, stages) -> tuple:
     stages a sequence of (j, k).  Returns the tuple (key, *ops) after the
     substages, as the probe's `run` does."""
     ops = list(ops)
-    stages = _check(key, ops, stages)
+    stages, plan = _check(key, ops, stages)
     if _build.use_plain(key):
         return _run_plain(key, ops, stages)
     B = key.shape[0]
@@ -114,13 +135,22 @@ def run(key: torch.Tensor, ops, stages) -> tuple:
         _build.check_cuda(f"bitonic.{name}", t, key.dtype, tuple(key.shape))
     key_out = torch.empty_like(key)
     ops_out = [torch.empty_like(o) for o in ops]
-    src = torch.empty((B, n), dtype=torch.int32, device=key.device)
+    pairs = torch.empty((B, n), dtype=torch.int64, device=key.device)
+    # the operands' records for the gather: up to 8 u32 an element
+    rec = torch.empty((B, n, 8) if ops else (1, 8), dtype=torch.int32,
+                      device=key.device)
     # host arrays the entry point reads before it returns
     ins = (ctypes.c_void_p * max(1, len(ops)))(*[o.data_ptr() for o in ops])
     outs = (ctypes.c_void_p * max(1, len(ops)))(
         *[o.data_ptr() for o in ops_out])
     st = np.ascontiguousarray(np.asarray(stages, dtype=np.int32).reshape(-1))
+    groups, at = [], 0
+    for kind, group in plan:
+        groups += [0 if kind == "tile" else 1, at, len(group)]
+        at += len(group)
+    gp = np.ascontiguousarray(np.asarray(groups, dtype=np.int32))
     _build.launch("flate_bitonic", key.data_ptr(), ctypes.addressof(ins),
                   ctypes.addressof(outs), len(ops), key_out.data_ptr(),
-                  src.data_ptr(), B, n, st.ctypes.data, len(stages))
+                  pairs.data_ptr(), rec.data_ptr(), B, n, st.ctypes.data,
+                  len(stages), gp.ctypes.data, len(plan))
     return (key_out, *ops_out)

@@ -9,9 +9,10 @@ valid back-reference, so bucket collisions are harmless.
 
 The TPU carries the window words through its sort because gathers
 scalarize there.  Keys are unique (pos sits in the low 18 bits), so here a
-key-only torch.sort gives the identical order, the matcher reads the words
-by position, and the unsort is an inverse-permutation scatter (fused into
-the CUDA matcher).
+key-only torch.sort gives the identical order, the matcher rebuilds the
+words of each sorted row from the window bytes (B1's words are read only
+for fingerprints), and the unsort is an inverse-permutation scatter (fused
+into the CUDA matcher).
 
 Kernels (csrc/encode_kernels.cu): B1 `_prep`, B2 `_run_matcher`.
 """
@@ -30,6 +31,7 @@ POS_BITS = 18                    # window <= 256 KiB positions
 POS_MASK = (1 << POS_BITS) - 1
 HASH_BITS = 32 - POS_BITS        # 14-bit buckets
 SENTINEL = 0xFFFFFFFF
+KERNEL_NE = (1, 2, 4, 8, 16)     # exact words a row B2's kernel is built for
 _M32 = 0xFFFFFFFF
 FP_MUL = 0x01000193              # FNV prime: the fingerprint polynomial
 
@@ -130,16 +132,52 @@ def _tz_bytes(x: torch.Tensor) -> torch.Tensor:
     return cnt + (x == 0).to(torch.int32)
 
 
-def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
-                       words: torch.Tensor, min_src: torch.Tensor,
-                       limit: torch.Tensor, W: int, K: int,
-                       max_dist: int, nf: int = 0, top2: bool = False,
-                       stats: dict | None = None):
-    """The scan as K whole-row shifts.  With `stats`, also counts what the
-    data asks of any scan: stats["visits"] same-bucket candidates within K
-    (one bucket test each) and stats["compares"] word compares, one per
-    exact word up to and including the first that differs and one per
-    fingerprint word likewise, for the valid candidates."""
+def _window_words(window: torch.Tensor, pos: torch.Tensor, ne: int,
+                  hash_bytes: int) -> torch.Tensor:
+    """The ne carry words of positions `pos` (B, P) as B2's kernel rebuilds
+    them from the window (B, W): the row as little-endian u32 words, zero
+    past W (padded to a multiple of 4), and word t of pos the funnel shift
+    of the two aligned words under pos + 4t; word 0 masked to hash_bytes
+    bytes in the 3-byte pass.  Returns (B, ne, P) int64 u32 values: B1's
+    words (_prep) at those positions."""
+    B, W = window.shape
+    Ww = -(-W // 4) * 4
+    row = torch.nn.functional.pad(window.to(torch.int64), (0, Ww - W))
+    row = row.reshape(B, Ww // 4, 4)
+    aligned = (row[..., 0] | (row[..., 1] << 8) | (row[..., 2] << 16)
+               | (row[..., 3] << 24))
+    aligned = torch.nn.functional.pad(aligned, (0, 1))     # zero past W
+    nw4 = Ww // 4
+    out = []
+    for t in range(ne):
+        a = pos.to(torch.int64) + 4 * t
+        w0 = torch.clamp(a >> 2, max=nw4)
+        lo = torch.gather(aligned, 1, w0)
+        hi = torch.gather(aligned, 1, torch.clamp(w0 + 1, max=nw4))
+        sh = (a & 3) * 8
+        v = ((lo >> sh) | (hi << (32 - sh))) & _M32
+        if t == 0 and hash_bytes < 4:
+            v = v & ((1 << (8 * hash_bytes)) - 1)
+        out.append(v)
+    return torch.stack(out, dim=1)
+
+
+def _candidates(skey: torch.Tensor, order: torch.Tensor,
+                words: torch.Tensor, min_src: torch.Tensor,
+                limit: torch.Tensor, K: int, max_dist: int, nf: int = 0,
+                stats: dict | None = None):
+    """The K candidates of every sorted row as whole-row shifts: yields,
+    for d = 1..K, (score, ld) (B, Wp) int32 — score = (est<<16) - dist of
+    the candidate d rows back, or -1 where it is no match of len >= 3, and
+    ld = len<<16 | dist.  With `stats`, also counts what the data asks of
+    any scan (set when the generator ends).  Going back within a bucket the
+    positions fall, so a scan may end at the first candidate of another
+    bucket, past max_dist or below min_src, and a row with fewer than 3
+    bytes before its limit needs no scan: stats["visits"] counts the
+    candidates within K before that end in the rows that need one (a few
+    tests each), stats["compares"] the word compares of their valid
+    candidates, one per exact word up to and including the first that
+    differs and one per fingerprint word likewise."""
     B, Wp = skey.shape
     nc = words.shape[1]
     ne = nc - nf
@@ -151,16 +189,11 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
     ms = min_src.to(torch.int32)[:, None]
     lim = limit.to(torch.int32)[:, None]
     maxlen = torch.clamp(lim - tpos, max=consts.MAX_MATCH_LEN)
+    scanned = (skey != SENTINEL) & (maxlen >= consts.MIN_MATCH_LEN)
 
     def back(x, d, fill):
         return torch.nn.functional.pad(x[:, :Wp - d], (d, 0), value=fill)
 
-    def blank(fill):
-        return torch.full((B, Wp), fill, dtype=torch.int32,
-                          device=skey.device)
-
-    best_score, best_ld = blank(-1), blank(0)
-    sec_score, sec_ld = blank(-1), blank(0)
     visits = torch.zeros((), dtype=torch.int64, device=skey.device)
     compares = torch.zeros_like(visits)
     for d in range(1, K + 1):
@@ -172,10 +205,11 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
         ml = torch.zeros_like(tpos)
         run = torch.ones_like(valid)
         if stats is not None:
-            visits += ((ck >> POS_BITS == tbucket) & (skey != SENTINEL)).sum()
+            visits += ((ck >> POS_BITS == tbucket) & (dist <= max_dist)
+                       & (cpos >= ms) & scanned).sum()
         for t in range(ne):
             if stats is not None:
-                compares += (valid & run).sum()
+                compares += (valid & run & scanned).sum()
             c = _tz_bytes(tw[t] ^ back(tw[t], d, 0))
             ml = ml + torch.where(run, c, 0)
             run = run & (c == 4)
@@ -186,66 +220,101 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
         fp_run = ml == cap
         for j in range(nf):
             if stats is not None:
-                compares += (valid & fp_run).sum()
+                compares += (valid & fp_run & scanned).sum()
             fp_run = fp_run & (tw[ne + j] == back(tw[ne + j], d, 0))
             est = est + torch.where(fp_run, cap << j, 0)
-        score = (est << 16) - dist
-        ld = (ml << 16) | dist
         ok = valid & (ml >= consts.MIN_MATCH_LEN)
-        upd = ok & (score > best_score)
+        yield torch.where(ok, (est << 16) - dist, -1), (ml << 16) | dist
+    if stats is not None:
+        stats["visits"] = int(visits)
+        stats["compares"] = int(compares)
+
+
+def _unsort(x: torch.Tensor, order: torch.Tensor, W: int) -> torch.Tensor:
+    """Sorted rows back to position order: order is a permutation of
+    [0, Wp); rows of pad positions land at >= W and are cut."""
+    return torch.empty_like(x).scatter_(1, order, x)[:, :W]
+
+
+def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
+                       words: torch.Tensor, min_src: torch.Tensor,
+                       limit: torch.Tensor, W: int, K: int,
+                       max_dist: int, nf: int = 0, top2: bool = False,
+                       stats: dict | None = None):
+    """The scan over `_candidates` in order d = 1..K, keeping the best
+    score and, with top2, the runner-up (a new best demotes the old one,
+    otherwise a candidate above the runner-up replaces it).  Scores of one
+    row are distinct (each candidate has its own distance), so these are
+    the two largest whatever the order.  `stats` as in `_candidates`."""
+    B, Wp = skey.shape
+
+    def blank(fill):
+        return torch.full((B, Wp), fill, dtype=torch.int32,
+                          device=skey.device)
+
+    best_score, best_ld = blank(-1), blank(0)
+    sec_score, sec_ld = blank(-1), blank(0)
+    for score, ld in _candidates(skey, order, words, min_src, limit, K,
+                                 max_dist, nf, stats):
+        upd = score > best_score
         if top2:
-            # demote the old best, else replace the runner-up: the result
-            # depends on the order of the candidates
-            upd2 = ok & ~upd & (score > sec_score)
+            upd2 = ~upd & (score > sec_score)
             sec_score = torch.where(upd, best_score,
                                     torch.where(upd2, score, sec_score))
             sec_ld = torch.where(upd, best_ld,
                                  torch.where(upd2, ld, sec_ld))
         best_score = torch.where(upd, score, best_score)
         best_ld = torch.where(upd, ld, best_ld)
-
-    def unsort(x):
-        # order is a permutation of [0, Wp); rows of pad positions land at
-        # >= W and are cut
-        return torch.empty_like(x).scatter_(1, order, x)[:, :W]
-
-    if stats is not None:
-        stats["visits"] = int(visits)
-        stats["compares"] = int(compares)
     if top2:
-        return unsort(best_ld), unsort(sec_ld)
-    return unsort(best_ld)
+        return _unsort(best_ld, order, W), _unsort(sec_ld, order, W)
+    return _unsort(best_ld, order, W)
 
 
 def _run_matcher(skey: torch.Tensor, order: torch.Tensor,
-                 words: torch.Tensor, min_src: torch.Tensor,
-                 limit: torch.Tensor, W: int, K: int,
-                 max_dist: int, nf: int = 0, top2: bool = False):
+                 words: torch.Tensor, window: torch.Tensor,
+                 min_src: torch.Tensor, limit: torch.Tensor, W: int, K: int,
+                 max_dist: int, nf: int = 0, top2: bool = False,
+                 hash_bytes: int = 4):
     """skey (B, Wp) int64 sorted keys, order (B, Wp) their positions,
-    words (B, ne+nf, Wp) int32 by position, the last nf of them
-    fingerprints that rank only.  Returns best len<<16|dist (B, W) int32
-    in position order, and the runner-up beside it when top2."""
+    words (B, ne+nf, Wp) int32 by position (B1's, the last nf of them
+    fingerprints that rank only), window (B, W) uint8 the bytes they were
+    made from with `hash_bytes`.  Returns best len<<16|dist (B, W) int32
+    in position order, and the runner-up beside it when top2.  The kernel
+    rebuilds the exact words from the window (`_window_words`) and reads
+    `words` for the fingerprints only."""
     if _build.use_plain(skey):
         return _run_matcher_plain(skey, order, words, min_src, limit, W, K,
                                   max_dist, nf, top2)
     B, Wp = skey.shape
     nc = words.shape[1]
+    ne = nc - nf
     min_src = min_src.to(torch.int32).contiguous()
     limit = limit.to(torch.int32).contiguous()
     _build.check_cuda("matcher.skey", skey, torch.int64, (B, Wp))
     _build.check_cuda("matcher.words", words, torch.int32, (B, nc, Wp))
+    _build.check_cuda("matcher.window", window, torch.uint8, (B, W))
     _build.check_cuda("matcher.min_src", min_src, torch.int32, (B,))
     _build.check_cuda("matcher.limit", limit, torch.int32, (B,))
     if W > Wp or Wp > (1 << POS_BITS) - 1:
         raise ValueError(f"window {W} exceeds the {POS_BITS}-bit positions")
     if not 0 <= nf < nc:
         raise ValueError(f"nf {nf} must leave an exact word of {nc}")
+    if ne not in KERNEL_NE:
+        raise ValueError(f"the kernel is built for {KERNEL_NE} exact words, "
+                         f"got {ne}")
+    if hash_bytes not in (3, 4):
+        raise ValueError(f"hash_bytes must be 3 or 4, got {hash_bytes}")
+    # the kernel reads each row as u32 words: pad it to a multiple of 4
+    # with zeros (the bytes past W are zero to the words too)
+    Ww = -(-W // 4) * 4
+    if Ww != W or window.data_ptr() % 4:
+        window = torch.nn.functional.pad(window, (0, Ww - W))
     out = torch.empty((B, W), dtype=torch.int32, device=skey.device)
     out2 = torch.empty_like(out) if top2 else None
-    _build.launch("flate_matcher", skey.data_ptr(), words.data_ptr(),
-                  min_src.data_ptr(), limit.data_ptr(), out.data_ptr(),
-                  out2.data_ptr() if top2 else None,
-                  B, W, Wp, nc - nf, nf, K, max_dist)
+    _build.launch("flate_matcher", skey.data_ptr(), window.data_ptr(),
+                  words.data_ptr(), min_src.data_ptr(), limit.data_ptr(),
+                  out.data_ptr(), out2.data_ptr() if top2 else None,
+                  B, W, Ww, Wp, ne, nf, K, max_dist, hash_bytes)
     return (out, out2) if top2 else out
 
 
@@ -259,8 +328,8 @@ def _candidate_pass(window: torch.Tensor, min_src: torch.Tensor,
     ne, nf = _split_words(nw, fp)
     key, words = _prep(window, ne, hash_bytes, nf)
     skey, order = torch.sort(key, dim=1)
-    return _run_matcher(skey, order, words, min_src, limit, W, K, max_dist,
-                        nf, top2)
+    return _run_matcher(skey, order, words, window, min_src, limit, W, K,
+                        max_dist, nf, top2, hash_bytes)
 
 
 def _score(l: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

@@ -151,3 +151,73 @@ def test_bad_operand_raises():
                                       dtype=torch.uint32)], ((1, 2),))
     with pytest.raises(TypeError):
         bitonic.run(key.to(torch.int64), [], ((1, 2),))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's pass plan (plan_passes)
+# ---------------------------------------------------------------------------
+
+T = bitonic.TILE
+# j = tile/2, tile and 2*tile, and six consecutive substages with j >= tile
+# (one j twice in a row)
+AROUND_TILE = ((T // 2, N), (T, N), (2 * T, N), (T // 2, 4 * T), (1, 2),
+               (8 * T, N), (4 * T, N), (2 * T, N), (T, N), (4 * T, 2 * N),
+               (4 * T, 8 * T), (T, 2 * T), (T // 2, N))
+PLANS = {"full": (bitonic.bitonic_stages(N), N),
+         "mix": (MIX, N),
+         "around_tile": (AROUND_TILE, N),
+         "short_rows": (bitonic.bitonic_stages(1 << 12), 1 << 12),
+         "long_tile_run": (tuple((1 << (i % 14), N) for i in range(300)), N)}
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_plan_covers_every_substage_in_order(name):
+    stages, n = PLANS[name]
+    plan = bitonic.plan_passes(stages, n)
+    assert tuple(st for _, run in plan for st in run) == tuple(stages)
+    for kind, run in plan:
+        assert run
+        if kind == "tile":
+            assert all(j < T for j, _ in run) and len(run) <= bitonic.RUN_MAX
+        else:
+            assert kind == "device"
+            assert all(j >= T for j, _ in run)
+            assert len(run) <= bitonic.DEV_MAX
+    for (k0, r0), (k1, _) in zip(plan, plan[1:]):
+        # a group ends at a change of kind or at its cap
+        assert k0 != k1 or len(r0) == (bitonic.RUN_MAX if k0 == "tile"
+                                       else bitonic.DEV_MAX)
+
+
+def test_plan_pass_counts():
+    """The full 2^18 network: one tile pass for k <= 2^14, then a
+    device-memory pass (1, 2, 3, 4 substages) and a tile pass (14) for each
+    k from 2^15 to 2^18; the calibrate mix: one of each; rows shorter than
+    a tile: one tile pass; no substages: no pass."""
+    full = bitonic.plan_passes(*PLANS["full"])
+    assert [(k, len(r)) for k, r in full] == \
+        [("tile", 105)] + [g for m in (1, 2, 3, 4)
+                           for g in (("device", m), ("tile", 14))]
+    assert [(k, len(r)) for k, r in bitonic.plan_passes(MIX, N)] == \
+        [("device", 1), ("tile", 7)]
+    short = bitonic.plan_passes(*PLANS["short_rows"])
+    assert [(k, len(r)) for k, r in short] == [("tile", 78)]
+    assert bitonic.plan_passes((), N) == ()
+    assert [len(r) for _, r in bitonic.plan_passes(*PLANS["long_tile_run"])
+            ] == [128, 128, 44]
+
+
+@pytest.mark.parametrize("name", ["mix", "around_tile"])
+def test_plain_group_by_group_equals_whole_and_probe(probe, name):
+    """_run_plain applied pass by pass, as the kernel runs the plan, equals
+    _run_plain on the whole list and the probe in interpret mode."""
+    stages, n = PLANS[name]
+    rng = np.random.default_rng(7)
+    key = _keys(rng, 1, high=1 << 12)           # many equal keys
+    ops = [_keys(rng, 1) for _ in range(8)]
+    whole = _both(probe, key, ops, stages)
+    out = (torch.from_numpy(key), *[torch.from_numpy(o) for o in ops])
+    for _, run in bitonic.plan_passes(stages, n):
+        out = bitonic._run_plain(out[0], out[1:], run)
+    for g, w in zip(out, whole):
+        np.testing.assert_array_equal(g.numpy(), w)

@@ -50,8 +50,8 @@ def test_kernels_equal_plain(cuda, kind):
         _eq(k[1], p[1])
         skey, order = torch.sort(k[0], dim=1)
         for K in (4, 12, 160):
-            _eq(match2._run_matcher(skey, order, k[1], min_src, limit, W, K,
-                                    32768),
+            _eq(match2._run_matcher(skey, order, k[1], win, min_src, limit,
+                                    W, K, 32768, hash_bytes=hb),
                 match2._run_matcher_plain(skey, order, k[1], min_src, limit,
                                           W, K, 32768))
     kl, kd = runs.small_dist_runs(win, limit, min_src)
@@ -118,14 +118,14 @@ def test_fp_top2_kernels_equal_plain(cuda, kind, nw, fp):
     _eq(k[1], p[1])
     skey, order = torch.sort(k[0], dim=1)
     for K in (8, 48):
-        kk = match2._run_matcher(skey, order, k[1], min_src, limit, W, K,
-                                 32768, nf, True)
+        kk = match2._run_matcher(skey, order, k[1], win, min_src, limit, W,
+                                 K, 32768, nf, True)
         pp = match2._run_matcher_plain(skey, order, k[1], min_src, limit, W,
                                        K, 32768, nf, True)
         _eq(kk[0], pp[0])
         _eq(kk[1], pp[1])
-        _eq(match2._run_matcher(skey, order, k[1], min_src, limit, W, K,
-                                32768, nf), pp[0])
+        _eq(match2._run_matcher(skey, order, k[1], win, min_src, limit, W,
+                                K, 32768, nf), pp[0])
     args = (kk[0] >> 16, kk[0] & 0xFFFF, kk[1] >> 16, kk[1] & 0xFFFF, limit,
             4 * ne)
     for a, b in zip(runs.extend_chains2(*args),
@@ -377,6 +377,85 @@ def test_bitonic_equal_plain(cuda, case):
     for g, w in zip(got, want):
         assert g.dtype == torch.uint32
         _eq(g.view(torch.int32), w.view(torch.int32))
+
+
+T10 = bitonic.TILE
+N10 = bitonic.R * bitonic.C
+# j = tile/2, tile, 2*tile; six consecutive j >= tile (one j twice)
+AROUND_TILE = ((T10 // 2, N10), (T10, N10), (2 * T10, N10),
+               (T10 // 2, 4 * T10), (8 * T10, N10), (4 * T10, N10),
+               (2 * T10, N10), (T10, N10), (4 * T10, 2 * N10),
+               (4 * T10, 8 * T10), (T10, 2 * T10), (1, 2))
+
+
+@pytest.mark.parametrize("case,passes", [
+    ("around_tile", 6), ("short_rows", 1), ("all_equal", 9),
+    ("many_operands", 9), ("tiny_rows", 1)])
+def test_bitonic_passes_equal_plain(cuda, case, passes):
+    """B10's passes against its plain version: substages at and around the
+    tile's size and a run of more than 4 device-memory substages; rows of
+    2^12 (3 of them: the batch's one tile is cut short); all keys equal;
+    17 operands (gathered as records of 8, 8 and 1); rows of 8."""
+    rng = np.random.default_rng(11)
+    shape = {"short_rows": (3, 32, 128), "tiny_rows": (5, 2, 4)}.get(
+        case, (2, bitonic.R, bitonic.C))
+    n = shape[1] * shape[2]
+    stages = AROUND_TILE if case == "around_tile" else \
+        bitonic.bitonic_stages(n)
+    assert len(bitonic.plan_passes(stages, n)) == passes
+    if case == "all_equal":
+        key = np.full(shape, 0xDEADBEEF, dtype=np.uint32)
+    else:
+        key = rng.integers(0, 1 << 20, shape, dtype=np.uint32)
+    nops = 17 if case == "many_operands" else 8
+    ops = [torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint32)
+                            ).to(cuda) for _ in range(nops)]
+    key = torch.from_numpy(key).to(cuda)
+    _build.LAUNCHES.clear()
+    got = bitonic.run(key, ops, stages)
+    assert _build.LAUNCHES["flate_bitonic"] == 1
+    want = bitonic._run_plain(key, ops, stages)
+    assert len(got) == len(want) == 1 + nops
+    for g, w in zip(got, want):
+        _eq(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["k160_ne16", "k3", "fp_top2", "tail",
+                                  "min_src", "odd_width"])
+@pytest.mark.parametrize("kind", ["text", "runs"])
+def test_matcher_cases_equal_plain(cuda, kind, case):
+    """B2 against its plain version: K = 160 with 16 exact words (level
+    9), the 3-byte K3 pass (K = 16, one word masked to 3 bytes, dist <=
+    4096), fingerprint ranking with both outputs, a tail row (limit short
+    of W), rows whose context is short (min_src > 0), and a window whose
+    width is no multiple of 4."""
+    win = torch.from_numpy(windows(kind, seed=12))
+    if case == "odd_width":
+        win = win[:, :-3].contiguous()
+    win = win.to(cuda)
+    W = win.shape[1]
+    K, nw, hb, max_dist, fp = {
+        "k160_ne16": (160, 16, 4, 32768, False),
+        "k3": (16, 1, 3, 4096, False),
+        "fp_top2": (48, 8, 4, 32768, True)}.get(case, (48, 8, 4, 32768,
+                                                      False))
+    min_src = torch.tensor([0, 0], dtype=torch.int32, device=cuda)
+    limit = torch.tensor([W, W], dtype=torch.int32, device=cuda)
+    if case == "tail":
+        limit[1] = CTX + 1234
+    if case == "min_src":
+        min_src[:] = torch.tensor([CTX - 300, CTX - 7])
+    ne, nf = match2._split_words(nw, fp)
+    key, words = match2._prep(win, ne, hb, nf)
+    skey, order = torch.sort(key, dim=1)
+    top2 = case == "fp_top2"
+    got = match2._run_matcher(skey, order, words, win, min_src, limit, W, K,
+                              max_dist, nf, top2, hb)
+    want = match2._run_matcher_plain(skey, order, words, min_src, limit, W,
+                                     K, max_dist, nf, top2)
+    for g, w in zip(got if top2 else (got,), want if top2 else (want,)):
+        _eq(g, w)
+        assert int((w != 0).sum()) > 0
 
 
 def test_device_encoder_cuda_equal_cpu(cuda):

@@ -156,10 +156,12 @@ def test_find_matches_fused_fp_equal(kind):
 
 @pytest.mark.parametrize("ne,nf", [(2, 0), (8, 0), (2, 2)])
 def test_run_matcher_plain_counts_the_scan(ne, nf):
-    """stats= counts what a serial scan does on the data: one bucket test
-    per same-bucket candidate within K, then for a valid candidate one
-    compare per exact word up to the first that differs and, past a full
-    exact run, per fingerprint word likewise.  The outputs do not change."""
+    """stats= counts what a serial scan needs on the data: the candidates
+    within K before the scan's end (another bucket, past max_dist, below
+    min_src) in rows with 3 bytes before their limit, then for a valid
+    candidate one compare per exact word up to the first that differs and,
+    past a full exact run, per fingerprint word likewise.  The outputs do
+    not change."""
     K, max_dist = 8, 32768
     win = tt(windows("mixed", seed=5))
     W = win.shape[1]
@@ -178,12 +180,15 @@ def test_run_matcher_plain_counts_the_scan(ne, nf):
         pos = live & match2.POS_MASK
         bucket = live >> match2.POS_BITS
         for i in range(len(live)):
+            if min(258, limit[b] - int(pos[i])) < 3:
+                continue
             for k in range(1, min(K, i) + 1):
-                if bucket[i - k] != bucket[i]:
+                t, c = int(pos[i]), int(pos[i - k])
+                if bucket[i - k] != bucket[i] or t - c > max_dist \
+                        or c < min_src[b]:
                     break
                 visits += 1
-                t, c = int(pos[i]), int(pos[i - k])
-                if not (1 <= t - c <= max_dist and min_src[b] <= c < limit[b]):
+                if not (1 <= t - c and c < limit[b]):
                     continue
                 ml = 0
                 for w in range(ne):
@@ -201,3 +206,63 @@ def test_run_matcher_plain_counts_the_scan(ne, nf):
                         break
     assert (stats["visits"], stats["compares"]) == (visits, compares)
     assert visits > 0 and compares > visits // 2
+
+
+# ---------------------------------------------------------------------------
+# what B2's kernel relies on: words rebuilt from the window, an order-free
+# top-2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ne,hash_bytes,cut", [(1, 3, 0), (1, 4, 0),
+                                               (2, 4, 0), (8, 4, 3),
+                                               (16, 4, 1), (1, 3, 2)])
+def test_window_words_equal_prep(ne, hash_bytes, cut):
+    """The ne carry words of every position rebuilt from the window bytes
+    as the kernel stages them (aligned u32 words, funnel shift, word 0
+    masked in the 3-byte pass, zero past W; `cut` makes W no multiple of
+    4) equal B1's words, pad positions and the zero tail included."""
+    win = tt(windows("mixed", seed=9)[:, :CTX + S - cut])
+    win[:, -5:] = 0xAB                        # nonzero bytes up to W
+    B, W = win.shape
+    _, words = match2._prep_plain(win, ne, hash_bytes)
+    Wp = words.shape[2]
+    pos = torch.arange(Wp).expand(B, Wp)
+    got = match2._window_words(win, pos, ne, hash_bytes)
+    np.testing.assert_array_equal(u32(got), u32(words))
+    # the last position of the row reads its byte, then zeros past W
+    assert (u32(got)[:, 0, W - 1] == 0xAB).all()
+
+
+@pytest.mark.parametrize("fp", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_top2_is_the_two_largest_scores(kind, fp):
+    """The serial scan's best and runner-up are the two largest candidate
+    scores (torch.topk over the stacked candidates of each row): the scan
+    order does not matter.  Both equal the JAX package's top-2 pass."""
+    win = windows(kind, seed=17)
+    min_src = np.asarray([0, CTX - 100], np.int32)
+    limit = np.asarray([CTX + S, CTX + 2500], np.int32)
+    K, nw = 12, 8
+    ne, nf = match2._split_words(nw, fp)
+    W = win.shape[1]
+    key, words = match2._prep(tt(win), ne, 4, nf)
+    skey, order = torch.sort(key, dim=1)
+    args = (skey, order, words, tt(min_src), tt(limit))
+    best, sec = match2._run_matcher_plain(*args, W, K, 32768, nf, top2=True)
+    cands = list(match2._candidates(*args, K, 32768, nf))
+    score = torch.stack([c[0] for c in cands], dim=2)
+    ld = torch.stack([c[1] for c in cands], dim=2)
+    top, at = torch.topk(score, 2, dim=2)
+    # scores of a row's matches are distinct
+    assert ((top[..., 0] != top[..., 1]) | (top[..., 0] < 0)).all()
+    lds = torch.where(top >= 0, torch.gather(ld, 2, at), 0)
+    assert torch.equal(match2._unsort(lds[..., 0], order, W), best)
+    assert torch.equal(match2._unsort(lds[..., 1], order, W), sec)
+    jld, jld2 = j_match2._candidate_pass(
+        jnp.asarray(win), jnp.asarray(min_src), jnp.asarray(limit), K=K,
+        nw=nw, hash_bytes=4, max_dist=32768, interpret=True, fp=fp,
+        top2=True)
+    np.testing.assert_array_equal(u32(best), u32(jld))
+    np.testing.assert_array_equal(u32(sec), u32(jld2))
+    if kind != "random":
+        assert (u32(sec) != 0).any()

@@ -357,6 +357,7 @@ def test_port_imports_no_jax_and_no_flate_tpu():
                                     "tools/torch_stage_profile.py",
                                     "tools/lane_join_probe.py",
                                     "tools/torch_bitonic_probe.py",
+                                    "tools/torch_kernel_probe.py",
                                     "flate_tpu_torch/cli/gzip_cli.py",
                                     "flate_tpu_torch/cli/gunzip_cli.py"])
 def test_card_scripts_import_no_jax_and_no_flate_tpu(script):

@@ -66,7 +66,7 @@ def stages(shards, ctx0, meta, kern):
     key, words = timed("prep", lambda: match2._prep(win, nw, 4))
     skey, order = timed("sort", lambda: torch.sort(key, dim=1))
     ld = timed("matcher", lambda: match2._run_matcher(
-        skey, order, words, min_src, limit, win.shape[1], K, 32768))
+        skey, order, words, win, min_src, limit, win.shape[1], K, 32768))
     if K3:
         def k3_pass():
             ld3 = match2._candidate_pass(win, min_src, limit, K=K3, nw=1,
