@@ -43,7 +43,8 @@ Phases, one line each:
      level 6's parse blocks (8192 x 1024), rows = level 9's (2048 x 4096),
      rows = shards (64 x 131072, the parse_walk entry point).  B2 at level
      6 is also timed with the L2 flushed before each launch, and every B2
-     case prints the bound of reading all of B1's words beside its own;
+     case prints, beside its own bound, the bound of reading ne + nf words
+     a position as the TPU kernel's inputs are laid out;
   8. the main path: api.gzip.compress at level 6 of 32 MiB mixed, decoded
      by zlib and by the port's own gzip.decompress; levels 2, 4, 5, 7, 8, 9
      on 8 MiB; sizes against zlib at the same level (must be <= 1.0), with
@@ -56,11 +57,12 @@ Phases, one line each:
      compaction, decoded by zlib, with parse_walk held against
      parse_doubling on the same matches;
   9. B10, the bitonic sort probe's network (tools/bitonic_probe.py), on
-     the level-6 payload of phase 3's batch: B1's keys and 8 carry words
-     padded from 163,840 to 2^18 (key 0xFFFFFFFF, operands the position),
-     all 171 substages in the passes plan_passes cuts them into (printed),
-     through device/bitonic.run with the launch counter
-     reset before and read after; then against its plain version (exact),
+     the level-6 payload of phase 3's batch: B1's keys and the 8 carry
+     words of each position (built from the window) padded from 163,840
+     to 2^18 (key 0xFFFFFFFF, operands the position), all 171 substages
+     in the passes plan_passes cuts them into (printed), through
+     device/bitonic.run with the launch counter reset before and read
+     after; then against its plain version (exact),
      its first W positions against torch.sort + gather (also timed as the
      library call), and the probe's eight-substage calibrate mix on 8 rows
      with the full sort extrapolated from it;
@@ -74,9 +76,9 @@ Phases, one line each:
      it; a split DeviceEncoder at level 6 on 8 shards in batches of 8 gives
      the same bytes on the card and the CPU.
 Then, on lines of their own: the card's name and power limit, the kernel
-JSON (the redesigned B2 and B10 with ms_before, their times before the
-redesign), and last `{"ok": true, "device": {...}}`.  Any failure exits
-non-zero without the last line.  Imports nothing of JAX or flate_tpu.
+JSON (every number in it measured in this run, or the bound computed from
+this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
+exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
 About 155 s on an H100 (the kernel build ~5 s, the CPU twins of phases 8
 and 10 ~30-50 s).
 """
@@ -103,14 +105,6 @@ INT_OPS_PER_S = 64 * 132 * 1.98e9
 HERE = os.path.dirname(os.path.abspath(__file__))
 LEVELS = (1, 3)                  # 32 MiB end to end in phase 4
 KERNEL_LEVELS = (1, 3, 6, 9)     # knobs at which B1-B5 and B9 are held to plain
-# ms of the two redesigned kernels before the redesign (B2: one thread a
-# sorted row reading B1's words by position; B10: 28 passes and a gather),
-# from this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel
-# table); printed beside this run's times as ms_before
-MS_BEFORE = {"matcher_l1": 0.3699, "matcher_l3": 0.7565,
-             "matcher_l6": 1.8556, "matcher_l9": 3.5876,
-             "matcher_k3_l9": 0.4039, "matcher_fp": 1.5519,
-             "bitonic_full": 4.8480, "bitonic_calibrate_mix": 0.1599}
 # size / zlib's size at the same level, from the JAX package's last bench
 # (BENCH_r05.json size_vs_zlib_corpora): byte counts, equal on any hardware
 JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
@@ -234,8 +228,9 @@ def main() -> int:
         the kernel's outputs that gives them; note: what else the launch
         count of this entry on that path covers; library: one PyTorch call
         that computes the same function, timed beside the kernel (the port
-        never calls it); extra: more keys for the case's line.  The run
-        that is compared is the warm-up of the timed ones."""
+        never calls it); extra: more keys, measured in this run, for the
+        case's line.  The run that is compared is the warm-up of the timed
+        ones."""
         def outputs(r):
             return r if isinstance(r, tuple) else (r,)
 
@@ -244,6 +239,8 @@ def main() -> int:
         for a, b in zip(k_out, p_out, strict=True):
             if a.shape != b.shape:
                 raise AssertionError(f"{label}: shape {a.shape} vs {b.shape}")
+            if a.numel() == 0:                   # B1's fingerprints at nf = 0
+                continue
             err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
                                .abs().max().item()))
         if err != 0:
@@ -269,8 +266,6 @@ def main() -> int:
                           library_ms=library_ms))
         if note:
             cases[-1]["launches_cover"] = note
-        if label in MS_BEFORE:
-            cases[-1]["ms_before"] = MS_BEFORE[label]
         cases[-1].update(extra or {})
         lib = "" if library is None else f", library {library_ms:.4f} ms"
         print(f"[{phase}] {label}: equal, {ms:.4f} ms (plain "
@@ -282,19 +277,18 @@ def main() -> int:
     def matcher_cases(phase, path, tag, K, ne, nf, hash_bytes, max_dist,
                       top2, note=None):
         """B1 then B2 at these knobs; returns B2's outputs."""
-        nc = ne + nf
-        key, words = case(
+        key, fps = case(
             phase, path, f"prep_{tag}", "flate_prep",
             "flate_tpu/jx/match2.py:107",
             lambda: match2._prep(window, ne, hash_bytes, nf),
             lambda: match2._prep_plain(window, ne, hash_bytes, nf),
-            nbytes(window) + B * Wp * 4 * (1 + nc),    # u32 key + nc words
-            # one op per byte gathered into a word or hashed
-            B * Wp * ((4 * ne << nf) + hash_bytes), note=note)
+            nbytes(window) + B * Wp * 4 * (1 + nf),    # u32 key + nf words
+            # one op per byte hashed or gathered into a fingerprint
+            B * Wp * (4 * ((ne << nf) - ne if nf else 0) + hash_bytes),
+            note=note)
         skey, order = torch.sort(key, dim=1)
-        args = (skey, order, words, min_src, limit, W, K, max_dist, nf, top2)
-        kargs = (skey, order, words, window, min_src, limit, W, K, max_dist,
-                 nf, top2, hash_bytes)
+        args = (skey, order, window, fps, min_src, limit, W, K, max_dist, ne,
+                hash_bytes, top2)
         # what the scan needs on this data: the candidates within K before
         # its end (another bucket, past max_dist, below min_src) in rows
         # that can match, and for a valid one the word compares up to and
@@ -307,22 +301,23 @@ def main() -> int:
               flush=True)
         outs = B * W * 4 * (2 if top2 else 1)        # u32 outputs
         # what the kernel reads: the sorted u32 keys, the window, min_src
-        # and limit, and the fingerprint words; beside it the bound of
-        # reading all nc words (the kernel before its redesign)
-        words_ms = (B * Wp * 4 * (1 + nc) + outs) / HBM_BYTES_PER_S * 1e3
-        extra = {"bound_words_ms": words_ms}
+        # and limit, and the fingerprint words; printed beside it, the
+        # bound of reading ne + nf u32 words a position (the inputs of the
+        # TPU kernel, and of this one before its redesign)
+        words_ms = (B * Wp * 4 * (1 + ne + nf) + outs) / HBM_BYTES_PER_S * 1e3
+        extra = {}
         if tag == "l6":
             extra["ms_l2_flushed"] = cuda_ms_cold(
-                lambda: match2._run_matcher(*kargs), 20)
+                lambda: match2._run_matcher(*args), 20)
         out = case(
             phase, path, f"matcher_{tag}", "flate_matcher",
             "flate_tpu/jx/match2.py:187",
-            lambda: match2._run_matcher(*kargs),
+            lambda: match2._run_matcher(*args),
             lambda: match2._run_matcher_plain(*args),
             B * Wp * 4 + nbytes(window) + 8 * B + outs + B * Wp * 4 * nf,
             scan["visits"] + scan["compares"], note=note, extra=extra)
-        print(f"[{phase}] matcher_{tag}: bound by reading every word "
-              f"{words_ms:.4f} ms" + (
+        print(f"[{phase}] matcher_{tag}: bound of reading {ne + nf} words "
+              f"a position {words_ms:.4f} ms" + (
                   f"; L2 flushed before each launch "
                   f"{extra['ms_l2_flushed']:.4f} ms" if tag == "l6" else ""),
               flush=True)
@@ -702,16 +697,19 @@ def main() -> int:
 
     # ---- phase 9: B10, the bitonic probe's network, full width ----
     # the level-6 payload of the first 8 MiB batch: B1's keys (hash<<18 |
-    # pos, unique) and its 8 carry words, padded from Wp to 2^18 with the
-    # sentinel key 0xFFFFFFFF and operands equal to the position
+    # pos, unique) and the 8 carry words of each position (the TPU sorts
+    # them with the keys), padded from Wp to 2^18 with the sentinel key
+    # 0xFFFFFFFF and operands equal to the position
     n10 = bitonic.R * bitonic.C
     shards = torch.frombuffer(bytearray(head[CTX:]), dtype=torch.uint8
                               ).reshape(B, S).to(dev)
     ctx0 = torch.frombuffer(bytearray(head[:CTX]), dtype=torch.uint8).to(dev)
     window = pipeline2._prime_windows(shards, ctx0, CTX)
-    key6, words6 = match2._prep(window, 8, 4)
+    key6, _ = match2._prep(window, 8, 4)
     W = window.shape[1]
     Wp = key6.shape[1]
+    words6 = to_i32(match2._window_words(
+        window, torch.arange(Wp, device=dev).expand(B, Wp), 8, 4))
     k10 = torch.full((B, n10), -1, dtype=torch.int32, device=dev)
     k10[:, :Wp] = to_i32(key6)
     pos = torch.arange(n10, dtype=torch.int32, device=dev).expand(B, n10)

@@ -43,13 +43,15 @@ inline unsigned grid_for(long long n) {
 
 // --------------------------------------------------------------------------
 // B1 prep — replaces flate_tpu/jx/match2.py:_prep_kernel (via _prep).
-// Per position: ne little-endian carry words of the bytes from pos onward
-// (zero past W), then nf fingerprint words — word j mixes the little-endian
-// words [ne*2^j, ne*2^(j+1)) as fp = fp * 0x01000193 + word in u32
-// wraparound — and the sort key hash<<18 | pos, or 0xFFFFFFFF for pad
-// positions pos >= W.  Bound: bytes — W bytes in, 8 + 4*(ne+nf) bytes out
-// per position; each thread's 4*ne*2^nf-byte read overlaps its neighbours',
-// so the window is served from L1/L2 after the first touch.
+// Per position: the sort key hash<<18 | pos, or 0xFFFFFFFF for pad
+// positions pos >= W, and nf fingerprint words — word j mixes the
+// little-endian words [ne*2^j, ne*2^(j+1)) of the bytes from pos onward
+// (zero past W) as fp = fp * 0x01000193 + word in u32 wraparound.  The
+// TPU kernel also writes the ne exact carry words, which ride its sort;
+// here B2 builds them from the window, so they are not written.
+// Bound: bytes — W bytes in, 8 + 4*nf bytes out per position; each
+// thread's read overlaps its neighbours', so the window is served from
+// L1/L2 after the first touch.
 // --------------------------------------------------------------------------
 __global__ void prep_kernel(const uint8_t* __restrict__ window,
                             long long* __restrict__ key,
@@ -67,17 +69,12 @@ __global__ void prep_kernel(const uint8_t* __restrict__ window,
     for (int j = 0; j < 4; ++j) v |= at(pos + 4 * w + j) << (8 * j);
     return v;
   };
-  uint32_t* wout = words + static_cast<long long>(b) * (ne + nf) * Wp + pos;
-  for (int w = 0; w < ne; ++w) {
-    uint32_t v = le_word(w);
-    if (w == 0 && hash_bytes < 4) v &= (1u << (8 * hash_bytes)) - 1u;
-    wout[static_cast<long long>(w) * Wp] = v;
-  }
+  uint32_t* wout = words + static_cast<long long>(b) * nf * Wp + pos;
   for (int j = 0; j < nf; ++j) {
     int lo = ne << j, hi = ne << (j + 1);
     uint32_t fp = le_word(lo);
     for (int w = lo + 1; w < hi; ++w) fp = fp * kFpMul + le_word(w);
-    wout[static_cast<long long>(ne + j) * Wp] = fp;
+    wout[static_cast<long long>(j) * Wp] = fp;
   }
   // big-endian packed prefix for the Fibonacci hash
   uint32_t v = 0;
@@ -104,23 +101,24 @@ __global__ void prep_kernel(const uint8_t* __restrict__ window,
 //
 // Design.  Sorted neighbours share almost all their candidates, so one
 // block takes a tile of T consecutive sorted rows of one batch row and
-// stages, once, the T + K keys (as u32) and each staged row's ne carry
+// stages, once, the T + K keys (as u32) and each staged row's NE carry
 // words in shared memory; each thread then scans its rows' predecessors
-// from there with the target's words in registers (ne is a template
-// parameter, so the compares unroll).  The words are rebuilt from the
-// window (B, W) bytes, which stay in L2 (10.5 MB a batch), instead of read
-// from B1's plane-major words (one 32-byte sector for 4 useful bytes, 336
-// MB at level 6): word t of position pos is the little-endian bytes from
-// pos + 4t, zero past W, word 0 masked to hash_bytes bytes in the 3-byte
-// pass — B1's words exactly.  Fingerprint words (nf > 0) are read from B1's
-// words, only for candidates that fill the exact cap.  A row of ne+1 words
-// (odd) spreads a warp's rows over the banks.  Within a row every candidate
-// has its own distance, so the scores are distinct and the best and
-// runner-up are the two largest whatever the scan order.  Going back in
-// sort order, a bucket's positions fall, so the scan ends at the first
-// candidate of another bucket, past max_dist or below min_src (every later
-// one fails too); a row with fewer than 3 bytes before its limit has no
-// match and is not scanned.  The next candidate's key is loaded while the
+// from there with the target's words in registers (NE is a template
+// parameter, so the compares unroll).  The words are built from the
+// window (B, W) bytes, which stay in L2 (10.5 MB a batch): word t of
+// position pos is the little-endian bytes from pos + 4t, zero past W, word
+// 0 masked to hash_bytes bytes in the 3-byte pass — the TPU kernel's carry
+// words exactly.  Fingerprint words (nf > 0) are read from B1's output,
+// only for candidates that fill the exact cap.  A row of NE|1 words (odd)
+// spreads a warp's rows over the banks.  NE is the least of 1, 2, 4, 8,
+// 16 and 65 that holds ne: the length is cut at the cap 4*ne, so the words
+// past ne change nothing, and 65 words (260 bytes) reach past any length's
+// 258.  Within a row every candidate has its own distance, so the scores
+// are distinct and the best and runner-up are the two largest whatever the
+// scan order.  Going back in sort order, a bucket's positions fall, so the
+// scan ends at the first candidate of another bucket, past max_dist or
+// below min_src (every later one fails too); a row with fewer than 3 bytes
+// before its limit has no match and is not scanned.  The next candidate's key is loaded while the
 // current one is compared.
 // Bound: bytes — the sorted keys (u32), the window, one or two outputs
 // (scattered 4-byte stores), and the fingerprint words when nf > 0; the
@@ -141,11 +139,11 @@ template <int NE>
 __global__ void __launch_bounds__(kMatchThreads)
 matcher_kernel(const long long* __restrict__ skey,
                const uint32_t* __restrict__ window,
-               const uint32_t* __restrict__ words,
+               const uint32_t* __restrict__ fps,
                const int* __restrict__ min_src,
                const int* __restrict__ limit,
                int* __restrict__ out, int* __restrict__ out2,
-               int W, int Ww, int Wp, int nf, int K, int max_dist,
+               int W, int Ww, int Wp, int ne, int nf, int K, int max_dist,
                int hash_bytes, int T) {
   constexpr int stride = match_stride(NE);
   extern __shared__ uint32_t msm[];
@@ -182,9 +180,8 @@ matcher_kernel(const long long* __restrict__ skey,
   __syncthreads();
   const int ms = min_src[b];
   const int lim = limit[b];
-  constexpr int cap = 4 * NE;
-  const int ne = NE;
-  const uint32_t* frow = words + static_cast<long long>(b) * (ne + nf) * Wp;
+  const int cap = 4 * ne;
+  const uint32_t* frow = fps + static_cast<long long>(b) * nf * Wp;
   for (int l = threadIdx.x; l < T; l += blockDim.x) {
     const int i = i0 + l;
     if (i >= Wp) break;
@@ -193,6 +190,7 @@ matcher_kernel(const long long* __restrict__ skey,
     const int tpos = static_cast<int>(tkey & kPosMask);
     const uint32_t tbucket = tkey >> kPosBits;
     const int maxlen = min(kMaxMatch, lim - tpos);
+    const int mlcap = min(maxlen, cap);
     int best_score = -1, best = 0;
     int sec_score = -1, sec = 0;
     if (maxlen >= kMinMatch) {
@@ -219,13 +217,13 @@ matcher_kernel(const long long* __restrict__ skey,
           ml += (__ffs(x) - 1) >> 3;           // equal low-order bytes
           break;
         }
-        ml = min(ml, maxlen);
+        ml = min(ml, mlcap);
         if (ml < kMinMatch) continue;
         int est = ml;
         if (ml == cap) {
           for (int j = 0; j < nf; ++j) {
-            if (frow[static_cast<long long>(ne + j) * Wp + tpos] !=
-                frow[static_cast<long long>(ne + j) * Wp + cpos]) break;
+            if (frow[static_cast<long long>(j) * Wp + tpos] !=
+                frow[static_cast<long long>(j) * Wp + cpos]) break;
             est += cap << j;
           }
         }
@@ -485,15 +483,20 @@ int flate_prep(const void* window, void* key, void* words, int B, int W,
 }
 
 // window: (B, Ww) bytes as u32 words, Ww a multiple of 4 >= W with zeros
-// past W; words: B1's (B, ne+nf, Wp), read for the nf fingerprints only.
-int flate_matcher(const void* skey, const void* window, const void* words,
+// past W; fps: B1's (B, nf, Wp) fingerprint words.
+int flate_matcher(const void* skey, const void* window, const void* fps,
                   const void* min_src, const void* limit, void* out,
                   void* out2, int B, int W, int Ww, int Wp, int ne, int nf,
                   int K, int max_dist, int hash_bytes, void* stream) {
   if (B == 0 || Wp == 0) return static_cast<int>(cudaGetLastError());
-  if (K < 0 || Ww % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 0 || ne < 1 || Ww % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the words a row is staged with: see matcher_kernel
+  int NE = 1;
+  while (NE < ne && NE < 16) NE *= 2;
+  if (NE < ne) NE = 65;
   auto smem_for = [&](int T) {
-    return static_cast<size_t>(T + K) * (1 + match_stride(ne)) * sizeof(uint32_t);
+    return static_cast<size_t>(T + K) * (1 + match_stride(NE)) * sizeof(uint32_t);
   };
   int T = kMatchRowsMax;
   while (T > kMatchThreads && smem_for(T) > kMatchSmemTarget) T /= 2;
@@ -508,18 +511,18 @@ int flate_matcher(const void* skey, const void* window, const void* words,
     if (rc != 0) return rc;
     kernel<<<grid, kMatchThreads, smem, s>>>(
         static_cast<const long long*>(skey), static_cast<const uint32_t*>(window),
-        static_cast<const uint32_t*>(words), static_cast<const int*>(min_src),
+        static_cast<const uint32_t*>(fps), static_cast<const int*>(min_src),
         static_cast<const int*>(limit), static_cast<int*>(out),
-        static_cast<int*>(out2), W, Ww, Wp, nf, K, max_dist, hash_bytes, T);
+        static_cast<int*>(out2), W, Ww, Wp, ne, nf, K, max_dist, hash_bytes, T);
     return static_cast<int>(cudaGetLastError());
   };
-  switch (ne) {                                 // the exact words the levels use
+  switch (NE) {
     case 1: return run(matcher_kernel<1>);
     case 2: return run(matcher_kernel<2>);
     case 4: return run(matcher_kernel<4>);
     case 8: return run(matcher_kernel<8>);
     case 16: return run(matcher_kernel<16>);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return run(matcher_kernel<65>);
   }
 }
 

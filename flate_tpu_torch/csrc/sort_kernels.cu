@@ -469,10 +469,10 @@ int flate_bitonic(const void* key_in, const void* op_in, const void* op_out,
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = static_cast<size_t>(kTile) * sizeof(uint2);
-  static const int smem_rc = static_cast<int>(cudaFuncSetAttribute(
+  // set on every call: the attribute belongs to the current device's context
+  int rc = static_cast<int>(cudaFuncSetAttribute(
       tile_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
-  int rc = smem_rc;
   if (rc != 0) return rc;
   Pass p{};
   p.key_in = static_cast<const uint32_t*>(key_in);

@@ -9,10 +9,10 @@ valid back-reference, so bucket collisions are harmless.
 
 The TPU carries the window words through its sort because gathers
 scalarize there.  Keys are unique (pos sits in the low 18 bits), so here a
-key-only torch.sort gives the identical order, the matcher rebuilds the
-words of each sorted row from the window bytes (B1's words are read only
-for fingerprints), and the unsort is an inverse-permutation scatter (fused
-into the CUDA matcher).
+key-only torch.sort gives the identical order, the matcher builds the
+exact words of each sorted row from the window bytes (`_window_words`),
+B1 writes only the keys and the fingerprint words, and the unsort is an
+inverse-permutation scatter (fused into the CUDA matcher).
 
 Kernels (csrc/encode_kernels.cu): B1 `_prep`, B2 `_run_matcher`.
 """
@@ -31,7 +31,6 @@ POS_BITS = 18                    # window <= 256 KiB positions
 POS_MASK = (1 << POS_BITS) - 1
 HASH_BITS = 32 - POS_BITS        # 14-bit buckets
 SENTINEL = 0xFFFFFFFF
-KERNEL_NE = (1, 2, 4, 8, 16)     # exact words a row B2's kernel is built for
 _M32 = 0xFFFFFFFF
 FP_MUL = 0x01000193              # FNV prime: the fingerprint polynomial
 
@@ -64,14 +63,14 @@ def _split_words(nw: int, fp: bool | int = False) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# B1: prep — sort keys, carry words and fingerprint words
+# B1: prep — sort keys and fingerprint words
 # ---------------------------------------------------------------------------
 
 def _prep_plain(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     B, W = window.shape
     Wp = -(-W // TILE) * TILE
-    nbytes = max(4 * ne << nf, hash_bytes)
+    nbytes = max(4 * ne << nf if nf else 0, hash_bytes)
     wpad = torch.nn.functional.pad(window.to(torch.int64),
                                    (0, Wp - W + nbytes))
     planes = [wpad[:, j:j + Wp] for j in range(nbytes)]
@@ -81,11 +80,6 @@ def _prep_plain(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
                 | (planes[4 * w + 2] << 16) | (planes[4 * w + 3] << 24))
 
     words = []
-    for w in range(ne):
-        le = le_word(w)
-        if w == 0 and hash_bytes < 4:
-            le = le & ((1 << (8 * hash_bytes)) - 1)
-        words.append(to_i32(le))
     for j in range(nf):
         lo, hi = ne << j, ne << (j + 1)
         fp = le_word(lo)
@@ -98,21 +92,25 @@ def _prep_plain(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
     h = _mul_u32(v, consts.HASH_MUL) >> (32 - HASH_BITS)
     pos = torch.arange(Wp, dtype=torch.int64, device=window.device)[None, :]
     key = torch.where(pos < W, (h << POS_BITS) | pos, SENTINEL)
+    if not words:
+        return key, torch.empty((B, 0, Wp), dtype=torch.int32,
+                                device=window.device)
     return key, torch.stack(words, dim=1)
 
 
 def _prep(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """window (B, W) uint8 -> (key (B, Wp) int64, words (B, ne+nf, Wp)
-    int32 u32 bit patterns: ne exact little-endian words, then nf FNV
-    fingerprints of the following spans), Wp = W rounded up to TILE."""
+    """window (B, W) uint8 -> (key (B, Wp) int64, fps (B, nf, Wp) int32
+    u32 bit patterns: the FNV fingerprints of the spans that follow the ne
+    exact words), Wp = W rounded up to TILE.  The exact words are not
+    written: the matcher builds them from the window."""
     if _build.use_plain(window):
         return _prep_plain(window, ne, hash_bytes, nf)
     B, W = window.shape
     Wp = -(-W // TILE) * TILE
     _build.check_cuda("prep.window", window, torch.uint8, (B, W))
     key = torch.empty((B, Wp), dtype=torch.int64, device=window.device)
-    words = torch.empty((B, ne + nf, Wp), dtype=torch.int32,
+    words = torch.empty((B, nf, Wp), dtype=torch.int32,
                         device=window.device)
     _build.launch("flate_prep", window.data_ptr(), key.data_ptr(),
                   words.data_ptr(), B, W, Wp, ne, nf, hash_bytes)
@@ -134,12 +132,12 @@ def _tz_bytes(x: torch.Tensor) -> torch.Tensor:
 
 def _window_words(window: torch.Tensor, pos: torch.Tensor, ne: int,
                   hash_bytes: int) -> torch.Tensor:
-    """The ne carry words of positions `pos` (B, P) as B2's kernel rebuilds
+    """The ne carry words of positions `pos` (B, P) as B2's kernel builds
     them from the window (B, W): the row as little-endian u32 words, zero
     past W (padded to a multiple of 4), and word t of pos the funnel shift
     of the two aligned words under pos + 4t; word 0 masked to hash_bytes
-    bytes in the 3-byte pass.  Returns (B, ne, P) int64 u32 values: B1's
-    words (_prep) at those positions."""
+    bytes in the 3-byte pass.  Returns (B, ne, P) int64 u32 values: the
+    carry words the TPU kernel's prep writes, at those positions."""
     B, W = window.shape
     Ww = -(-W // 4) * 4
     row = torch.nn.functional.pad(window.to(torch.int64), (0, Ww - W))
@@ -163,8 +161,9 @@ def _window_words(window: torch.Tensor, pos: torch.Tensor, ne: int,
 
 
 def _candidates(skey: torch.Tensor, order: torch.Tensor,
-                words: torch.Tensor, min_src: torch.Tensor,
-                limit: torch.Tensor, K: int, max_dist: int, nf: int = 0,
+                window: torch.Tensor, fps: torch.Tensor,
+                min_src: torch.Tensor, limit: torch.Tensor, K: int,
+                max_dist: int, ne: int, hash_bytes: int = 4,
                 stats: dict | None = None):
     """The K candidates of every sorted row as whole-row shifts: yields,
     for d = 1..K, (score, ld) (B, Wp) int32 — score = (est<<16) - dist of
@@ -179,13 +178,15 @@ def _candidates(skey: torch.Tensor, order: torch.Tensor,
     candidates, one per exact word up to and including the first that
     differs and one per fingerprint word likewise."""
     B, Wp = skey.shape
-    nc = words.shape[1]
-    ne = nc - nf
+    nf = fps.shape[1]
     cap = 4 * ne
     tpos = (skey & POS_MASK).to(torch.int32)
     tbucket = skey >> POS_BITS
-    tw = [torch.gather(words[:, t].to(torch.int64) & _M32, 1, order)
-          for t in range(nc)]                       # words in sorted order
+    # words in sorted order: the exact ones from the window, then B1's
+    # fingerprints
+    tw = list(_window_words(window, order, ne, hash_bytes).unbind(1))
+    tw += [torch.gather(fps[:, j].to(torch.int64) & _M32, 1, order)
+           for j in range(nf)]
     ms = min_src.to(torch.int32)[:, None]
     lim = limit.to(torch.int32)[:, None]
     maxlen = torch.clamp(lim - tpos, max=consts.MAX_MATCH_LEN)
@@ -237,10 +238,10 @@ def _unsort(x: torch.Tensor, order: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
-                       words: torch.Tensor, min_src: torch.Tensor,
-                       limit: torch.Tensor, W: int, K: int,
-                       max_dist: int, nf: int = 0, top2: bool = False,
-                       stats: dict | None = None):
+                       window: torch.Tensor, fps: torch.Tensor,
+                       min_src: torch.Tensor, limit: torch.Tensor, W: int,
+                       K: int, max_dist: int, ne: int, hash_bytes: int = 4,
+                       top2: bool = False, stats: dict | None = None):
     """The scan over `_candidates` in order d = 1..K, keeping the best
     score and, with top2, the runner-up (a new best demotes the old one,
     otherwise a candidate above the runner-up replaces it).  Scores of one
@@ -254,8 +255,8 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
 
     best_score, best_ld = blank(-1), blank(0)
     sec_score, sec_ld = blank(-1), blank(0)
-    for score, ld in _candidates(skey, order, words, min_src, limit, K,
-                                 max_dist, nf, stats):
+    for score, ld in _candidates(skey, order, window, fps, min_src, limit, K,
+                                 max_dist, ne, hash_bytes, stats):
         upd = score > best_score
         if top2:
             upd2 = ~upd & (score > sec_score)
@@ -271,37 +272,31 @@ def _run_matcher_plain(skey: torch.Tensor, order: torch.Tensor,
 
 
 def _run_matcher(skey: torch.Tensor, order: torch.Tensor,
-                 words: torch.Tensor, window: torch.Tensor,
+                 window: torch.Tensor, fps: torch.Tensor,
                  min_src: torch.Tensor, limit: torch.Tensor, W: int, K: int,
-                 max_dist: int, nf: int = 0, top2: bool = False,
-                 hash_bytes: int = 4):
+                 max_dist: int, ne: int, hash_bytes: int = 4,
+                 top2: bool = False):
     """skey (B, Wp) int64 sorted keys, order (B, Wp) their positions,
-    words (B, ne+nf, Wp) int32 by position (B1's, the last nf of them
-    fingerprints that rank only), window (B, W) uint8 the bytes they were
-    made from with `hash_bytes`.  Returns best len<<16|dist (B, W) int32
-    in position order, and the runner-up beside it when top2.  The kernel
-    rebuilds the exact words from the window (`_window_words`) and reads
-    `words` for the fingerprints only."""
+    window (B, W) uint8, fps (B, nf, Wp) int32 B1's fingerprint words by
+    position (they rank only); ne exact words, made from the window with
+    `hash_bytes` (`_window_words`).  Returns best len<<16|dist (B, W) int32
+    in position order, and the runner-up beside it when top2."""
     if _build.use_plain(skey):
-        return _run_matcher_plain(skey, order, words, min_src, limit, W, K,
-                                  max_dist, nf, top2)
+        return _run_matcher_plain(skey, order, window, fps, min_src, limit,
+                                  W, K, max_dist, ne, hash_bytes, top2)
     B, Wp = skey.shape
-    nc = words.shape[1]
-    ne = nc - nf
+    nf = fps.shape[1]
     min_src = min_src.to(torch.int32).contiguous()
     limit = limit.to(torch.int32).contiguous()
     _build.check_cuda("matcher.skey", skey, torch.int64, (B, Wp))
-    _build.check_cuda("matcher.words", words, torch.int32, (B, nc, Wp))
     _build.check_cuda("matcher.window", window, torch.uint8, (B, W))
+    _build.check_cuda("matcher.fps", fps, torch.int32, (B, nf, Wp))
     _build.check_cuda("matcher.min_src", min_src, torch.int32, (B,))
     _build.check_cuda("matcher.limit", limit, torch.int32, (B,))
     if W > Wp or Wp > (1 << POS_BITS) - 1:
         raise ValueError(f"window {W} exceeds the {POS_BITS}-bit positions")
-    if not 0 <= nf < nc:
-        raise ValueError(f"nf {nf} must leave an exact word of {nc}")
-    if ne not in KERNEL_NE:
-        raise ValueError(f"the kernel is built for {KERNEL_NE} exact words, "
-                         f"got {ne}")
+    if ne < 1:
+        raise ValueError(f"ne must be >= 1, got {ne}")
     if hash_bytes not in (3, 4):
         raise ValueError(f"hash_bytes must be 3 or 4, got {hash_bytes}")
     # the kernel reads each row as u32 words: pad it to a multiple of 4
@@ -312,7 +307,7 @@ def _run_matcher(skey: torch.Tensor, order: torch.Tensor,
     out = torch.empty((B, W), dtype=torch.int32, device=skey.device)
     out2 = torch.empty_like(out) if top2 else None
     _build.launch("flate_matcher", skey.data_ptr(), window.data_ptr(),
-                  words.data_ptr(), min_src.data_ptr(), limit.data_ptr(),
+                  fps.data_ptr(), min_src.data_ptr(), limit.data_ptr(),
                   out.data_ptr(), out2.data_ptr() if top2 else None,
                   B, W, Ww, Wp, ne, nf, K, max_dist, hash_bytes)
     return (out, out2) if top2 else out
@@ -326,10 +321,10 @@ def _candidate_pass(window: torch.Tensor, min_src: torch.Tensor,
     len<<16|dist (B, W) int32 per position (a pair of them when top2)."""
     W = window.shape[1]
     ne, nf = _split_words(nw, fp)
-    key, words = _prep(window, ne, hash_bytes, nf)
+    key, fps = _prep(window, ne, hash_bytes, nf)
     skey, order = torch.sort(key, dim=1)
-    return _run_matcher(skey, order, words, window, min_src, limit, W, K,
-                        max_dist, nf, top2, hash_bytes)
+    return _run_matcher(skey, order, window, fps, min_src, limit, W, K,
+                        max_dist, ne, hash_bytes, top2)
 
 
 def _score(l: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

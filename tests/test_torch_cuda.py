@@ -50,10 +50,10 @@ def test_kernels_equal_plain(cuda, kind):
         _eq(k[1], p[1])
         skey, order = torch.sort(k[0], dim=1)
         for K in (4, 12, 160):
-            _eq(match2._run_matcher(skey, order, k[1], win, min_src, limit,
-                                    W, K, 32768, hash_bytes=hb),
-                match2._run_matcher_plain(skey, order, k[1], min_src, limit,
-                                          W, K, 32768))
+            _eq(match2._run_matcher(skey, order, win, k[1], min_src, limit,
+                                    W, K, 32768, nw, hb),
+                match2._run_matcher_plain(skey, order, win, k[1], min_src,
+                                          limit, W, K, 32768, nw, hb))
     kl, kd = runs.small_dist_runs(win, limit, min_src)
     pl, pd = runs._small_dist_runs_plain(win, limit, min_src)
     _eq(kl, pl)
@@ -118,14 +118,14 @@ def test_fp_top2_kernels_equal_plain(cuda, kind, nw, fp):
     _eq(k[1], p[1])
     skey, order = torch.sort(k[0], dim=1)
     for K in (8, 48):
-        kk = match2._run_matcher(skey, order, k[1], win, min_src, limit, W,
-                                 K, 32768, nf, True)
-        pp = match2._run_matcher_plain(skey, order, k[1], min_src, limit, W,
-                                       K, 32768, nf, True)
+        kk = match2._run_matcher(skey, order, win, k[1], min_src, limit, W,
+                                 K, 32768, ne, top2=True)
+        pp = match2._run_matcher_plain(skey, order, win, k[1], min_src,
+                                       limit, W, K, 32768, ne, top2=True)
         _eq(kk[0], pp[0])
         _eq(kk[1], pp[1])
-        _eq(match2._run_matcher(skey, order, k[1], win, min_src, limit, W,
-                                K, 32768, nf), pp[0])
+        _eq(match2._run_matcher(skey, order, win, k[1], min_src, limit, W,
+                                K, 32768, ne), pp[0])
     args = (kk[0] >> 16, kk[0] & 0xFFFF, kk[1] >> 16, kk[1] & 0xFFFF, limit,
             4 * ne)
     for a, b in zip(runs.extend_chains2(*args),
@@ -421,14 +421,17 @@ def test_bitonic_passes_equal_plain(cuda, case, passes):
 
 
 @pytest.mark.parametrize("case", ["k160_ne16", "k3", "fp_top2", "tail",
-                                  "min_src", "odd_width"])
+                                  "min_src", "odd_width", "ne3", "ne6",
+                                  "ne40", "fp3_top2"])
 @pytest.mark.parametrize("kind", ["text", "runs"])
 def test_matcher_cases_equal_plain(cuda, kind, case):
     """B2 against its plain version: K = 160 with 16 exact words (level
     9), the 3-byte K3 pass (K = 16, one word masked to 3 bytes, dist <=
     4096), fingerprint ranking with both outputs, a tail row (limit short
-    of W), rows whose context is short (min_src > 0), and a window whose
-    width is no multiple of 4."""
+    of W), rows whose context is short (min_src > 0), a window whose
+    width is no multiple of 4, and exact word counts no level uses (3, 6
+    and 40: rows staged with 4, 8 and 65 words, lengths cut at 4*ne) and
+    fp=3 (3 exact + 2 fingerprint words)."""
     win = torch.from_numpy(windows(kind, seed=12))
     if case == "odd_width":
         win = win[:, :-3].contiguous()
@@ -437,8 +440,12 @@ def test_matcher_cases_equal_plain(cuda, kind, case):
     K, nw, hb, max_dist, fp = {
         "k160_ne16": (160, 16, 4, 32768, False),
         "k3": (16, 1, 3, 4096, False),
-        "fp_top2": (48, 8, 4, 32768, True)}.get(case, (48, 8, 4, 32768,
-                                                      False))
+        "fp_top2": (48, 8, 4, 32768, True),
+        "ne3": (48, 3, 4, 32768, False),
+        "ne6": (48, 6, 4, 32768, False),
+        "ne40": (48, 40, 4, 32768, False),
+        "fp3_top2": (48, 12, 4, 32768, 3)}.get(case, (48, 8, 4, 32768,
+                                                     False))
     min_src = torch.tensor([0, 0], dtype=torch.int32, device=cuda)
     limit = torch.tensor([W, W], dtype=torch.int32, device=cuda)
     if case == "tail":
@@ -446,13 +453,13 @@ def test_matcher_cases_equal_plain(cuda, kind, case):
     if case == "min_src":
         min_src[:] = torch.tensor([CTX - 300, CTX - 7])
     ne, nf = match2._split_words(nw, fp)
-    key, words = match2._prep(win, ne, hb, nf)
+    key, fps = match2._prep(win, ne, hb, nf)
     skey, order = torch.sort(key, dim=1)
-    top2 = case == "fp_top2"
-    got = match2._run_matcher(skey, order, words, win, min_src, limit, W, K,
-                              max_dist, nf, top2, hb)
-    want = match2._run_matcher_plain(skey, order, words, min_src, limit, W,
-                                     K, max_dist, nf, top2)
+    top2 = case.endswith("top2")
+    got = match2._run_matcher(skey, order, win, fps, min_src, limit, W, K,
+                              max_dist, ne, hb, top2)
+    want = match2._run_matcher_plain(skey, order, win, fps, min_src, limit,
+                                     W, K, max_dist, ne, hb, top2)
     for g, w in zip(got if top2 else (got,), want if top2 else (want,)):
         _eq(g, w)
         assert int((w != 0).sum()) > 0

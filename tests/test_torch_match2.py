@@ -1,5 +1,7 @@
 """Port match2 against the JAX fused matcher (Pallas, interpret mode):
-_prep contents, the candidate pass and find_matches_fused for the (K, nw,
+_prep contents (the port's B1 writes keys and fingerprints; the exact
+carry words the JAX prep writes are built from the window by
+_window_words), the candidate pass and find_matches_fused for the (K, nw,
 K3) of the LEVEL_KERNEL rows.  Tolerance: exact (u32 compared as
 uint32)."""
 
@@ -16,29 +18,47 @@ from flate_tpu_torch.device import match2
 from _torch_corpora import CTX, KINDS, S, tt, u32, windows
 
 
-@pytest.mark.parametrize("nw,hash_bytes", [(2, 4), (4, 4), (16, 4), (1, 3)])
-def test_prep_contents_equal(nw, hash_bytes):
-    """Keys and carry words, compared by content (the TPU tiles its words
-    as (T, nw, 8, 1024); the port keeps (nw, Wp))."""
-    win = windows("mixed", seed=2)
-    B, W = win.shape
-    jkey, jwords = j_match2._prep(jnp.asarray(win), nw, 0, hash_bytes,
+def _jax_words(win, ne, nf, hash_bytes):
+    """The JAX prep's (key, words (B, ne+nf, Wp)): its words tiled
+    (T, ne+nf, 8, 1024) laid out as the port's (ne+nf, Wp)."""
+    B = win.shape[0]
+    jkey, jwords = j_match2._prep(jnp.asarray(win), ne, nf, hash_bytes,
                                   interpret=True)
     jwords = np.asarray(jwords)
     T = jwords.shape[1]
-    jwords = jwords.transpose(0, 2, 1, 3, 4).reshape(B, nw, T * 8 * 1024)
+    return jkey, jwords.transpose(0, 2, 1, 3, 4).reshape(B, ne + nf,
+                                                         T * 8 * 1024)
+
+
+def _all_words(win, ne, hash_bytes):
+    """The exact words of every position [0, Wp) built from the window."""
+    B, W = win.shape
+    Wp = -(-W // match2.TILE) * match2.TILE
+    pos = torch.arange(Wp).expand(B, Wp)
+    return match2._window_words(win, pos, ne, hash_bytes)
+
+
+@pytest.mark.parametrize("nw,hash_bytes", [(2, 4), (4, 4), (16, 4), (1, 3)])
+def test_prep_contents_equal(nw, hash_bytes):
+    """Keys, and carry words compared by content: B1 writes none, the
+    window gives them (the TPU tiles its words as (T, nw, 8, 1024))."""
+    win = windows("mixed", seed=2)
+    jkey, jwords = _jax_words(win, nw, 0, hash_bytes)
     key, words = match2._prep(tt(win), nw, hash_bytes)
     np.testing.assert_array_equal(u32(key), u32(jkey))
-    np.testing.assert_array_equal(u32(words), u32(jwords))
+    assert words.shape == (win.shape[0], 0, key.shape[1])
+    np.testing.assert_array_equal(u32(_all_words(tt(win), nw, hash_bytes)),
+                                  u32(jwords))
 
 
 @pytest.mark.parametrize("K,nw,hash_bytes,max_dist",
                          [(4, 2, 4, 32768), (12, 4, 4, 32768),
-                          (12, 1, 3, 4096), (16, 1, 3, 4096)])
+                          (12, 1, 3, 4096), (16, 1, 3, 4096),
+                          (8, 3, 4, 32768)])
 @pytest.mark.parametrize("kind", ["text", "runs"])
 def test_candidate_pass_equal(kind, K, nw, hash_bytes, max_dist):
     """Sort + matcher + unsort, including the 3-byte K3 passes of rows
-    8 and 9 (K3 = 12, 16)."""
+    8 and 9 (K3 = 12, 16) and 3 exact words, a count no level uses."""
     win = windows(kind, seed=4)
     min_src = np.asarray([0, CTX - 100], np.int32)
     limit = np.asarray([CTX + S, CTX + 2500], np.int32)
@@ -91,20 +111,18 @@ def test_find_matches_fused_corpora_equal(level, kind):
 
 @pytest.mark.parametrize("nw,fp", [(8, True), (8, 4), (16, True), (4, 1)])
 def test_prep_fingerprints_equal(nw, fp):
-    """ne exact words, then nf FNV fingerprint words (u32 wraparound)."""
+    """ne exact words (from the window), then nf FNV fingerprint words
+    (u32 wraparound, from B1)."""
     win = windows("mixed", seed=6)
-    B, W = win.shape
     ne, nf = match2._split_words(nw, fp)
     assert (ne, nf) == j_match2._split_words(nw, fp)
     assert nf > 0
-    jkey, jwords = j_match2._prep(jnp.asarray(win), ne, nf, 4,
-                                  interpret=True)
-    jwords = np.asarray(jwords)
-    T = jwords.shape[1]
-    jwords = jwords.transpose(0, 2, 1, 3, 4).reshape(B, ne + nf, T * 8 * 1024)
+    jkey, jwords = _jax_words(win, ne, nf, 4)
     key, words = match2._prep(tt(win), ne, 4, nf)
     np.testing.assert_array_equal(u32(key), u32(jkey))
-    np.testing.assert_array_equal(u32(words), u32(jwords))
+    np.testing.assert_array_equal(u32(words), u32(jwords[:, ne:]))
+    np.testing.assert_array_equal(u32(_all_words(tt(win), ne, 4)),
+                                  u32(jwords[:, :ne]))
 
 
 def test_split_words_rejects_a_bad_reach():
@@ -167,13 +185,16 @@ def test_run_matcher_plain_counts_the_scan(ne, nf):
     W = win.shape[1]
     min_src = np.asarray([0, CTX - 100], np.int32)
     limit = np.asarray([CTX + S, CTX + 2500], np.int32)
-    key, words = match2._prep(win, ne, 4, nf)
+    key, fps = match2._prep(win, ne, 4, nf)
     skey, order = torch.sort(key, dim=1)
-    args = (skey, order, words, tt(min_src), tt(limit), W, K, max_dist, nf)
+    args = (skey, order, win, fps, tt(min_src), tt(limit), W, K, max_dist,
+            ne)
     stats = {}
     counted = match2._run_matcher_plain(*args, stats=stats)
     assert torch.equal(counted, match2._run_matcher_plain(*args))
-    sk, wd = skey.numpy(), words.numpy()
+    sk = skey.numpy()
+    wd = np.concatenate([_all_words(win, ne, 4).numpy(),
+                         u32(fps).astype(np.int64)], axis=1)
     visits = compares = 0
     for b in range(sk.shape[0]):
         live = sk[b][sk[b] != match2.SENTINEL]
@@ -217,17 +238,16 @@ def test_run_matcher_plain_counts_the_scan(ne, nf):
                                                (2, 4, 0), (8, 4, 3),
                                                (16, 4, 1), (1, 3, 2)])
 def test_window_words_equal_prep(ne, hash_bytes, cut):
-    """The ne carry words of every position rebuilt from the window bytes
+    """The ne carry words of every position built from the window bytes
     as the kernel stages them (aligned u32 words, funnel shift, word 0
     masked in the 3-byte pass, zero past W; `cut` makes W no multiple of
-    4) equal B1's words, pad positions and the zero tail included."""
+    4) equal the JAX prep's words, pad positions and the zero tail
+    included."""
     win = tt(windows("mixed", seed=9)[:, :CTX + S - cut])
     win[:, -5:] = 0xAB                        # nonzero bytes up to W
-    B, W = win.shape
-    _, words = match2._prep_plain(win, ne, hash_bytes)
-    Wp = words.shape[2]
-    pos = torch.arange(Wp).expand(B, Wp)
-    got = match2._window_words(win, pos, ne, hash_bytes)
+    W = win.shape[1]
+    _, words = _jax_words(win.numpy(), ne, 0, hash_bytes)
+    got = _all_words(win, ne, hash_bytes)
     np.testing.assert_array_equal(u32(got), u32(words))
     # the last position of the row reads its byte, then zeros past W
     assert (u32(got)[:, 0, W - 1] == 0xAB).all()
@@ -245,11 +265,11 @@ def test_top2_is_the_two_largest_scores(kind, fp):
     K, nw = 12, 8
     ne, nf = match2._split_words(nw, fp)
     W = win.shape[1]
-    key, words = match2._prep(tt(win), ne, 4, nf)
+    key, fps = match2._prep(tt(win), ne, 4, nf)
     skey, order = torch.sort(key, dim=1)
-    args = (skey, order, words, tt(min_src), tt(limit))
-    best, sec = match2._run_matcher_plain(*args, W, K, 32768, nf, top2=True)
-    cands = list(match2._candidates(*args, K, 32768, nf))
+    args = (skey, order, tt(win), fps, tt(min_src), tt(limit))
+    best, sec = match2._run_matcher_plain(*args, W, K, 32768, ne, top2=True)
+    cands = list(match2._candidates(*args, K, 32768, ne))
     score = torch.stack([c[0] for c in cands], dim=2)
     ld = torch.stack([c[1] for c in cands], dim=2)
     top, at = torch.topk(score, 2, dim=2)

@@ -10,8 +10,10 @@ B2, on the level-6 inputs of chip_smoke.py's first 8 MiB batch (64 shards
 of 128 KiB after 32 KiB of context, the last shard cut to a tail): the
 matcher at K = 0 (staging and the output stores alone: every row is
 written, no candidate is read), 1, 4, 16 and 48 with level 6's 8 exact
-words, at K = 48 with 1 and 2 words, and at level 9's knobs (K = 160, 16
-words).  The differences between K's are the scan's share.
+words, at K = 48 with 1, 2, 3 and 6 words (3 and 6: rows staged with 4
+and 8 words, the length cut at 4*ne), at level 9's knobs (K = 160, 16
+words), and in fp/top-2 mode (K = 48, nw = 8: 2 exact + 2 fingerprint
+words, both outputs).  The differences between K's are the scan's share.
 
 B10, on 64 rows of 2^18 seeded random keys and 8 operands (the probe's
 payload): the full network with no operand (the passes alone) and with 8
@@ -57,15 +59,23 @@ def matcher(reps: int) -> dict:
     limit[-1] -= 12345
     out = {}
     for ne, Ks in ((8, (0, 1, 4, 16, 48)), (1, (48,)), (2, (48,)),
-                   (16, (160,))):
-        key, words = match2._prep(window, ne, 4)
+                   (3, (48,)), (6, (48,)), (16, (160,))):
+        key, fps = match2._prep(window, ne, 4)
         skey, order = torch.sort(key, dim=1)
         for K in Ks:
             ms = timed(lambda: match2._run_matcher(
-                skey, order, words, window, min_src, limit, W, K, 32768),
+                skey, order, window, fps, min_src, limit, W, K, 32768, ne),
                 reps)
             out[f"matcher_ne{ne}_K{K}"] = ms
             print(f"B2 ne={ne} K={K}: {ms:.4f} ms", flush=True)
+    ne, nf = match2._split_words(8, True)
+    key, fps = match2._prep(window, ne, 4, nf)
+    skey, order = torch.sort(key, dim=1)
+    ms = timed(lambda: match2._run_matcher(
+        skey, order, window, fps, min_src, limit, W, 48, 32768, ne,
+        top2=True), reps)
+    out["matcher_fp_K48"] = ms
+    print(f"B2 fp/top-2 ne={ne} nf={nf} K=48: {ms:.4f} ms", flush=True)
     return out
 
 

@@ -63,10 +63,10 @@ def stages(shards, ctx0, meta, kern):
     win = timed("prime", lambda: pipeline2._prime_windows(shards, ctx0, CTX))
     min_src = (CTX - ctx_lens).to(torch.int32)
     limit = (CTX + valid).to(torch.int32)
-    key, words = timed("prep", lambda: match2._prep(win, nw, 4))
+    key, fps = timed("prep", lambda: match2._prep(win, nw, 4))
     skey, order = timed("sort", lambda: torch.sort(key, dim=1))
     ld = timed("matcher", lambda: match2._run_matcher(
-        skey, order, words, win, min_src, limit, win.shape[1], K, 32768))
+        skey, order, win, fps, min_src, limit, win.shape[1], K, 32768, nw))
     if K3:
         def k3_pass():
             ld3 = match2._candidate_pass(win, min_src, limit, K=K3, nw=1,
