@@ -24,7 +24,8 @@ Phases, one line each:
      PyTorch versions on the card at the decode's full width: 8 consecutive
      coded shards of 128 KiB of the text corpus as phase 4 encoded them at
      level 3 (G = 2048, J = 96, NS = S + 128), the per-bit words from the
-     port's own pass 1: exact equality, times and bounds as in phase 3;
+     port's own pass 1: exact equality, times and bounds as in phase 3,
+     with the longest serial chain and the most marks in one lane;
   6. the decode path through flate_tpu_torch.api.*.decompress on the card:
      (a) the text corpus as encoded at levels 1 and 3 (indexed route),
      (b) the 32 MiB mixed member of level 3 and the 8 MiB one of level 1
@@ -41,7 +42,10 @@ Phases, one line each:
      them with both outputs (K=48, nw=8, fp=True), B8 (top-2 chain
      extension) on those outputs, and B9 (parse walk) three ways: rows =
      level 6's parse blocks (8192 x 1024), rows = level 9's (2048 x 4096),
-     rows = shards (64 x 131072, the parse_walk entry point).  B2 at level
+     rows = shards (64 x 131072, the parse_walk entry point); and B1/B2 at
+     K = 1024 with 20 exact words (rows staged with 65 words, the halo's
+     built from the window) on the batch's first 4 rows, whose launches
+     are counted around find_matches_fused at those knobs.  B2 at level
      6 is also timed with the L2 flushed before each launch, and every B2
      case prints, beside its own bound, the bound of reading ne + nf words
      a position as the TPU kernel's inputs are laid out;
@@ -79,8 +83,8 @@ Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 155 s on an H100 (the kernel build ~5 s, the CPU twins of phases 8
-and 10 ~30-50 s).
+About 140 s on an H100 (the kernel build ~5 s, the CPU twins of phases 8
+and 10 ~30-55 s, the plain versions' host loops ~25 s).
 """
 
 from __future__ import annotations
@@ -217,9 +221,10 @@ def main() -> int:
     finals[-1] = 1
 
     cases = []
+    launches = {}         # main-path run -> launch counts by entry point
 
     def case(phase, path, label, entry, replaces, kernel, plain, bytes_moved,
-             ops, reps=20, plain_reps=1, note=None, library=None, extra=None):
+             ops, reps=20, note=None, library=None, extra=None):
         """entry: the C entry point; path: the main-path run whose launch
         count the case reports; bytes_moved: what the function must move
         at its own widths (u32 keys, words and field values), each input
@@ -229,12 +234,17 @@ def main() -> int:
         count of this entry on that path covers; library: one PyTorch call
         that computes the same function, timed beside the kernel (the port
         never calls it); extra: more keys, measured in this run, for the
-        case's line.  The run that is compared is the warm-up of the timed
-        ones."""
+        case's line.  The kernel's run that is compared is the warm-up of
+        its timed ones; the plain version's is timed itself when it takes
+        a second or more (its host loop has nothing to warm), else it is
+        the warm-up of one timed run."""
         def outputs(r):
             return r if isinstance(r, tuple) else (r,)
 
-        k_out, p_out = outputs(kernel()), outputs(plain())
+        k_out = outputs(kernel())
+        got = []
+        plain_ms = cuda_ms(lambda: got.append(outputs(plain())), 1)
+        p_out = got[0]
         err = 0
         for a, b in zip(k_out, p_out, strict=True):
             if a.shape != b.shape:
@@ -249,7 +259,8 @@ def main() -> int:
         if callable(ops):
             ops = ops(k_out)
         ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, plain_reps)
+        if plain_ms < 1000:
+            plain_ms = cuda_ms(plain, 1)
         library_ms = None
         if library is not None:
             library()
@@ -275,19 +286,21 @@ def main() -> int:
         return k_out
 
     def matcher_cases(phase, path, tag, K, ne, nf, hash_bytes, max_dist,
-                      top2, note=None):
-        """B1 then B2 at these knobs; returns B2's outputs."""
+                      top2, note=None, rows=B):
+        """B1 then B2 at these knobs on the batch's first `rows` rows;
+        returns B2's outputs."""
+        win, ms_, lim_ = window[:rows], min_src[:rows], limit[:rows]
         key, fps = case(
             phase, path, f"prep_{tag}", "flate_prep",
             "flate_tpu/jx/match2.py:107",
-            lambda: match2._prep(window, ne, hash_bytes, nf),
-            lambda: match2._prep_plain(window, ne, hash_bytes, nf),
-            nbytes(window) + B * Wp * 4 * (1 + nf),    # u32 key + nf words
+            lambda: match2._prep(win, ne, hash_bytes, nf),
+            lambda: match2._prep_plain(win, ne, hash_bytes, nf),
+            nbytes(win) + rows * Wp * 4 * (1 + nf),    # u32 key + nf words
             # one op per byte hashed or gathered into a fingerprint
-            B * Wp * (4 * ((ne << nf) - ne if nf else 0) + hash_bytes),
+            rows * Wp * (4 * ((ne << nf) - ne if nf else 0) + hash_bytes),
             note=note)
         skey, order = torch.sort(key, dim=1)
-        args = (skey, order, window, fps, min_src, limit, W, K, max_dist, ne,
+        args = (skey, order, win, fps, ms_, lim_, W, K, max_dist, ne,
                 hash_bytes, top2)
         # what the scan needs on this data: the candidates within K before
         # its end (another bucket, past max_dist, below min_src) in rows
@@ -299,12 +312,12 @@ def main() -> int:
               f"fingerprint words; the scan visits {scan['visits']} "
               f"candidates and compares {scan['compares']} words",
               flush=True)
-        outs = B * W * 4 * (2 if top2 else 1)        # u32 outputs
+        outs = rows * W * 4 * (2 if top2 else 1)     # u32 outputs
         # what the kernel reads: the sorted u32 keys, the window, min_src
         # and limit, and the fingerprint words; printed beside it, the
         # bound of reading ne + nf u32 words a position (the inputs of the
         # TPU kernel, and of this one before its redesign)
-        words_ms = (B * Wp * 4 * (1 + ne + nf) + outs) / HBM_BYTES_PER_S * 1e3
+        words_ms = (rows * Wp * 4 * (1 + ne + nf) + outs) / HBM_BYTES_PER_S * 1e3
         extra = {}
         if tag == "l6":
             extra["ms_l2_flushed"] = cuda_ms_cold(
@@ -314,7 +327,7 @@ def main() -> int:
             "flate_tpu/jx/match2.py:187",
             lambda: match2._run_matcher(*args),
             lambda: match2._run_matcher_plain(*args),
-            B * Wp * 4 + nbytes(window) + 8 * B + outs + B * Wp * 4 * nf,
+            rows * Wp * 4 + nbytes(win) + 8 * rows + outs + rows * Wp * 4 * nf,
             scan["visits"] + scan["compares"], note=note, extra=extra)
         print(f"[{phase}] matcher_{tag}: bound of reading {ne + nf} words "
               f"a position {words_ms:.4f} ms" + (
@@ -328,7 +341,7 @@ def main() -> int:
         return (torch.where(upd, l, l0).contiguous(),
                 torch.where(upd, d, d0).contiguous())
 
-    def walk_case(phase, path, label, step, reps=20):
+    def walk_case(phase, path, label, step):
         """B9 on the rows of `step`; returns the mask."""
         (mask,) = case(
             phase, path, label, "flate_parse_walk",
@@ -336,8 +349,7 @@ def main() -> int:
             lambda: parse._parse_walk(step),
             lambda: parse._parse_walk_plain(step),
             5 * step.numel(),              # i32 steps in, u8 mask out
-            lambda out: 2 * int(out[0].sum()),   # a load + an add a step
-            reps=reps)
+            lambda out: 2 * int(out[0].sum()))   # a load + an add a step
         print(f"[{phase}] {label}: {step.shape[0]} rows x {step.shape[1]}, "
               f"{int(mask.sum())} steps, longest row "
               f"{int(mask.sum(dim=1).max())}", flush=True)
@@ -410,7 +422,7 @@ def main() -> int:
             # rows = shards, as parse_walk cuts them: untruncated matches
             _, step = parse.decide(*whole, True, 32)
             walk_case(7, ("fp", "parse_walk"), "parse_walk_shards",
-                      step[:, CTX:].to(torch.int32).contiguous(), reps=3)
+                      step[:, CTX:].to(torch.int32).contiguous())
         del ld, vals, off, whole, mask, step
 
     # the fp/top-2 matcher (no level sets it) and the top-2 extension
@@ -424,13 +436,24 @@ def main() -> int:
          nbytes(*cands) + 2 * B * W * 4,
          6 * B * W + 3 * sum(int(((l == 4 * ne) & (d > 0)).sum())
                              for l, d in (cands[:2], cands[2:])))
+    # B2 at K = 1024 with 20 exact words (rows staged with 65 words: the
+    # halo's are built from the window), through find_matches_fused on the
+    # batch's first 4 rows; no level sets it
+    big = 4
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    match2.find_matches_fused(window[:big], ctx_len[:big], valid[:big],
+                              K=1024, nw=20, ctx=CTX)
+    torch.cuda.synchronize()
+    launches[("match", "k1024")] = dict(_build.LAUNCHES)
+    matcher_cases(7, ("match", "k1024"), "k1024_nw20", 1024, 20, 0, 4, 32768,
+                  False, rows=big)
     del ld, ld2, cands, window, shards
 
     # ---- phase 4: the main path through the public entry point ----
     data32 = mixed_corpus(4 * B * S)
     data8 = data32[:B * S]             # bench.py's 8 MiB mixed corpus
     text = text_corpus(3_359_630)      # bench.py's text corpus
-    launches = {}
     blobs = {}
     # B8 runs under find_matches_fused(fp=True) only, which no level sets
     level_kernels = [k for k in _build.ENCODE_KERNELS if k != "flate_extend2"]
@@ -503,15 +526,20 @@ def main() -> int:
          # words read once, the u8 mask and the joined flags written once
          4 * DN * DB + DN * DB + 4 * (DN // G) * DB + 8 * DB,
          steps["phase1_steps"] + steps["join_steps"])
-    walked = int(inflate2._walk(word, dstart, dbits, NS)[1].sum())
-    print(f"[5] serial walk: {walked} symbols in {DB} rows", flush=True)
+    lane_mask = inflate2._lane_walk_plain(word, dstart, dbits, G, J)[0]
+    lane_marks = int(lane_mask.reshape(DB, DN // G, G).sum(dim=2).max())
+    wcounts = inflate2._walk(word, dstart, dbits, NS)[1]
+    walked = int(wcounts.sum())
+    print(f"[5] serial walk: {walked} symbols in {DB} rows, longest row "
+          f"{int(wcounts.max())}; lane walk: most marks in one lane "
+          f"{lane_marks}", flush=True)
     case(5, ("decode", "d"), "walk", "flate_walk",
          "flate_tpu/jx/inflate2.py:302",
          lambda: inflate2._walk(word, dstart, dbits, NS),
          lambda: inflate2._walk_plain(word, dstart, dbits, NS),
          # words read once, the symbol rows and the counts written once
          4 * DN * DB + 4 * NS * DB + 12 * DB,
-         walked, reps=3, plain_reps=1)           # one step per symbol
+         walked)                                 # one step per symbol
     del word, dargs
 
     # ---- phase 6: the decode path through the public entry point ----

@@ -2,8 +2,9 @@
 
 Each source under `csrc/` (`SOURCES`) is compiled with nvcc at first use
 into `build/` beside the package (one shared library per source, with a
-plain C interface), named by the hash of its source so an edited source is
-rebuilt, and loaded with ctypes.  The compilers of all sources run at the
+plain C interface), named by the hash of its source and of the headers
+beside it so an edited source or header is rebuilt, and loaded with
+ctypes.  The compilers of all sources run at the
 same time.  Nothing here runs at import: the CPU tests import every module
 on a machine without nvcc or a card.
 
@@ -82,8 +83,12 @@ def _nvcc() -> str:
 
 
 def _library_path(source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The library of `source`, named by the hash of the source and of the
+    headers beside it (csrc/*.cuh), which it may include."""
+    h = hashlib.sha1(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build(verbose: bool = False) -> list[pathlib.Path]:

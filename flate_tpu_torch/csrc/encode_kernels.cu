@@ -7,8 +7,10 @@
 // cheap there.  On the H100 each is one thread per position (or field),
 // reading device memory directly, except the matcher (B2: a block stages a
 // tile of sorted rows and their candidates in shared memory) and the parse
-// walk (B9: one chain per row).  B1 and B3-B5 are bound by memory traffic
-// (a few bytes moved per position, a handful of integer operations); the
+// walk (B9: one chain per row, read from shared memory — a warp stages a
+// parse block, a longer row streams through ring_walk.cuh).  B1 and B3-B5
+// are bound by memory traffic (a few bytes moved per position, a handful
+// of integer operations); the
 // design keeps each thread's reads within a few cache lines of its
 // neighbours' so warps stay coalesced where the data allows.
 //
@@ -23,6 +25,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ring_walk.cuh"
+
 namespace {
 
 constexpr uint32_t kHashMul = 0x9E3779B1u;   // Fibonacci hashing multiplier
@@ -34,8 +38,6 @@ constexpr int kMinMatch = 3;
 constexpr int kMaxMatch = 258;
 constexpr int kThreads = 256;
 constexpr uint32_t kFpMul = 0x01000193u;      // FNV prime: fingerprint polynomial
-constexpr int kWalkThreads = 128;             // B9: threads that clear a row
-constexpr int kWalkSharedMax = 8192;          // B9: longest row staged in shared memory
 
 inline unsigned grid_for(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
@@ -118,8 +120,13 @@ __global__ void prep_kernel(const uint8_t* __restrict__ window,
 // scan order.  Going back in sort order, a bucket's positions fall, so the
 // scan ends at the first candidate of another bucket, past max_dist or
 // below min_src (every later one fails too); a row with fewer than 3 bytes
-// before its limit has no match and is not scanned.  The next candidate's key is loaded while the
-// current one is compared.
+// before its limit has no match and is not scanned.  The next candidate's
+// key is loaded while the current one is compared.
+// When the T + K staged rows' words do not fit in shared memory even at T
+// = kMatchThreads (NE = 65 with K >= 625), HALO is set: only the tile's T
+// rows keep their words in shared memory, the K halo rows keep their keys,
+// and a halo candidate's words are built from the window as it is compared
+// (window_match), as far as the first word that differs.
 // Bound: bytes — the sorted keys (u32), the window, one or two outputs
 // (scattered 4-byte stores), and the fingerprint words when nf > 0; the
 // window is read (T + K) / T times and every other candidate read comes
@@ -135,7 +142,35 @@ constexpr uint32_t kSentinel32 = 0xFFFFFFFFu;
 // in different banks.
 __host__ __device__ constexpr int match_stride(int ne) { return ne | 1; }
 
+// Equal leading bytes of the target's words tw and the NE words of the
+// window row wrow (nw4 u32 words, zero past them) from position pos, word
+// 0 masked by mask0: the staged compare, with the candidate's words built
+// as they are needed.
 template <int NE>
+__device__ __forceinline__ int window_match(const uint32_t (&tw)[NE],
+                                            const uint32_t* __restrict__ wrow,
+                                            int nw4, int pos, uint32_t mask0) {
+  const int w0 = pos >> 2;
+  const int sh = (pos & 3) * 8;
+  uint32_t lo = w0 < nw4 ? __ldg(wrow + w0) : 0u;
+  int ml = 0;
+#pragma unroll
+  for (int t = 0; t < NE; ++t) {
+    const uint32_t hi = w0 + t + 1 < nw4 ? __ldg(wrow + w0 + t + 1) : 0u;
+    const uint32_t v = __funnelshift_r(lo, hi, sh);
+    const uint32_t x = tw[t] ^ (t == 0 ? v & mask0 : v);
+    if (x == 0) {
+      ml += 4;
+      lo = hi;
+      continue;
+    }
+    ml += (__ffs(x) - 1) >> 3;
+    break;
+  }
+  return ml;
+}
+
+template <int NE, bool HALO>
 __global__ void __launch_bounds__(kMatchThreads)
 matcher_kernel(const long long* __restrict__ skey,
                const uint32_t* __restrict__ window,
@@ -150,8 +185,9 @@ matcher_kernel(const long long* __restrict__ skey,
   const int b = blockIdx.y;
   const int i0 = blockIdx.x * T;               // first sorted row of the tile
   const int rows = T + K;                      // staged: rows i0-K .. i0+T-1
+  const int worded = HALO ? K : 0;             // first row staged with words
   uint32_t* skeys = msm;
-  uint32_t* cw = msm + rows;
+  uint32_t* cw = msm + rows;                   // words of rows worded ..
   const long long* krow = skey + static_cast<long long>(b) * Wp;
   const int nw4 = Ww >> 2;
   const uint32_t* wrow = window + static_cast<long long>(b) * nw4;
@@ -163,7 +199,8 @@ matcher_kernel(const long long* __restrict__ skey,
     const uint32_t k =
         g >= 0 && g < Wp ? static_cast<uint32_t>(krow[g]) : kSentinel32;
     skeys[r] = k;
-    uint32_t* dst = cw + r * stride;
+    if (r < worded) continue;
+    uint32_t* dst = cw + (r - worded) * stride;
     uint32_t a[NE + 1];
     const int pos = static_cast<int>(k & kPosMask);
     const int w0 = pos >> 2;
@@ -195,7 +232,7 @@ matcher_kernel(const long long* __restrict__ skey,
     int sec_score = -1, sec = 0;
     if (maxlen >= kMinMatch) {
       uint32_t tw[NE];
-      const uint32_t* trow = cw + (l + K) * stride;
+      const uint32_t* trow = cw + (l + K - worded) * stride;
 #pragma unroll
       for (int t = 0; t < NE; ++t) tw[t] = trow[t];
       const int kmax = min(K, i);
@@ -208,14 +245,18 @@ matcher_kernel(const long long* __restrict__ skey,
         const int dist = tpos - cpos;
         if ((cur >> kPosBits) != tbucket || dist > max_dist || cpos < ms) break;
         if (dist < 1 || cpos >= lim) continue;
-        const uint32_t* crow = cw + r * stride;
         int ml = 0;
+        if (HALO && r < worded) {
+          ml = window_match<NE>(tw, wrow, nw4, cpos, mask0);
+        } else {
+          const uint32_t* crow = cw + (r - worded) * stride;
 #pragma unroll
-        for (int t = 0; t < NE; ++t) {
-          const uint32_t x = tw[t] ^ crow[t];
-          if (x == 0) { ml += 4; continue; }
-          ml += (__ffs(x) - 1) >> 3;           // equal low-order bytes
-          break;
+          for (int t = 0; t < NE; ++t) {
+            const uint32_t x = tw[t] ^ crow[t];
+            if (x == 0) { ml += 4; continue; }
+            ml += (__ffs(x) - 1) >> 3;         // equal low-order bytes
+            break;
+          }
         }
         ml = min(ml, mlcap);
         if (ml < kMinMatch) continue;
@@ -381,61 +422,186 @@ __global__ void extend2_kernel(const int* __restrict__ l1,
 
 // --------------------------------------------------------------------------
 // B9 parse walk — replaces flate_tpu/jx/parse.py:_walk_kernel (via
-// _parse_walk_pallas).  Per row of n steps >= 1: from 0, mark i, add
-// step[i], until i >= n; the marks are the token starts.  One block per
-// row: its threads clear the mask with 16-byte stores (byte stores when n
-// is no multiple of 16), then one thread follows the chain.  A row of at
-// most 8192 steps (a parse block: 1024 or 4096) is first copied into
-// shared memory with its mask, so that the chase waits on shared memory
-// and the mask leaves in wide stores; a longer row (a whole shard) is
-// chased in device memory.  The TPU marks through one-hot row updates
-// because it has no scalar stores; here a mark is one byte store.
-// Bound: operations, and latency at that — every step waits for the load
-// before it, one thread a row.  With rows = parse blocks the card has
-// thousands of short chains to interleave; with rows = shards only B
-// threads of it work.
+// _parse_walk_pallas).  Per row of n steps: from 0, mark i, add step[i]
+// (a step below 1 counts as 1), until i >= n; the marks are the token
+// starts.  The TPU marks through one-hot row updates because it has no
+// scalar stores; here a mark is one byte store.
+// Bound: latency — every step waits for the load before it, one chain a
+// row; the bytes (4 in and 1 out a position) take 12.5 us for a batch.
+//
+// Rows of at most kWalkSharedMax steps (the parse blocks: 1,024, or 4,096
+// at levels 7-9; parse_rows_kernel): one warp a row, kRowsPerBlock rows a
+// block, so an SM holds 64 chains at level 6 and the whole grid is about
+// one wave.  The lanes stage each position's next position i + step in
+// shared memory as u16 — cut at n, which changes no mark since any i +
+// step >= n ends the walk — and zero the row's mask there; lane 0 walks,
+// a shared load and a mark a step, four steps a test.  With 64 walkers an
+// SM the walk is bound by issue slots, so it takes fewer steps: a lane
+// stages 8 positions, and a literal (a step of 1) leads to the end of its
+// run within those 8, whose mask the lane fills in behind the walker as
+// it stores it (8-byte stores).  Rows of n % 8 != 0 step one by one and
+// leave in byte stores.
+//
+// Longer rows (a whole shard, parse_walk; parse_ring_kernel): one block a
+// row streams the steps through the shared-memory ring of ring_walk.cuh
+// (the walk B7 takes), and the copying warps turn them into next
+// positions: a step that leaves the chunk leads to a trap (the pad word
+// before it, which leads to itself), so the walker takes four steps a
+// test and reads the step that left from device memory, once a chunk.  It
+// stores its marks straight into the mask, which the block zeroes first.
 // --------------------------------------------------------------------------
-__global__ void parse_walk_kernel(const int* __restrict__ step,
-                                  uint8_t* __restrict__ mask, int n,
-                                  int staged) {
-  extern __shared__ int shared_row[];
-  long long base = static_cast<long long>(blockIdx.x) * n;
+constexpr int kWalkSharedMax = 8192;          // longest row a warp stages
+constexpr int kRowsPerBlock = 4;              // warps (rows) a block
+
+// Shared bytes a row takes in parse_rows_kernel: np u16 next positions,
+// np mask bytes and np / 8 literal bytes, rounded up to 16.
+__host__ __device__ constexpr int rows_stride(int np) {
+  return (3 * np + np / 8 + 15) & ~15;
+}
+
+__global__ void __launch_bounds__(32 * kRowsPerBlock, 16)
+parse_rows_kernel(const int* __restrict__ step, uint8_t* __restrict__ mask,
+                  int R, int n, int np, int vec) {
+  extern __shared__ __align__(16) uint8_t rows_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowsPerBlock + warp;
+  if (r >= R) return;
+  // np > n, so position n is a sentinel that leads to itself
+  uint8_t* mine = rows_smem + static_cast<size_t>(warp) * rows_stride(np);
+  uint16_t* nx = reinterpret_cast<uint16_t*>(mine);
+  uint8_t* m8 = mine + 2 * np;
+  uint8_t* lit8 = m8 + np;            // bit j of byte g: 8g + j is a literal
+  const long long base = static_cast<long long>(r) * n;
   const int* s = step + base;
   uint8_t* m = mask + base;
-  uint8_t* sm = reinterpret_cast<uint8_t*>(shared_row + n);
-  bool wide = (n & 15) == 0;             // rows start 16-byte aligned
-  if (staged) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      shared_row[i] = s[i];
-      sm[i] = 0;
+  auto next = [n](int p, int a) -> uint32_t {
+    return a >= n - p ? n : p + max(a, 1);
+  };
+  if (vec) {                          // groups of 8 positions, one a lane
+    const int4* s4 = reinterpret_cast<const int4*>(s);
+    uint4* d = reinterpret_cast<uint4*>(nx);
+    for (int g = lane; g < (n >> 3); g += 32) {
+      const int4 x = __ldg(s4 + 2 * g);
+      const int4 y = __ldg(s4 + 2 * g + 1);
+      const int p = 8 * g;
+      uint32_t q[8] = {next(p, x.x), next(p + 1, x.y), next(p + 2, x.z),
+                       next(p + 3, x.w), next(p + 4, y.x), next(p + 5, y.y),
+                       next(p + 6, y.z), next(p + 7, y.w)};
+      // a literal (next = p + 1) jumps to the end of its run within the
+      // group: the mask is filled in behind it at the end
+      uint32_t lits = 0;
+      uint32_t to = p + 8;
+#pragma unroll
+      for (int j = 7; j >= 0; --j) {
+        if (q[j] == static_cast<uint32_t>(p + j + 1)) {
+          lits |= 1u << j;
+          q[j] = to;
+        } else {
+          to = p + j;
+        }
+      }
+      d[g] = make_uint4(q[0] | q[1] << 16, q[2] | q[3] << 16,
+                        q[4] | q[5] << 16, q[6] | q[7] << 16);
+      lit8[g] = static_cast<uint8_t>(lits);
     }
-  } else if (wide) {
+  } else {
+    for (int i = lane; i < n; i += 32) nx[i] = next(i, __ldg(s + i));
+  }
+  if (lane == 0) nx[n] = n;
+  uint4* mz = reinterpret_cast<uint4*>(m8);
+  for (int i = lane; i < (np >> 4); i += 32) mz[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
+  if (lane == 0) {                    // four steps a test: past the end they
+    int i = 0;                        // mark the sentinel, which stays put
+    while (i < n) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        m8[i] = 1;
+        i = nx[i];
+      }
+    }
+  }
+  __syncwarp();
+  if (vec) {                          // fill the literal runs, 8 bytes a lane
+    const unsigned long long* src =
+        reinterpret_cast<const unsigned long long*>(m8);
+    unsigned long long* dst = reinterpret_cast<unsigned long long*>(m);
+    for (int g = lane; g < (n >> 3); g += 32) {
+      const unsigned long long b = src[g];
+      const uint32_t lits = lit8[g];
+      uint32_t mk = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mk |= (static_cast<uint32_t>(b >> (8 * j)) & 1u) << j;
+#pragma unroll
+      for (int j = 0; j < 7; ++j) mk |= (mk & lits) << 1;
+      unsigned long long o = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o |= static_cast<unsigned long long>((mk >> j) & 1u) << (8 * j);
+      dst[g] = o;
+    }
+  } else {
+    for (int i = lane; i < n; i += 32) m[i] = m8[i];
+  }
+}
+
+__global__ void __launch_bounds__(ring::kThreads)
+parse_ring_kernel(const int* __restrict__ step, uint8_t* __restrict__ mask,
+                  int n, int vec_in, int vec_out) {
+  extern __shared__ __align__(16) int ring_smem[];
+  int* slots = ring_smem;                        // 2 x ring::kSlot
+  ring::State* st = reinterpret_cast<ring::State*>(slots + 2 * ring::kSlot);
+  const long long base = static_cast<long long>(blockIdx.x) * n;
+  uint8_t* m = mask + base;
+  if (vec_out) {
     uint4* m16 = reinterpret_cast<uint4*>(m);
-    for (int i = threadIdx.x; i < n / 16; i += blockDim.x)
+    for (int i = threadIdx.x; i < (n >> 4); i += blockDim.x)
       m16[i] = make_uint4(0u, 0u, 0u, 0u);
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) m[i] = 0;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int* sp = staged ? shared_row : s;
-    uint8_t* mp = staged ? sm : m;
-    int i = 0;
-    while (i < n) {
-      mp[i] = 1;
-      int a = sp[i];
-      i += a > 0 ? a : 1;                // a step of 0 would never end
-    }
-  }
-  if (!staged) return;
-  __syncthreads();
-  if (wide) {
-    const uint4* sm16 = reinterpret_cast<const uint4*>(sm);
-    uint4* m16 = reinterpret_cast<uint4*>(m);
-    for (int i = threadIdx.x; i < n / 16; i += blockDim.x) m16[i] = sm16[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) m[i] = sm[i];
-  }
+  if (threadIdx.x == 0) st[0] = {0, 0, 0, n <= 0 ? 1 : 0};
+  __syncthreads();                    // the zeroes land before any mark
+  const int* row = step + base;
+  ring::run(
+      row, n, vec_in != 0, slots, st,
+      [&](int sl, int p, int i) {     // the step -> the next position
+        int* nx = ring::chunk_of(slots, sl);
+        const int lo = p - i;
+        const int end = min(n, lo + ring::kChunk);
+        const int a = nx[i];
+        const int to = a >= n - p ? n : p + max(a, 1);
+        nx[i] = to < end ? to : lo - 1;          // leaving: the trap
+        if (i == 0) nx[-1] = lo - 1;
+      },
+      [&](int sl, int lo, int end, ring::State& t) {
+        const int* nx = ring::chunk_of(slots, sl) - lo;   // by position
+        const int trap = lo - 1;
+        int cur = t.cur, last;
+        for (;;) {                    // four steps a test, none leaves
+          const int c1 = nx[cur];     // the chunk but to the trap
+          const int c2 = nx[c1];
+          const int c3 = nx[c2];
+          const int c4 = nx[c3];
+          m[cur] = 1;
+          if (c1 != trap) m[c1] = 1;
+          if (c2 != trap) m[c2] = 1;
+          if (c3 != trap) m[c3] = 1;
+          if (c4 == trap) {
+            last = c3 != trap ? c3 : c2 != trap ? c2 : c1 != trap ? c1 : cur;
+            break;
+          }
+          cur = c4;
+        }
+        // the step that leaves the chunk, from the row in device memory
+        const int a = __ldg(row + last);
+        cur = a >= n - last ? n : last + max(a, 1);
+        t.cur = cur;
+        t.done = cur >= n ? 1 : 0;
+      },
+      [](const ring::State&, int, int) {});
 }
 
 // --------------------------------------------------------------------------
@@ -495,12 +661,21 @@ int flate_matcher(const void* skey, const void* window, const void* fps,
   int NE = 1;
   while (NE < ne && NE < 16) NE *= 2;
   if (NE < ne) NE = 65;
-  auto smem_for = [&](int T) {
-    return static_cast<size_t>(T + K) * (1 + match_stride(NE)) * sizeof(uint32_t);
+  // keys of T + K rows, words of T + K rows (T rows with halo)
+  auto smem_for = [&](int T, bool halo) {
+    return (static_cast<size_t>(T + K) +
+            static_cast<size_t>(halo ? T : T + K) * match_stride(NE)) *
+           sizeof(uint32_t);
   };
-  int T = kMatchRowsMax;
-  while (T > kMatchThreads && smem_for(T) > kMatchSmemTarget) T /= 2;
-  const size_t smem = smem_for(T);
+  auto tile = [&](bool halo) {
+    int T = kMatchRowsMax;
+    while (T > kMatchThreads && smem_for(T, halo) > kMatchSmemTarget) T /= 2;
+    return T;
+  };
+  int T = tile(false);
+  const bool halo = smem_for(T, false) > kSmemMax;
+  if (halo) T = tile(true);
+  const size_t smem = smem_for(T, halo);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((Wp + T - 1) / T), static_cast<unsigned>(B));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -516,13 +691,23 @@ int flate_matcher(const void* skey, const void* window, const void* fps,
         static_cast<int*>(out2), W, Ww, Wp, ne, nf, K, max_dist, hash_bytes, T);
     return static_cast<int>(cudaGetLastError());
   };
+  if (halo) {                          // only NE = 65 needs it at K <= 1024
+    switch (NE) {
+      case 1: return run(matcher_kernel<1, true>);
+      case 2: return run(matcher_kernel<2, true>);
+      case 4: return run(matcher_kernel<4, true>);
+      case 8: return run(matcher_kernel<8, true>);
+      case 16: return run(matcher_kernel<16, true>);
+      default: return run(matcher_kernel<65, true>);
+    }
+  }
   switch (NE) {
-    case 1: return run(matcher_kernel<1>);
-    case 2: return run(matcher_kernel<2>);
-    case 4: return run(matcher_kernel<4>);
-    case 8: return run(matcher_kernel<8>);
-    case 16: return run(matcher_kernel<16>);
-    default: return run(matcher_kernel<65>);
+    case 1: return run(matcher_kernel<1, false>);
+    case 2: return run(matcher_kernel<2, false>);
+    case 4: return run(matcher_kernel<4, false>);
+    case 8: return run(matcher_kernel<8, false>);
+    case 16: return run(matcher_kernel<16, false>);
+    default: return run(matcher_kernel<65, false>);
   }
 }
 
@@ -563,12 +748,37 @@ int flate_extend2(const void* l1, const void* d1, const void* l2,
 
 int flate_parse_walk(const void* step, void* mask, int R, int n,
                      void* stream) {
-  if (R > 0 && n > 0) {
-    int staged = n <= kWalkSharedMax;
-    size_t shared = staged ? static_cast<size_t>(n) * 5 : 0;   // steps + mask
-    parse_walk_kernel<<<static_cast<unsigned>(R), kWalkThreads, shared,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(step), static_cast<uint8_t*>(mask), n, staged);
+  if (R <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec_in = n % 4 == 0 && reinterpret_cast<uintptr_t>(step) % 16 == 0;
+  const int vec_out = n % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  if (n <= kWalkSharedMax) {
+    const int np = (n + 16) & ~15;       // > n: room for the sentinel
+    const size_t smem = static_cast<size_t>(kRowsPerBlock) * rows_stride(np);
+    // groups of 8: 16-byte step loads, 8-byte mask stores
+    const int vec = n % 8 == 0 && reinterpret_cast<uintptr_t>(step) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(mask) % 8 == 0;
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        parse_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+    if (rc == 0)                       // 16 blocks an SM need 204 KB of it
+      rc = static_cast<int>(cudaFuncSetAttribute(
+          parse_rows_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+    if (rc != 0) return rc;
+    parse_rows_kernel<<<static_cast<unsigned>((R + kRowsPerBlock - 1) / kRowsPerBlock),
+                        32 * kRowsPerBlock, smem, s>>>(
+        static_cast<const int*>(step), static_cast<uint8_t*>(mask), R, n, np,
+        vec);
+  } else {
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        parse_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(ring::kSharedBytes)));
+    if (rc != 0) return rc;
+    parse_ring_kernel<<<static_cast<unsigned>(R), ring::kThreads,
+                        ring::kSharedBytes, s>>>(
+        static_cast<const int*>(step), static_cast<uint8_t*>(mask), n,
+        vec_in, vec_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,3 +70,62 @@ def u32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.numpy()
     return np.asarray(x).astype(np.int64).astype(np.uint32)
+
+
+RING_CHUNK = 8192    # words a slot of the walks' shared-memory ring holds
+
+
+def walk_edge_rows(N: int, chunk: int = RING_CHUNK, seed: int = 0):
+    """Six rows of synthetic per-bit words (the serial walk's input: adv(6)
+    | kind(2)<<6 | value(8)<<8 | dist(15)<<16, kinds literal and match
+    only) whose chains land on the last word of every `chunk` (a run of 64
+    one-bit steps before it; adv <= 63 cannot jump it), N >= 3 * chunk.
+    Returns numpy (word (6, N) int32, start (6,), nbits (6,)):
+      0: the edge words step 63, 1, 63, ...; the chain runs to the row's end;
+      1: an end-of-block word first;
+      2: start == nbits: no word;
+      3: nbits > N, the walk starts in chunk 2;
+      4: adv 0 on chunk 1's last word: the word repeats until NS;
+      5: a whole chunk of one-bit steps, then an end-of-block word on
+         chunk 2's last word; nbits = N - 5."""
+    rng = np.random.default_rng(seed)
+    B = 6
+    adv = rng.integers(1, 64, (B, N))
+    kind = rng.integers(0, 2, (B, N))
+    value = rng.integers(0, 256, (B, N))
+    dist = rng.integers(0, 1 << 15, (B, N))
+    edges = np.arange(chunk - 1, N, chunk)
+    for e in edges:
+        adv[:, max(e - 64, 0):e] = 1
+    adv[0, edges] = np.resize([63, 1], len(edges))
+    adv[4, edges[1]] = 0
+    adv[5, chunk:2 * chunk] = 1
+    kind[5, edges[2]] = 2
+    start = np.array([0, 5, 0, 2 * chunk + 7, 3, 17])
+    kind[1, 5] = 2
+    nbits = np.array([N, N, N - chunk - 3, N + 1000, N, N - 5])
+    start[2] = nbits[2]
+    word = adv | kind << 6 | value << 8 | dist << 16
+    return (word.astype(np.int32), start.astype(np.int32),
+            nbits.astype(np.int32))
+
+
+def parse_edge_rows(R: int, n: int, seed: int = 0, jax_safe: bool = False
+                    ) -> np.ndarray:
+    """(R, n) int32 token steps (literals 1, matches 3..258) with an edge
+    step on each row's chain (a run of 300 literals before it: no step
+    jumps it), by row mod 6: 0 (taken as 1), n (ends the walk), 70,000,
+    2^31 - 1, -5 (taken as 1), RING_CHUNK + 3 (skips a ring chunk on long
+    rows).  jax_safe: steps the JAX kernel also takes (>= 1, sums within
+    int32): 0 and -5 become 1, 2^31 - 1 becomes 100,000."""
+    rng = np.random.default_rng(seed)
+    step = np.where(rng.random((R, n)) < 0.6, 1,
+                    rng.integers(3, 259, (R, n))).astype(np.int64)
+    edge = [0, n, 70000, 2**31 - 1, -5, RING_CHUNK + 3]
+    if jax_safe:
+        edge = [1, n, 70000, 100000, 1, RING_CHUNK + 3]
+    for r in range(R):
+        p = (n // 3 + 97 * r) % n
+        step[r, max(p - 300, 0):p] = 1
+        step[r, p] = edge[r % 6]
+    return step.astype(np.int32)

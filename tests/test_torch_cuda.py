@@ -18,7 +18,8 @@ from flate_tpu_torch.device import anyinflate, bitonic, encode2, inflate2
 from flate_tpu_torch.device import match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
 
-from _torch_corpora import CTX, KINDS, S, corpus, windows
+from _torch_corpora import (CTX, KINDS, S, corpus, parse_edge_rows,
+                            walk_edge_rows, windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -177,6 +178,18 @@ def test_parse_walk_equal_plain(cuda, R, n):
     _eq(parse._parse_walk(step), parse._parse_walk_plain(step))
 
 
+@pytest.mark.parametrize("R,n", [(9, 1024), (9, 4096), (9, 8192), (9, 8200),
+                                 (9, 1000), (7, 8199), (6, 40000)])
+def test_parse_walk_edges_equal_plain(cuda, R, n):
+    """B9 with a step of 0, -5, n, 70,000, 2^31 - 1 or 8,195 on each row's
+    chain (tests/_torch_corpora.py parse_edge_rows): rows staged by a warp
+    (n <= 8192, four a block, the last block part full) and rows streamed
+    through the shared-memory ring (the 8,195 step skips a chunk), with and
+    without 16-byte rows."""
+    step = torch.from_numpy(parse_edge_rows(R, n, seed=n)).to(cuda)
+    _eq(parse._parse_walk(step), parse._parse_walk_plain(step))
+
+
 @pytest.mark.parametrize("lazy,max_lazy,blk", [(False, 0, 1024),
                                                (True, 32, 1024),
                                                (True, 258, 4096)])
@@ -287,6 +300,24 @@ def test_walk_equal_plain(cuda, NS):
     po, pc = inflate2._walk_plain(word, args[2], nbits, NS)
     _eq(kc, pc)
     _eq(ko, po)
+
+
+@pytest.mark.parametrize("N,NS", [(36864, 40000), (36864, 1000),
+                                  (36866, 4098)])
+def test_walk_ring_edges(cuda, N, NS):
+    """B7 on rows whose chains cross every 8192-word ring chunk
+    (tests/_torch_corpora.py walk_edge_rows): adv 63, 1 and 0 on a chunk's
+    last word, an end-of-block word first, start == nbits, nbits > N, a
+    chunk of one-bit steps (the staged output fills mid-chunk), NS cutting
+    the chain, rows of unequal length in one launch; N = 36866 and NS =
+    4098 take the 4-byte copies and stores."""
+    word, start, nbits = (torch.from_numpy(x).to(cuda)
+                          for x in walk_edge_rows(N, seed=N))
+    ko, kc = inflate2._walk(word, start, nbits, NS)
+    po, pc = inflate2._walk_plain(word, start, nbits, NS)
+    _eq(kc, pc)
+    _eq(ko, po)
+    assert int(pc[1]) == 1 and int(pc[2]) == 0 and int(pc[4]) == NS
 
 
 def test_decode_kernels_full_width(cuda):
@@ -461,6 +492,26 @@ def test_matcher_cases_equal_plain(cuda, kind, case):
     want = match2._run_matcher_plain(skey, order, win, fps, min_src, limit,
                                      W, K, max_dist, ne, hb, top2)
     for g, w in zip(got if top2 else (got,), want if top2 else (want,)):
+        _eq(g, w)
+        assert int((w != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("K,nw", [(625, 17), (1024, 20), (1024, 65)])
+@pytest.mark.parametrize("kind", ["text", "runs"])
+def test_matcher_large_k_equal_plain(cuda, kind, K, nw):
+    """B2 where the staged rows' words would overflow shared memory (from
+    17 exact words rows are staged with 65; K >= 625): the halo rows'
+    words are built from the window as they are compared."""
+    win = torch.from_numpy(windows(kind, seed=13)).to(cuda)
+    W = win.shape[1]
+    min_src = torch.zeros(2, dtype=torch.int32, device=cuda)
+    limit = torch.tensor([W, W - 77], dtype=torch.int32, device=cuda)
+    key, fps = match2._prep(win, nw, 4)
+    skey, order = torch.sort(key, dim=1)
+    args = (skey, order, win, fps, min_src, limit, W, K, 32768, nw, 4, True)
+    got = match2._run_matcher(*args)
+    want = match2._run_matcher_plain(*args)
+    for g, w in zip(got, want):
         _eq(g, w)
         assert int((w != 0).sum()) > 0
 

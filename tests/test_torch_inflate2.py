@@ -23,7 +23,7 @@ from flate_tpu_torch import errors
 from flate_tpu_torch import inflate as hinf
 from flate_tpu_torch.device import inflate2 as i2
 
-from _torch_corpora import tt, u32
+from _torch_corpora import tt, u32, walk_edge_rows
 from _torch_decode_ref import (BATCH, CTX, S, coded_run, gz, inputs,
                                jax_blob, port_blob, shards_of, text)
 
@@ -244,6 +244,25 @@ def test_walk_plain_no_eob_and_full():
     assert cut[0] < whole[0] and (cut[1:] == whole[1:]).all()
     full = _walk_both(word, ja[2], 8 * ja[1], 128)   # rows that fill NS
     assert (full == 128).any()
+
+
+@pytest.mark.parametrize("NS", [1152, 128])
+def test_walk_plain_edge_rows(NS):
+    """Synthetic rows whose chains cross chunk edges with adv 63, 1 and 0,
+    an end-of-block word first, start == nbits, nbits > N, a run of
+    one-bit steps and NS cutting the chain (tests/_torch_corpora.py
+    walk_edge_rows; the CUDA kernel's rings hold 8192 words, here the edges
+    fall every 256 words).  The JAX kernel reads past N when nbits > N, so
+    it gets min(nbits, N), which is what the port's walk takes."""
+    word, start, nbits = walk_edge_rows(1024, 256, seed=3)
+    jo, jc = j_i2._walk(jnp.asarray(u32(word)), jnp.asarray(start),
+                        jnp.asarray(np.minimum(nbits, 1024)), NS, True)
+    to, tc = i2._walk(tt(word), tt(start), tt(nbits), NS)
+    jo, jc = np.asarray(jo), np.asarray(jc)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    np.testing.assert_array_equal(u32(to), jo)     # zero past the count
+    assert jc[1] == 1 and jc[2] == 0 and jc[4] == NS
+    assert NS == 128 or (jc[[0, 3, 5]] < NS).all()
 
 
 # ---------------------------------------------------------------------------

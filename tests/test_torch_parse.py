@@ -13,7 +13,7 @@ from flate_tpu.jx import parse as j_parse
 
 from flate_tpu_torch.device import parse
 
-from _torch_corpora import CTX, KINDS, S, tt, windows
+from _torch_corpora import CTX, KINDS, S, parse_edge_rows, tt, windows
 
 
 def _matches(kind, seed=7):
@@ -145,5 +145,27 @@ def test_parse_walk_steps_past_the_row():
                        [1, 1, 1, 1, 1, 1, 1, 1],
                        [2, 5, 0, 1, 4, 1, 1, 1],
                        [8, 1, 1, 1, 1, 1, 1, 1]], np.int32)
+    np.testing.assert_array_equal(parse._parse_walk(tt(step)).numpy(),
+                                  _serial_walk(step))
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_parse_walk_edge_rows_equal_jax(n):
+    """Rows with a step of n, of 70,000, of 100,000 and of 8,195 on the
+    chain (tests/_torch_corpora.py parse_edge_rows), against the JAX
+    kernel in interpret mode: it takes only steps >= 1 whose sums stay in
+    int32, and rows of a multiple of 1024."""
+    step = parse_edge_rows(7, n, seed=n, jax_safe=True)
+    want = np.asarray(j_parse._parse_walk_pallas(jnp.asarray(step), True))
+    np.testing.assert_array_equal(parse._parse_walk(tt(step)).numpy(), want)
+    np.testing.assert_array_equal(want, _serial_walk(step))
+
+
+@pytest.mark.parametrize("n", [1000, 1024])
+def test_parse_walk_edge_rows_serial(n):
+    """Steps of 0 and -5 (taken as 1), n, 70,000, 2^31 - 1 and 8,195 on
+    the chain, and a row length that is no multiple of 16, against the
+    serial walk in numpy."""
+    step = parse_edge_rows(7, n, seed=n)
     np.testing.assert_array_equal(parse._parse_walk(tt(step)).numpy(),
                                   _serial_walk(step))

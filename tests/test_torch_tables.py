@@ -331,6 +331,24 @@ def test_cuda_default_raises_without_card():
         pipeline2.compress_device2(b"hello", level=1, device="cuda")
 
 
+def test_library_name_follows_source_and_headers(tmp_path):
+    """A kernel library is named by the hash of its source and of the
+    headers beside it, so an edited header is rebuilt too."""
+    from flate_tpu_torch import _build
+    src = tmp_path / "k.cu"
+    head = tmp_path / "h.cuh"
+    src.write_text('#include "h.cuh"\n')
+    head.write_text("// one\n")
+    first = _build._library_path(src)
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("libk_")
+    head.write_text("// two\n")
+    second = _build._library_path(src)
+    src.write_text('#include "h.cuh"  \n')
+    assert len({first, second, _build._library_path(src)}) == 3
+    assert all(_build._library_path(s) == _build._library_path(s)
+               for s in _build.SOURCES)
+
+
 def test_port_imports_no_jax_and_no_flate_tpu():
     code = (
         "import sys\n"

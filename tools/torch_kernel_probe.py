@@ -21,6 +21,26 @@ payload): the full network with no operand (the passes alone) and with 8
 planned pass of the full network alone without operands (each then also
 reads u32 keys and writes u32 keys), torch.sort + 8 torch.gather, and the
 calibrate mix on 8 of the rows with the host's time to issue one call.
+
+B7 (exact decode walk) and B9 (parse walk), `--part walks`: where a walk's
+time goes, on the inputs chip_smoke.py times them at (B7: the first 8
+level-3 text shards, N = 524,288, NS = 131,200; B9: level 6's and level
+9's parse blocks and the shards of the level-6 batch), each with its steps
+(a row's count of words written or of marks: mean and longest row) and
+beside rows of one constant step at the same shapes, whose steps per row
+are known: B7 with adv 63 and 16 (the per-step cost is the slope between
+them, the intercept what the kernel costs besides the steps: staging,
+flushing, zeroing); B9 with a step of n (one step a row: staging and the
+mask alone) and of 2 (n / 2 steps a row: the chain; a step of 1 would be
+a literal run, which the block walk skips).  ns per step is the walk's
+time over the steps of a row; times the real data's longest row it is
+what the chain costs there.
+
+    python3 tools/torch_kernel_probe.py --part walks [--tree DIR]
+
+--tree DIR measures the kernels of another checkout (its flate_tpu_torch,
+built into DIR/build) with this probe's code, so that a parent and a change
+run in one call on one card.
 """
 
 from __future__ import annotations
@@ -34,11 +54,14 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from chip_smoke import B, CTX, S, cuda_ms, mixed_corpus, smi  # noqa: E402
-from flate_tpu_torch.device import bitonic, match2, pipeline2  # noqa: E402
+from chip_smoke import (B, CTX, S, cuda_ms, mixed_corpus, smi,  # noqa: E402
+                        text_corpus)
+
+# the checkout whose flate_tpu_torch is measured: set by main() (--tree)
+bitonic = inflate2 = match2 = parse = pipeline2 = None
 
 
 def timed(fn, reps: int) -> float:
@@ -46,17 +69,27 @@ def timed(fn, reps: int) -> float:
     return cuda_ms(fn, reps)
 
 
-def matcher(reps: int) -> dict:
+def level6_batch():
+    """The first 8 MiB batch of the mixed corpus, primed with its 32 KiB
+    of context as chip_smoke.py primes it: (window, ctx_len, valid), the
+    last shard cut to a tail."""
     dev = torch.device("cuda")
     head = mixed_corpus(CTX + B * S)
     ctx0 = torch.frombuffer(bytearray(head[:CTX]), dtype=torch.uint8).to(dev)
     shards = torch.frombuffer(bytearray(head[CTX:]), dtype=torch.uint8
                               ).reshape(B, S).to(dev)
     window = pipeline2._prime_windows(shards, ctx0, CTX)
+    ctx_len = torch.full((B,), CTX, dtype=torch.int32, device=dev)
+    valid = torch.full((B,), S, dtype=torch.int32, device=dev)
+    valid[-1] = S - 12345
+    return window, ctx_len, valid
+
+
+def matcher(reps: int) -> dict:
+    window, ctx_len, valid = level6_batch()
     W = window.shape[1]
-    min_src = torch.zeros(B, dtype=torch.int32, device=dev)
-    limit = torch.full((B,), CTX + S, dtype=torch.int32, device=dev)
-    limit[-1] -= 12345
+    min_src = (CTX - ctx_len).to(torch.int32)
+    limit = (CTX + valid).to(torch.int32)
     out = {}
     for ne, Ks in ((8, (0, 1, 4, 16, 48)), (1, (48,)), (2, (48,)),
                    (3, (48,)), (6, (48,)), (16, (160,))):
@@ -129,16 +162,141 @@ def network(reps: int) -> dict:
     return out
 
 
+def block_hops(step: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Steps per row the block walk's walker takes: the marked positions
+    but the literals (next position p + 1) that follow a marked literal in
+    their group of 8, which the walker jumps over."""
+    n = step.shape[1]
+    pos = torch.arange(n, device=step.device)
+    lit = torch.clamp(pos + torch.clamp(step, min=1), max=n) == pos + 1
+    prev = torch.nn.functional.pad(mask & lit, (1, 0))[:, :n]
+    return (mask & ~(prev & lit & (pos % 8 != 0))).sum(dim=1)
+
+
+def walks(reps: int) -> dict:
+    from flate_tpu_torch import api
+    from flate_tpu_torch.containers import Container, parse_header
+    from flate_tpu_torch.shard_index import parse_index_extra
+    dev = torch.device("cuda")
+    out = {}
+
+    def row_steps(name, counts):
+        out[f"{name}_steps_mean"] = float(counts.float().mean())
+        out[f"{name}_steps_max"] = int(counts.max())
+        out[f"{name}_steps_total"] = int(counts.sum())
+
+    def one(name, fn, r=reps):
+        out[name] = timed(fn, r)
+        print(f"{name}: {out[name]:.4f} ms", flush=True)
+
+    # B7 on the first 8 level-3 text shards, as chip_smoke.py phase 5
+    blob = api.gzip.compress(text_corpus(3_359_630), level=3)
+    hdr, meta = parse_header(Container.GZIP, blob)
+    comp_lens, out_lens, _ = parse_index_extra(meta.extra)
+    run, off = [], hdr
+    for c_len, o_len in zip(comp_lens[:8], out_lens[:8]):
+        sh = blob[off:off + int(c_len)]
+        off += int(c_len)
+        run.append((inflate2.plan_shard(sh, int(o_len)), sh))
+    dargs = inflate2.pack_coded_run(run, b"", dev)
+    word = inflate2._pass1(dargs[0], *dargs[3:9])
+    start, nbits = dargs[2], 8 * dargs[1]
+    DB, DN = word.shape
+    NS = S + 128
+    _, counts = inflate2._walk(word, start, nbits, NS)
+    row_steps("B7_text", counts)
+    one("B7_text", lambda: inflate2._walk(word, start, nbits, NS))
+    one("B7_empty", lambda: inflate2._walk(word, nbits, nbits, NS))
+    fit = {}
+    for A in (63, 16):
+        syn = torch.full((DB, DN), A, dtype=torch.int32, device=dev)
+        full = torch.full((DB,), DN, dtype=torch.int32, device=dev)
+        zero = torch.zeros(DB, dtype=torch.int32, device=dev)
+        ns_a = DN // A + 128
+        steps = int(inflate2._walk(syn, zero, full, ns_a)[1].max())
+        one(f"B7_adv{A}", lambda: inflate2._walk(syn, zero, full, ns_a))
+        out[f"B7_adv{A}_steps"] = steps
+        fit[A] = (steps, out[f"B7_adv{A}"])
+        del syn
+    (s1, t1), (s2, t2) = fit[63], fit[16]
+    slope = (t2 - t1) / (s2 - s1)
+    out["B7_ns_per_step"] = slope * 1e6
+    out["B7_intercept_ms"] = t1 - slope * s1
+    out["B7_text_walk_ms"] = slope * out["B7_text_steps_max"]
+    print(f"B7: {out['B7_ns_per_step']:.3f} ns a step (slope), "
+          f"{out['B7_intercept_ms']:.4f} ms besides the steps; text: "
+          f"{out['B7_text_steps_max']} steps in the longest row -> walk "
+          f"{out['B7_text_walk_ms']:.4f} ms of {out['B7_text']:.4f}",
+          flush=True)
+    del word, dargs
+
+    # B9 on the level-6 batch: parse blocks at levels 6 and 9, shards
+    window, ctx_len, valid = level6_batch()
+    for L in (6, 9):
+        lvl = pipeline2.level_params(L, S)
+        ml, md = match2.find_matches_fused(window, ctx_len, valid, K=lvl["K"],
+                                           nw=lvl["nw"], ctx=CTX,
+                                           K3=lvl["K3"])
+        shapes = {f"B9_blocks_l{L}": lvl["blk"]}
+        if L == 6:
+            shapes["B9_shards"] = S
+        for name, n in shapes.items():
+            if n == S:                   # parse_walk: untruncated matches
+                _, step = parse.decide(ml, md, True, 32)
+            else:
+                tl, td = parse.truncate_matches(ml, md, CTX, n)
+                _, step = parse.decide(tl, td, lvl["lazy"], lvl["max_lazy"])
+            step = step[:, CTX:].to(torch.int32).reshape(-1, n).contiguous()
+            R = step.shape[0]
+            mask = parse._parse_walk(step)
+            row_steps(name, mask.sum(dim=1))
+            if n < S:
+                row_steps(f"{name}_hops", block_hops(step, mask))
+            one(name, lambda: parse._parse_walk(step))
+            for A, tag in ((n, "one_step"), (2, "step2")):
+                syn = torch.full((R, n), A, dtype=torch.int32, device=dev)
+                one(f"{name}_{tag}", lambda: parse._parse_walk(syn),
+                    r=min(reps, 5) if A == 2 and n == S else reps)
+            per = (out[f"{name}_step2"] - out[f"{name}_one_step"]) / (n // 2 - 1)
+            out[f"{name}_ns_per_step"] = per * 1e6
+            out[f"{name}_walk_ms"] = per * out[f"{name}_steps_max"]
+            hops = (f" (hops of the walker, literal runs skipped within 8 "
+                    f"positions: mean {out[f'{name}_hops_steps_mean']:.1f} "
+                    f"longest {out[f'{name}_hops_steps_max']})"
+                    if n < S else "")
+            print(f"{name}: {R} rows x {n}, steps mean "
+                  f"{out[f'{name}_steps_mean']:.1f} longest "
+                  f"{out[f'{name}_steps_max']}{hops}; one step a row (staging and "
+                  f"the mask) {out[f'{name}_one_step']:.4f} ms; "
+                  f"{out[f'{name}_ns_per_step']:.3f} ns a step of a row of "
+                  f"steps of 2 -> longest row's walk "
+                  f"{out[f'{name}_walk_ms']:.4f} ms of {out[name]:.4f}",
+                  flush=True)
+    return out
+
+
 def main() -> int:
+    global bitonic, inflate2, match2, parse, pipeline2
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--part", default="matcher,network,walks",
+                    help="comma-separated: matcher, network, walks")
+    ap.add_argument("--tree", default=ROOT,
+                    help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: needs a CUDA card", file=sys.stderr)
         return 2
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from flate_tpu_torch.device import bitonic, inflate2, match2, parse
+    from flate_tpu_torch.device import pipeline2
     card = smi()
     print(card, flush=True)
-    res = {"card": card, **matcher(args.reps), **network(args.reps)}
+    print(f"tree: {os.path.abspath(args.tree)}", flush=True)
+    res = {"card": card, "tree": os.path.abspath(args.tree)}
+    parts = {"matcher": matcher, "network": network, "walks": walks}
+    for part in args.part.split(","):
+        res.update(parts[part](args.reps))
     print(json.dumps(res))
     return 0
 
