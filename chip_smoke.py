@@ -25,7 +25,12 @@ Phases, one line each:
      coded shards of 128 KiB of the text corpus as phase 4 encoded them at
      level 3 (G = 2048, J = 96, NS = S + 128), the per-bit words from the
      port's own pass 1: exact equality, times and bounds as in phase 3,
-     with the longest serial chain and the most marks in one lane;
+     with the longest serial chain and the most marks in one lane; then B6
+     on one chained-route row chunk (the first lane walk of the chained
+     decode of phase 4's 8 MiB level-1 mixed member: up to 64 rows of
+     64 KiB spans, 2^19 positions each), with its steps and chain floor;
+     B3 and B6 are also timed replayed from a CUDA graph (graph_ms, the
+     device alone: their calls' host time is as large as the kernels);
   6. the decode path through flate_tpu_torch.api.*.decompress on the card:
      (a) the text corpus as encoded at levels 1 and 3 (indexed route),
      (b) the 32 MiB mixed member of level 3 and the 8 MiB one of level 1
@@ -106,6 +111,11 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM memory rate (data sheet)
 # (CUDA programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz
 # boost clock.  All the kernels do integer work only.
 INT_OPS_PER_S = 64 * 132 * 1.98e9
+# one chain step from shared memory (a load and its address) of a walker
+# alone on its SM, measured by tools/torch_kernel_probe.py --part walks on
+# an H100 80GB HBM3 at 700 W (PERF.md section 6): the chain floor of a walk
+# is its longest chain's steps times this
+CHAIN_STEP_NS = 20.3
 HERE = os.path.dirname(os.path.abspath(__file__))
 LEVELS = (1, 3)                  # 32 MiB end to end in phase 4
 KERNEL_LEVELS = (1, 3, 6, 9)     # knobs at which B1-B5 and B9 are held to plain
@@ -158,6 +168,40 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one fn() launch: reps launches captured in one CUDA
+    graph and replayed, so no host time sits between them (fn must not
+    synchronise)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    ms = cuda_ms(g.replay, 3) / reps
+    del g
+    return ms
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host time of one fn() call, which returns before the card is done
+    (the card waits on the host when this is above the kernel's device
+    time)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def cuda_ms_cold(fn, reps: int) -> float:
     """Mean device time of fn() with the L2 flushed before each launch: a
     64 MB write, then a spin that keeps the card busy while the host
@@ -179,6 +223,35 @@ def cuda_ms_cold(fn, reps: int) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def most_marks(mask: torch.Tensor, G: int) -> int:
+    """The most marks of a lane-walk mask (B, N) in one lane of G."""
+    return int(mask.reshape(mask.shape[0], -1, G).sum(dim=2).max())
+
+
+def chained_chunk(api, inflate2, blob: bytes, **kw):
+    """(word, start, nbits) of the first lane walk the chained decode of
+    `blob` makes (a member whose segmented shards re-route it there, maybe
+    after an indexed batch): the first row chunk of its first round,
+    recorded from the call.  kw goes to api.gzip.decompress."""
+    seen = []
+    real = inflate2._lane_walk
+    base = inflate2.STATS["chained_members"]
+
+    def record(word, start, nbits, **kw):
+        if not seen and inflate2.STATS["chained_members"] > base:
+            seen.append((word.clone(), start.clone(), nbits.clone()))
+        return real(word, start, nbits, **kw)
+
+    inflate2._lane_walk = record
+    try:
+        api.gzip.decompress(blob, **kw)
+    finally:
+        inflate2._lane_walk = real
+    if not seen:
+        raise AssertionError("the chained decode made no lane walk")
+    return seen[0]
 
 
 def main() -> int:
@@ -224,7 +297,7 @@ def main() -> int:
     launches = {}         # main-path run -> launch counts by entry point
 
     def case(phase, path, label, entry, replaces, kernel, plain, bytes_moved,
-             ops, reps=20, note=None, library=None, extra=None):
+             ops, reps=20, note=None, library=None, extra=None, graph=False):
         """entry: the C entry point; path: the main-path run whose launch
         count the case reports; bytes_moved: what the function must move
         at its own widths (u32 keys, words and field values), each input
@@ -234,10 +307,12 @@ def main() -> int:
         count of this entry on that path covers; library: one PyTorch call
         that computes the same function, timed beside the kernel (the port
         never calls it); extra: more keys, measured in this run, for the
-        case's line.  The kernel's run that is compared is the warm-up of
-        its timed ones; the plain version's is timed itself when it takes
-        a second or more (its host loop has nothing to warm), else it is
-        the warm-up of one timed run."""
+        case's line; graph: also time the kernel replayed from a CUDA graph
+        (graph_ms: the device alone, no host time between launches).  The
+        kernel's run that is compared is the warm-up of its timed ones;
+        the plain version's is timed itself when it takes a second or more
+        (its host loop has nothing to warm), else it is the warm-up of one
+        timed run."""
         def outputs(r):
             return r if isinstance(r, tuple) else (r,)
 
@@ -259,6 +334,8 @@ def main() -> int:
         if callable(ops):
             ops = ops(k_out)
         ms = cuda_ms(kernel, reps)
+        if graph:
+            extra = {**(extra or {}), "graph_ms": graph_ms(kernel, reps)}
         if plain_ms < 1000:
             plain_ms = cuda_ms(plain, 1)
         library_ms = None
@@ -279,6 +356,8 @@ def main() -> int:
             cases[-1]["launches_cover"] = note
         cases[-1].update(extra or {})
         lib = "" if library is None else f", library {library_ms:.4f} ms"
+        if graph:
+            lib += f", from a CUDA graph {extra['graph_ms']:.4f} ms"
         print(f"[{phase}] {label}: equal, {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms by "
               f"{bound_by}: {bytes_moved} bytes {bytes_ms:.4f} ms, "
@@ -376,7 +455,7 @@ def main() -> int:
             lambda: runs._small_dist_runs_plain(window, limit, min_src),
             nbytes(window) + 2 * B * W * 4,
             sum(int(ln.sum()) for ln in        # one compare per run byte
-                runs._run_lengths(window, limit, min_src)))
+                runs._run_lengths(window, limit, min_src)), graph=True)
         mlen0, mdist0 = better(rlen, rdist, mlen0, mdist0)
         (mlen,) = case(
             phase, path, f"extend_l{L}", "flate_extend",
@@ -523,11 +602,11 @@ def main() -> int:
          "flate_tpu/jx/inflate2.py:399",
          lambda: inflate2._lane_walk(word, dstart, dbits, G=G, J=J),
          lambda: inflate2._lane_walk_plain(word, dstart, dbits, G, J),
-         # words read once, the u8 mask and the joined flags written once
-         4 * DN * DB + DN * DB + 4 * (DN // G) * DB + 8 * DB,
-         steps["phase1_steps"] + steps["join_steps"])
-    lane_mask = inflate2._lane_walk_plain(word, dstart, dbits, G, J)[0]
-    lane_marks = int(lane_mask.reshape(DB, DN // G, G).sum(dim=2).max())
+         # words read once, the u8 mask and the u8 join flags written once
+         4 * DN * DB + DN * DB + (DN // G) * DB + 8 * DB,
+         steps["phase1_steps"] + steps["join_steps"], graph=True)
+    lane_marks = most_marks(
+        inflate2._lane_walk_plain(word, dstart, dbits, G, J)[0], G)
     wcounts = inflate2._walk(word, dstart, dbits, NS)[1]
     walked = int(wcounts.sum())
     print(f"[5] serial walk: {walked} symbols in {DB} rows, longest row "
@@ -541,6 +620,25 @@ def main() -> int:
          4 * DN * DB + 4 * NS * DB + 12 * DB,
          walked)                                 # one step per symbol
     del word, dargs
+    # B6 on a chained-route row chunk, as the chained decode gives it
+    cw, cstart, cbits = chained_chunk(api, inflate2, blobs["mixed 8 MiB", 1])
+    csteps = {}
+    cmask = inflate2._lane_walk_plain(cw, cstart, cbits, G, J, csteps)[0]
+    cmarks = most_marks(cmask, G)
+    case(5, ("decode", "b1"), "lane_walk_chained", "flate_lane_walk",
+         "flate_tpu/jx/inflate2.py:399",
+         lambda: inflate2._lane_walk(cw, cstart, cbits, G=G, J=J),
+         lambda: inflate2._lane_walk_plain(cw, cstart, cbits, G, J),
+         4 * cw.numel() + cw.numel() + (cw.shape[1] // G) * cw.shape[0]
+         + 8 * cw.shape[0],
+         csteps["phase1_steps"] + csteps["join_steps"], graph=True)
+    print(f"[5] lane walk, chained-route row chunk: {cw.shape[0]} rows x "
+          f"{cw.shape[1]}, {cw.shape[0] * cw.shape[1] // G} lanes; steps "
+          f"{csteps}; most marks in one lane {cmarks}, chain floor "
+          f"{cmarks * CHAIN_STEP_NS * 1e-6:.4f} ms at {CHAIN_STEP_NS} ns a "
+          f"step; kernel {cases[-1]['ms']:.4f} ms, from a CUDA graph "
+          f"{cases[-1]['graph_ms']:.4f} ms", flush=True)
+    del cw, cmask
 
     # ---- phase 6: the decode path through the public entry point ----
     first8 = text[:8 * S]

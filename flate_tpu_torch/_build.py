@@ -48,7 +48,8 @@ ENCODE_KERNELS = {
     "flate_pack": [_P, _P, _P, _I, _I, _I, _P],
 }
 DECODE_KERNELS = {
-    "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
     "flate_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 SORT_KERNELS = {
@@ -145,7 +146,8 @@ def launch(name: str, *args) -> None:
     """Call C entry point `name` on the current CUDA stream, raise on a
     launch error, and count the launch."""
     fn = library()[name]
-    stream = torch.cuda.current_stream().cuda_stream
+    # the raw handle of the current stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
@@ -165,11 +167,11 @@ def use_plain(t: torch.Tensor) -> bool:
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                shape: tuple) -> None:
     """Raise unless t is a contiguous CUDA tensor of this dtype and shape."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():

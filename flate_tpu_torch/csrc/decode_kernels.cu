@@ -5,13 +5,14 @@
 // that would start at bit p, adv(6) | kind(2)<<6 | value(8)<<8 |
 // (dist-1)(15)<<16, and the true symbols are the orbit of the block's first
 // bit under p -> p + adv.  Each step is a load whose address depends on the
-// load before it, so both kernels are bound by memory latency, not by
-// bytes or arithmetic; what a design can do is run many chains at once
-// (B6) or make each load a shared-memory one (B7).
+// load before it, so both kernels are bound by latency, not by bytes or
+// arithmetic: each stages what its walkers read in shared memory, where a
+// step costs ~20 ns against ~350 ns from device memory, and B6 runs many
+// short chains at once.
 //
 // The TPU kernels read word[p] with a masked row-reduce over a whole VMEM
 // tile because the TPU has no scalar gather from VMEM; the card has plain
-// indexed loads, so each thread here simply follows its chain.
+// indexed loads, so each walker simply follows its chain.
 //
 // Interface: plain C (ctypes), every entry point launches on the caller's
 // stream and returns cudaGetLastError().  Buffers are allocated by the
@@ -27,7 +28,6 @@
 namespace {
 
 constexpr int kEob = 2;             // kind field of an end-of-block word
-constexpr int kLaneThreads = 32;    // lanes (threads) per block, lane walk
 
 __device__ __forceinline__ int lane_adv(int w) {
   int a = w & 63;
@@ -37,102 +37,181 @@ __device__ __forceinline__ int lane_adv(int w) {
 // --------------------------------------------------------------------------
 // B6 lane walk — replaces flate_tpu/jx/inflate2.py:_lane_walk_kernel (via
 // _lane_walk).  A row's N bit positions are cut into NL = N / G lanes of G
-// positions.  Output: mask (B, N) u8, 1 on the positions of the true chain
-// as far as it is proven, and joined (B, NL), 1 where a lane's part of the
-// chain is proven (vacuous lanes count as joined).
+// positions.  Phase 1 walks each lane's speculative chain from the lane's
+// first position (from `start` in the start lane l0; lanes before l0 or at
+// or past nbits are vacuous) with adv = max(1, w & 63) until it leaves the
+// lane.  Phase 2 follows the true chain into lane l from lane l-1's phase-1
+// exit for at most J steps, until it lands on a phase-1 mark (the join).
+// Output: mask (B, N) u8 = the join walk's marks | the phase-1 marks at or
+// after the join of a joined, non-vacuous lane; joined (B, NL) u8, 1 where
+// a lane's part of the chain is proven (vacuous lanes count as joined).
+// `start` is a bit position of the row (>= 0).
 //
-// Phase 1 (lane_walk_p1): one thread per (row, lane) walks the chain from
-// the lane's first position (from the exact start in the start lane) to the
-// lane's end, marks what it visits in `mask` and records where it left the
-// lane (exit_rel, relative to the lane's base; G for an inactive lane).  A
-// lane that starts inside a symbol falls into step with the true chain
-// after a few symbols.
-//
-// Phase 2 (lane_walk_p2): the true chain enters lane l where lane l-1 left
-// off.  One thread per lane follows it for at most J steps until it lands
-// on a position that phase 1 marked: from there on the lane's own marks are
-// the true chain.  The steps before the join are marked too, and the lane's
-// speculative marks before the join are cleared by walking them once more
-// (all of them when the join fails); the two sets of positions are
-// disjoint, since the join happens at the first marked position.
-//
-// Bound: operations (one dependent load per step, ~N/9 steps a row on text,
-// spread over NL threads); the bytes are N words read and N mask bytes
-// written.  A thread touches only its own lane of `mask`, so there are no
-// atomics.  The visited set lives in the output buffer in device memory; a
-// block clears its lanes' part of it with 16-byte stores before it walks.
+// Bound: latency.  The bytes (N words in, N mask bytes out: 0.0063 ms for
+// 8 rows of 2^19 bits) and the chains (the longest lane's marks x ~20 ns
+// a shared-memory step) are both a few microseconds.  The first port walked
+// every chain in device memory (~350 ns a step) in two launches, with a
+// zero-fill of the mask and a second walk that cleared the marks left of
+// the join: 0.094 ms.  Phase 2 of lane l needs only lane l-1's phase-1 exit,
+// so one launch does it all: a block takes L consecutive lanes of one row
+// and the lane before them (a halo lane, walked in phase 1 only, for its
+// exit), stages their adv bytes (1 byte a position) in shared memory with
+// 16-byte loads, and keeps each lane's phase-1 and join marks as two shared
+// bitmaps.  Warp 0 walks, one thread a lane (a phase-1 step is a shared
+// load and an add, its mark off the chain: ~25 ns measured); a barrier;
+// the join; a barrier; then every thread composes the mask 16 positions at
+// a time from the two bitmaps, the join position and the flags, and writes
+// it once with 16-byte stores (0.015 ms for the 8 x 2^19 batch, replayed
+// from a CUDA graph on an H100 at 700 W).
+// A G too wide for one lane and its halo to fit in shared memory takes the
+// variant kStaged = false: the walkers read the words and keep the bitmaps
+// in a device-memory scratch of the block's own.
+// `phases` < 3 stops after staging (0), phase 1 (1) or the join (2), for
+// tools/torch_kernel_probe.py's split; the wrapper passes 3.
 // --------------------------------------------------------------------------
-__global__ void lane_walk_p1(const int* __restrict__ word,
-                             const int* __restrict__ start,
-                             const int* __restrict__ nbits,
-                             uint8_t* __restrict__ mask,
-                             int* __restrict__ exit_rel,
-                             long long total, int NL, int G) {
-  long long first = blockIdx.x * static_cast<long long>(blockDim.x);
-  long long here = total - first < blockDim.x ? total - first : blockDim.x;
-  uint4* z = reinterpret_cast<uint4*>(mask + first * G);
-  long long nvec = here * G / 16;
-  for (long long i = threadIdx.x; i < nvec; i += blockDim.x)
-    z[i] = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
-  long long gl = first + threadIdx.x;
-  if (gl >= total) return;
-  int b = static_cast<int>(gl / NL);
-  int lane = static_cast<int>(gl - static_cast<long long>(b) * NL);
-  int s0 = start[b];
-  int n = nbits[b];
-  int l0 = s0 / G;
-  long long lbase = static_cast<long long>(lane) * G;
-  const int* w = word + gl * G;
-  uint8_t* m = mask + gl * G;
-  int c = lane == l0 ? s0 - static_cast<int>(lbase) : 0;
-  if (lane < l0 || lbase >= n) c = G;
-  while (c < G) {
-    m[c] = 1;
-    c += lane_adv(w[c]);
-  }
-  exit_rel[gl] = c;
+constexpr int kLaneBlockThreads = 256;
+constexpr int kMaxLanes = 31;                          // L + 1 walkers fit in warp 0
+constexpr int kMaxGridY = 65535;                       // rows past it go to gridDim.z
+
+// Bytes of the per-slot state (phase-1 exit, join position, join flag) at
+// the front of shared memory, kept a multiple of 16.
+__host__ __device__ constexpr int lane_state_bytes(int L) {
+  return (3 * (L + 1) * 4 + 15) / 16 * 16;
 }
 
-__global__ void lane_walk_p2(const int* __restrict__ word,
-                             const int* __restrict__ start,
-                             const int* __restrict__ nbits,
-                             uint8_t* __restrict__ mask,
-                             const int* __restrict__ exit_rel,
-                             int* __restrict__ joined,
-                             long long total, int NL, int G, int J) {
-  long long gl = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (gl >= total) return;
-  int b = static_cast<int>(gl / NL);
-  int lane = static_cast<int>(gl - static_cast<long long>(b) * NL);
-  int s0 = start[b];
-  int n = nbits[b];
-  int l0 = s0 / G;
-  long long lbase = static_cast<long long>(lane) * G;
-  if (lane < l0 || lbase >= n) {      // vacuous lane: nothing to prove
-    joined[gl] = 1;
-    return;
+// Four positions' words -> their four adv bytes in one word.
+__device__ __forceinline__ uint32_t adv4(int4 v) {
+  return static_cast<uint32_t>(lane_adv(v.x)) |
+         static_cast<uint32_t>(lane_adv(v.y)) << 8 |
+         static_cast<uint32_t>(lane_adv(v.z)) << 16 |
+         static_cast<uint32_t>(lane_adv(v.w)) << 24;
+}
+
+// Four mask bits -> four 0/1 bytes.
+__device__ __forceinline__ uint32_t bytes4(uint32_t nibble) {
+  return (nibble * 0x00204081u) & 0x01010101u;
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kLaneBlockThreads)
+lane_walk_kernel(const int* __restrict__ word, const int* __restrict__ start,
+                 const int* __restrict__ nbits, uint8_t* __restrict__ mask,
+                 uint8_t* __restrict__ joined, uint32_t* __restrict__ scratch,
+                 int B, int N, int G, int J, int L, int phases) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (b >= B) return;
+  const int NL = N / G;
+  const int GW = G / 32;                       // bitmap words a lane
+  const int first = blockIdx.x * L;            // first lane the block writes
+  const int nl = min(L, NL - first);           // lanes it writes
+  const int s_lo = first > 0 ? 0 : 1;          // slot s holds lane first - 1 + s
+  int* exit_at = reinterpret_cast<int*>(smem);
+  int* jpos_at = exit_at + (L + 1);
+  int* jn_at = jpos_at + (L + 1);              // 0 / 1 joined, 2 vacuous
+  uint32_t* vis;
+  if (kStaged) {
+    vis = reinterpret_cast<uint32_t*>(smem + lane_state_bytes(L));
+  } else {
+    vis = scratch + (static_cast<long long>(b) * gridDim.x + blockIdx.x) *
+                    2 * (L + 1) * GW;
   }
-  const int* w = word + gl * G;
-  uint8_t* m = mask + gl * G;
-  int cur0 = lane == l0 ? s0 - static_cast<int>(lbase) : 0;
-  // lane > l0 >= 0 here, so lane - 1 is a lane of the same row
-  int c2 = lane == l0 ? cur0 : exit_rel[gl - 1] - G;
-  int jn = 0;
-  int jpos = G;
-  for (int step = 0; step < J && c2 < G; ++step) {
-    if (m[c2]) {                      // landed on the lane's own chain
-      jpos = c2;
-      jn = 1;
-      break;
+  uint32_t* jm = vis + (L + 1) * GW;
+  uint8_t* sadv = reinterpret_cast<uint8_t*>(jm + (L + 1) * GW);
+  const int* row = word + static_cast<long long>(b) * N;
+  const int* lane0 = row + static_cast<long long>(first - 1) * G;   // slot 0
+  auto adv_at = [&](int s, int c) -> int {
+    if (kStaged) return sadv[s * G + c];
+    return lane_adv(lane0[static_cast<long long>(s) * G + c]);
+  };
+
+  for (int i = threadIdx.x; i < 2 * (L + 1) * GW; i += blockDim.x) vis[i] = 0u;
+  if (kStaged) {
+    const int4* src = reinterpret_cast<const int4*>(lane0 + s_lo * G);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(sadv + s_lo * G);
+    const int n4 = (nl + 1 - s_lo) * (G / 4);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = adv4(__ldg(src + i));
+  }
+  __syncthreads();
+  if (phases < 1) return;
+
+  const int s0 = start[b];
+  const int n = nbits[b];
+  const int l0 = s0 / G;
+  const int s = threadIdx.x;                   // the slot a walker takes
+  const int l = first - 1 + s;
+  const bool walker = s >= s_lo && s <= nl;
+  const bool vac = walker && (l < l0 || l * G >= n);   // l * G < N < 2^31
+
+  // ---- phase 1: each lane's speculative chain, marks into vis ----
+  // A mark is an atomicOr whose result nobody waits for, off the chain
+  // (c -> adv[c] -> c); four steps a test while four steps of at most 63
+  // cannot leave the lane, single steps over its last 252 positions.
+  if (walker) {
+    int c = vac ? G : (l == l0 ? s0 - l * G : 0);
+    uint32_t* v = vis + s * GW;
+    auto step = [&]() {
+      atomicOr(v + (c >> 5), 1u << (c & 31));
+      c += adv_at(s, c);
+    };
+    while (c < G - 4 * 63) {
+      step();
+      step();
+      step();
+      step();
     }
-    m[c2] = 1;                        // a true-chain step before the join
-    c2 += lane_adv(w[c2]);
+    while (c < G) step();
+    exit_at[s] = c;
   }
-  // drop the lane's speculative marks left of the join
-  int stop = jn ? jpos : G;
-  for (int c = cur0; c < stop; c += lane_adv(w[c])) m[c] = 0;
-  joined[gl] = jn;
+  __syncthreads();
+  if (phases < 2) return;
+
+  // ---- phase 2: the true chain from lane l-1's exit, to the join ----
+  if (walker && s >= 1) {
+    int jn = 2, jpos = G;
+    if (!vac) {
+      // lane l > l0 >= 0 here, so slot s - 1 holds lane l - 1
+      int c2 = l == l0 ? s0 - l * G : exit_at[s - 1] - G;
+      const uint32_t* v = vis + s * GW;
+      uint32_t* m = jm + s * GW;
+      jn = 0;
+      for (int step = 0; step < J && c2 < G; ++step) {
+        if ((v[c2 >> 5] >> (c2 & 31)) & 1u) {
+          jpos = c2;
+          jn = 1;
+          break;
+        }
+        m[c2 >> 5] |= 1u << (c2 & 31);
+        c2 += adv_at(s, c2);
+      }
+    }
+    jpos_at[s] = jpos;
+    jn_at[s] = jn;
+    joined[static_cast<long long>(b) * NL + l] = jn != 0;
+  }
+  __syncthreads();
+  if (phases < 3) return;
+
+  // ---- the mask, 16 positions a thread, one 16-byte store ----
+  const int per = G / 16;
+  uint8_t* out = mask + static_cast<long long>(b) * N +
+                 static_cast<long long>(first) * G;
+  for (int it = threadIdx.x; it < nl * per; it += blockDim.x) {
+    const int ls = it / per;                   // lane first + ls, slot ls + 1
+    const int col = 16 * (it - ls * per);
+    const int k = (ls + 1) * GW + (col >> 5);
+    const int sh = col & 31;
+    uint32_t bits = (jm[k] >> sh) & 0xFFFFu;
+    if (jn_at[ls + 1] == 1) {
+      const int from = jpos_at[ls + 1] - col;
+      const uint32_t keep = from <= 0 ? 0xFFFFu : from >= 16 ? 0u : (0xFFFFu << from) & 0xFFFFu;
+      bits |= (vis[k] >> sh) & keep;
+    }
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(ls) * G + col) =
+        make_uint4(bytes4(bits & 15u), bytes4((bits >> 4) & 15u),
+                   bytes4((bits >> 8) & 15u), bytes4(bits >> 12));
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -268,24 +347,38 @@ walk_kernel(const int* __restrict__ word, const int* __restrict__ start,
 extern "C" {
 
 int flate_lane_walk(const void* word, const void* start, const void* nbits,
-                    void* mask, void* exit_rel, void* joined, int B, int N,
-                    int G, int J, void* stream) {
-  int NL = N / G;
-  long long total = static_cast<long long>(B) * NL;
-  if (total <= 0) return static_cast<int>(cudaGetLastError());
+                    void* mask, void* joined, void* scratch, int B, int N,
+                    int G, int J, int L, int phases, void* stream) {
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  if (G <= 0 || G % 128 != 0 || N % G != 0 || L < 1 || L > kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int NL = N / G;
+  const dim3 grid((NL + L - 1) / L, min(B, kMaxGridY),
+                  (B + kMaxGridY - 1) / kMaxGridY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned g1 = static_cast<unsigned>((total + kLaneThreads - 1) / kLaneThreads);
-  lane_walk_p1<<<g1, kLaneThreads, 0, s>>>(
-      static_cast<const int*>(word), static_cast<const int*>(start),
-      static_cast<const int*>(nbits), static_cast<uint8_t*>(mask),
-      static_cast<int*>(exit_rel), total, NL, G);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  lane_walk_p2<<<g1, kLaneThreads, 0, s>>>(
-      static_cast<const int*>(word), static_cast<const int*>(start),
-      static_cast<const int*>(nbits), static_cast<uint8_t*>(mask),
-      static_cast<const int*>(exit_rel), static_cast<int*>(joined), total,
-      NL, G, J);
+  const auto args = [&](auto kernel, size_t smem) {
+    kernel<<<grid, kLaneBlockThreads, smem, s>>>(
+        static_cast<const int*>(word), static_cast<const int*>(start),
+        static_cast<const int*>(nbits), static_cast<uint8_t*>(mask),
+        static_cast<uint8_t*>(joined), static_cast<uint32_t*>(scratch), B, N, G,
+        J, L, phases);
+  };
+  if (scratch == nullptr) {         // staged: adv bytes and bitmaps in shared memory
+    const size_t smem = lane_state_bytes(L) +
+                        static_cast<size_t>(L + 1) * G / 4 +     // two bitmaps
+                        static_cast<size_t>(L + 1) * G;          // adv bytes
+    static size_t allowed = 0;       // the kernel's shared-memory ceiling so far
+    if (smem > allowed) {
+      const int rc = static_cast<int>(cudaFuncSetAttribute(
+          lane_walk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)));
+      if (rc != 0) return rc;
+      allowed = smem;
+    }
+    args(lane_walk_kernel<true>, smem);
+  } else {
+    args(lane_walk_kernel<false>, lane_state_bytes(L));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

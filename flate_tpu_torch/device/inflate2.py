@@ -36,6 +36,7 @@ carried as int64.
 from __future__ import annotations
 
 import collections
+import functools
 import os
 
 import numpy as np
@@ -406,6 +407,69 @@ def _lane_walk_plain(word: torch.Tensor, start: torch.Tensor,
     return mask.reshape(B, N), joined
 
 
+# shared memory one block of the lane-walk kernel may take (H100: 227 KiB)
+LANE_SMEM = 232448
+LANE_MAX_L = 31                  # lanes a block: its walkers fit in one warp
+
+
+def _lane_shared_bytes(L: int, G: int) -> int:
+    """Shared memory of a staged lane-walk block of L lanes (and a halo
+    lane) of G positions: per-slot state, two bitmaps, one adv byte a
+    position (csrc/decode_kernels.cu, flate_lane_walk)."""
+    return (3 * (L + 1) * 4 + 15) // 16 * 16 + (L + 1) * (G // 4 + G)
+
+
+def _lanes_per_block(B: int, NL: int, G: int, sms: int) -> tuple[int, bool]:
+    """(L, staged): the most lanes a block, up to 8, that still give two
+    blocks to every SM, cut to what fits in shared memory; staged is False
+    when not even one lane and its halo fit (the kernel then walks device
+    memory)."""
+    L = 8
+    while L > 1 and B * -(-NL // L) < 2 * sms:
+        L //= 2
+    while L > 1 and _lane_shared_bytes(L, G) > LANE_SMEM:
+        L //= 2
+    return L, _lane_shared_bytes(L, G) <= LANE_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _lane_walk_cuda(word: torch.Tensor, start: torch.Tensor,
+                    nbits: torch.Tensor, G: int, J: int, L: int | None = None,
+                    staged: bool | None = None, phases: int = 3):
+    """Launch kernel B6 on CUDA tensors: L lanes a block (default
+    _lanes_per_block), staged in shared memory or walked in device memory;
+    phases < 3 stops the kernel early (timing only: the outputs are then
+    incomplete)."""
+    B, N = word.shape
+    NL = N // G
+    start = start.to(torch.int32).contiguous()
+    nbits = nbits.to(torch.int32).contiguous()
+    _build.check_cuda("lane_walk.word", word, torch.int32, (B, N))
+    _build.check_cuda("lane_walk.start", start, torch.int32, (B,))
+    _build.check_cuda("lane_walk.nbits", nbits, torch.int32, (B,))
+    L0, fits = _lanes_per_block(B, NL, G, _sm_count(word.device.index))
+    L = L0 if L is None else L
+    staged = fits if staged is None else staged
+    if not 1 <= L <= LANE_MAX_L:
+        raise ValueError(f"lane walk: {L} lanes a block, not 1..{LANE_MAX_L}")
+    # the kernel writes 0 / 1 bytes: bool tensors take them as they are
+    mask = torch.empty((B, N), dtype=torch.bool, device=word.device)
+    joined = torch.empty((B, NL), dtype=torch.bool, device=word.device)
+    scratch = None
+    if not staged:                   # each block's two bitmaps, L + 1 slots
+        scratch = torch.empty(B * -(-NL // L) * 2 * (L + 1) * (G // 32),
+                              dtype=torch.int32, device=word.device)
+    _build.launch("flate_lane_walk", word.data_ptr(), start.data_ptr(),
+                  nbits.data_ptr(), mask.data_ptr(), joined.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  B, N, G, J, L, phases)
+    return mask, joined
+
+
 def _lane_walk(word: torch.Tensor, start: torch.Tensor, nbits: torch.Tensor,
                *, G: int = LANE_G, J: int = LANE_J):
     """word (B, N) int32 -> (mask (B, N) bool, joined (B, NL) bool):
@@ -417,19 +481,7 @@ def _lane_walk(word: torch.Tensor, start: torch.Tensor, nbits: torch.Tensor,
                          f"and G of 128")
     if _build.use_plain(word):
         return _lane_walk_plain(word, start, nbits, G, J)
-    NL = N // G
-    start = start.to(torch.int32).contiguous()
-    nbits = nbits.to(torch.int32).contiguous()
-    _build.check_cuda("lane_walk.word", word, torch.int32, (B, N))
-    _build.check_cuda("lane_walk.start", start, torch.int32, (B,))
-    _build.check_cuda("lane_walk.nbits", nbits, torch.int32, (B,))
-    mask = torch.empty((B, N), dtype=torch.uint8, device=word.device)
-    exit_rel = torch.empty((B, NL), dtype=torch.int32, device=word.device)
-    joined = torch.empty((B, NL), dtype=torch.int32, device=word.device)
-    _build.launch("flate_lane_walk", word.data_ptr(), start.data_ptr(),
-                  nbits.data_ptr(), mask.data_ptr(), exit_rel.data_ptr(),
-                  joined.data_ptr(), B, N, G, J)
-    return mask.view(torch.bool), joined > 0
+    return _lane_walk_cuda(word, start, nbits, G, J)
 
 
 def _extract(word: torch.Tensor, mask: torch.Tensor, joined: torch.Tensor,

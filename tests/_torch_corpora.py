@@ -129,3 +129,77 @@ def parse_edge_rows(R: int, n: int, seed: int = 0, jax_safe: bool = False
         step[r, max(p - 300, 0):p] = 1
         step[r, p] = edge[r % 6]
     return step.astype(np.int32)
+
+
+RUN_TILE = 4096      # positions a block of the small-runs kernel takes
+
+
+def small_run_edge_rows(W: int, tile: int = RUN_TILE, seed: int = 0):
+    """Four (W,) uint8 rows of two-letter noise with the small-distance
+    runs' edges at every multiple of `tile` (a multiple of it is also the
+    JAX kernel's 8,192-position tile), and their bounds.  Returns numpy
+    (window (4, W) uint8, limit (4,) int32, min_src (4,) int32):
+      0: runs of 259, 257 and 258 equal bytes (d = 1) and of periods 2, 3,
+         4 and 8, each crossing a tile end; limit W, min_src 0;
+      1: the same runs; limit 40 bytes past the first tile end, inside the
+         run of 259 that crosses it (when W < tile the row has one "tile
+         end", at W // 2);
+      2: a period-8 run from 3 bytes before every tile start (d = 8 within
+         8 bytes of it); min_src 100 bytes into the second tile (into the
+         row when W < tile), limit 200 bytes past the first tile end,
+         inside the 257-byte halo a run of the first tile may read;
+      3: all zeros (every run is as long as the bounds allow); limit <=
+         min_src."""
+    rng = np.random.default_rng(seed)
+    win = rng.integers(0, 2, (4, W)).astype(np.uint8) + 60
+    ends = list(range(tile, W, tile)) or [W // 2]
+    lens = (259, 257, 258)
+    for r in (0, 1):
+        for k, e in enumerate(ends):
+            n = lens[k % 3]
+            lo = max(e - n // 2 - k % 5, 0)
+            win[r, lo:lo + n] = 7 + k
+            if lo > 600:                   # a period run before it
+                period = (2, 3, 4, 8)[k % 4]
+                unit = np.arange(period, dtype=np.uint8) + 20
+                win[r, lo - 560:lo - 270] = np.resize(unit, 290)
+    for e in [0, *ends]:
+        seg = win[2, max(e - 3, 0):e + 297]
+        seg[:] = np.resize(np.arange(8, dtype=np.uint8) + 30, len(seg))
+    win[3] = 0
+    cut = ends[0] + 40 if ends[0] < W else W - 100
+    limit = np.array([W, min(W, cut), min(W, ends[0] + 200), 50], np.int32)
+    min_src = np.array([0, 0, min(W - 1, (tile if W > tile else 0) + 100),
+                        60], np.int32)
+    return win, limit, min_src
+
+
+def lane_edge_rows(G: int, NL: int, seed: int = 0):
+    """Six rows of NL lanes of G positions of synthetic per-bit words (adv
+    1..40 in the low 6 bits, the rest noise), with the lane walk's edges.
+    Returns numpy (word (6, NL * G) int32, start (6,), nbits (6,)):
+      0: every lane ends in a run of one-bit steps with one jump of 63 at
+         a lane-dependent place, so its chain leaves the lane 0..62
+         positions past its end (lane l: 62 - l % 63), and starts with a
+         run of one-bit steps, so the next lane joins at once; start 0;
+      1: random advances: joins take walking; start 3 (inside a symbol);
+      2: start in lane 1, 5 positions in; nbits ends mid-lane 2 (lane 1
+         when NL < 3);
+      3: start in the last lane; nbits N;
+      4: start past nbits (in the lane after the one nbits ends in);
+      5: nbits 0."""
+    rng = np.random.default_rng(seed)
+    N = NL * G
+    adv = rng.integers(1, 41, (6, N))
+    lanes = adv[0].reshape(NL, G)
+    lanes[:, :64] = 1
+    lanes[:, G - 128:] = 1
+    for l in range(NL):
+        lanes[l, G - 1 - (l % 63)] = 63
+    word = adv | (rng.integers(0, 1 << 26, (6, N)) << 6)
+    mid = min(2, NL - 1) * G + G // 2 + 1
+    start = np.array([0, 3, min(1, NL - 1) * G + 5, (NL - 1) * G + 11,
+                      (mid // G + 1) * G + 9, 0])
+    nbits = np.array([N, N, mid, N, mid, 0])
+    return (word.astype(np.int32), start.astype(np.int32),
+            nbits.astype(np.int32))

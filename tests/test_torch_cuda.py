@@ -18,7 +18,8 @@ from flate_tpu_torch.device import anyinflate, bitonic, encode2, inflate2
 from flate_tpu_torch.device import match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
 
-from _torch_corpora import (CTX, KINDS, S, corpus, parse_edge_rows,
+from _torch_corpora import (CTX, KINDS, S, corpus, lane_edge_rows,
+                            parse_edge_rows, small_run_edge_rows,
                             walk_edge_rows, windows)
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +66,22 @@ def test_kernels_equal_plain(cuda, kind):
     for cap in (8, 16):
         _eq(runs.extend_chains(ml, md, limit, cap),
             runs._extend_chains_plain(ml, md, limit, cap))
+
+
+@pytest.mark.parametrize("W", [3 * 8192 + 100, 1000, 4096, 2 * 4096 + 4094,
+                               163840])
+def test_small_runs_edges_equal_plain(cuda, W):
+    """B3 on tests/_torch_corpora.py small_run_edge_rows: runs of 257, 258
+    and 259 bytes and of periods 2-8 across every tile end, limit inside a
+    run and inside the halo, min_src inside a tile, d = 8 at tile starts,
+    limit <= min_src; W not a multiple of the tile (byte staging at W % 16
+    != 0, 4-byte stores at W % 4 != 0), W below it, and the batch's W."""
+    win, limit, min_src = (torch.from_numpy(x).to(cuda)
+                           for x in small_run_edge_rows(W, seed=W))
+    kl, kd = runs.small_dist_runs(win, limit, min_src)
+    pl, pd = runs._small_dist_runs_plain(win, limit, min_src)
+    _eq(kl, pl)
+    _eq(kd, pd)
 
 
 def test_pack_equal_plain(cuda):
@@ -286,6 +303,64 @@ def test_lane_walk_equal_plain(cuda, G, J, where):
     nbits = 8 * args[1]
     km, kj = inflate2._lane_walk(word, start, nbits, G=G, J=J)
     pm, pj = inflate2._lane_walk_plain(word, start, nbits, G, J)
+    _eq(km, pm)
+    _eq(kj, pj)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("G,NL,J,L", [(256, 3, 96, 2), (256, 17, 96, 4),
+                                      (256, 17, 1, 16), (512, 17, 2, 4),
+                                      (2048, 17, 96, 8), (128, 17, 96, 31),
+                                      (256, 1, 96, 1)])
+def test_lane_walk_edges_equal_plain(cuda, G, NL, J, L, staged):
+    """B6 at L lanes a block, staged in shared memory or walking device
+    memory, on tests/_torch_corpora.py lane_edge_rows (exits 0..62 past a
+    lane's end, start inside a symbol, in lane 1, in the last lane and past
+    nbits, nbits mid-lane and 0) plus two rows that start in block 1's first
+    lane and in its halo lane; NL of 1, 3 and 17 (not multiples of L), J of
+    1 and 2 (joins that fail)."""
+    word, start, nbits = (torch.from_numpy(x).to(cuda)
+                          for x in lane_edge_rows(G, NL, seed=G + NL))
+    if NL > L:
+        word = torch.cat([word, word[1:2], word[1:2]])
+        start = torch.cat([start, torch.tensor(
+            [L * G + 5, (L - 1) * G + 5], dtype=torch.int32, device=cuda)])
+        nbits = torch.cat([nbits, nbits[1:2], nbits[1:2]])
+    km, kj = inflate2._lane_walk_cuda(word, start, nbits, G, J, L=L,
+                                      staged=staged)
+    pm, pj = inflate2._lane_walk_plain(word, start, nbits, G, J)
+    _eq(km, pm)
+    _eq(kj, pj)
+
+
+@pytest.mark.parametrize("G", [92928, 93056])
+def test_lane_walk_widest_lanes(cuda, G):
+    """The widest G whose lane and halo lane stage in shared memory, and the
+    narrowest that does not: the wrapper then takes the device-memory
+    variant."""
+    word, start, nbits = (torch.from_numpy(x).to(cuda)
+                          for x in lane_edge_rows(G, 3, seed=1))
+    assert inflate2._lanes_per_block(6, 3, G, 132) == (1, G == 92928)
+    km, kj = inflate2._lane_walk(word, start, nbits, G=G, J=96)
+    pm, pj = inflate2._lane_walk_plain(word, start, nbits, G, 96)
+    _eq(km, pm)
+    _eq(kj, pj)
+
+
+def test_lane_walk_chained_shape(cuda):
+    """A chained-route row chunk: 64 rows of 2^19 positions (2^25 in all),
+    16,384 lanes in many waves, on synthetic words (adv 1..48)."""
+    g = torch.Generator().manual_seed(7)
+    N = 1 << 19
+    word = torch.randint(1, 49, (64, N), generator=g,
+                         dtype=torch.int32).to(cuda)
+    start = torch.randint(0, 5000, (64,), generator=g,
+                          dtype=torch.int32).to(cuda)
+    nbits = N - torch.randint(0, 300000, (64,), generator=g,
+                              dtype=torch.int32).to(cuda)
+    km, kj = inflate2._lane_walk(word, start, nbits)
+    pm, pj = inflate2._lane_walk_plain(word, start, nbits, inflate2.LANE_G,
+                                       inflate2.LANE_J)
     _eq(km, pm)
     _eq(kj, pj)
 

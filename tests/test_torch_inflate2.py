@@ -23,7 +23,7 @@ from flate_tpu_torch import errors
 from flate_tpu_torch import inflate as hinf
 from flate_tpu_torch.device import inflate2 as i2
 
-from _torch_corpora import tt, u32, walk_edge_rows
+from _torch_corpora import lane_edge_rows, tt, u32, walk_edge_rows
 from _torch_decode_ref import (BATCH, CTX, S, coded_run, gz, inputs,
                                jax_blob, port_blob, shards_of, text)
 
@@ -206,6 +206,38 @@ def test_lane_walk_plain_equal(stream, where, G, J):
         assert not np.asarray(jj).all()
     else:
         assert np.asarray(jj).mean() > 0.9
+
+
+@pytest.mark.parametrize("G,NL,J", [(256, 3, 96), (256, 17, 96), (128, 17, 2),
+                                    (512, 3, 1), (256, 1, 96)])
+def test_lane_walk_edges_equal(G, NL, J):
+    """Synthetic rows (tests/_torch_corpora.py lane_edge_rows): chains that
+    leave every lane 0..62 positions past its end, random advances, start
+    inside a symbol, in lane 1, in the last lane and past nbits, nbits
+    mid-lane and 0; NL of 1, 3 and 17, J of 1 and 2 (joins that fail)."""
+    word, start, nbits = lane_edge_rows(G, NL, seed=G + NL)
+    jm, jj = j_i2._lane_walk(jnp.asarray(u32(word)), jnp.asarray(start),
+                             jnp.asarray(nbits), G=G, J=J, interpret=True)
+    tm, tj = i2._lane_walk(tt(word), tt(start), tt(nbits), G=G, J=J)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tj.numpy(), np.asarray(jj))
+    assert not tm.numpy()[5].any() and not tm.numpy()[4].any()
+
+
+@pytest.mark.parametrize("B,NL,G,want", [
+    (8, 256, 2048, (4, True)),        # the indexed decode's batch
+    (64, 256, 2048, (8, True)),       # a chained-route row chunk
+    (2, 3, 256, (1, True)),
+    (6, 3, 92928, (1, True)),         # the widest lane that stages
+    (6, 3, 93056, (1, False)),        # walks device memory
+    (64, 256, 32768, (4, True))])     # 9 lanes of 32 K do not fit
+def test_lanes_per_block(B, NL, G, want):
+    """The lane-walk kernel's lanes a block (up to 8, at least two blocks
+    an SM on 132 SMs) and whether they stage in the 227 KiB of shared
+    memory."""
+    assert i2._lanes_per_block(B, NL, G, 132) == want
+    L, staged = want
+    assert (i2._lane_shared_bytes(L, G) <= i2.LANE_SMEM) == staged
 
 
 def test_lane_walk_rejects_bad_widths():

@@ -12,7 +12,8 @@ from flate_tpu.jx import runs as j_runs
 
 from flate_tpu_torch.device import runs
 
-from _torch_corpora import CTX, KINDS, S, tt, windows
+from _torch_corpora import (CTX, KINDS, S, small_run_edge_rows, tt,
+                            windows)
 
 
 def _bounds(ctx_len, valid):
@@ -36,6 +37,22 @@ def test_small_dist_runs_equal(kind, bounds):
     tl, td = runs.small_dist_runs(tt(win), tt(limit), tt(min_src))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("W", [3 * 8192 + 100, 1000])
+def test_small_dist_runs_edges_equal(W):
+    """Runs of 257, 258 and 259 bytes and of periods 2-8 across every
+    4,096-position tile end (the JAX kernel's 8,192 ends among them), a
+    limit inside a run and inside the 257-byte halo, min_src inside a tile,
+    d = 8 at tile starts, limit <= min_src; W not a multiple of either
+    tile, and W below both (tests/_torch_corpora.py small_run_edge_rows)."""
+    win, limit, min_src = small_run_edge_rows(W, seed=W)
+    jl, jd = j_runs.small_dist_runs(jnp.asarray(win), jnp.asarray(limit),
+                                    jnp.asarray(min_src), interpret=True)
+    tl, td = runs.small_dist_runs(tt(win), tt(limit), tt(min_src))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert (tl.numpy() == 258).any() and not tl.numpy()[3].any()
 
 
 @pytest.mark.parametrize("cap", [8, 16])

@@ -1,4 +1,4 @@
-"""Where the time of kernels B2 (matcher) and B10 (bitonic network) goes.
+"""Where the time of kernels B2, B3, B6, B7, B9 and B10 goes.
 
     python3 tools/torch_kernel_probe.py [--reps 20]
 
@@ -38,6 +38,36 @@ what the chain costs there.
 
     python3 tools/torch_kernel_probe.py --part walks [--tree DIR]
 
+B3 (small-distance runs), `--part runs`: on the inputs chip_smoke.py
+times it at (the first 8 MiB batch of the mixed corpus, window, limit and
+min_src), once under each level's name (B3 takes the same inputs at every
+level: the rows show the spread), then on 64 x 163,840 bytes of the text
+corpus, of seeded random bytes and of zeros (every run as long as the
+bounds allow), each with the share of groups of 4 positions whose run at
+d leaves their 32-position bitmap word (the kernel then reads up to 9
+more words) and the share of 4,096-position tiles that hold such a group.
+B3 and B6 are timed three ways: by events around --reps calls (as
+chip_smoke.py times every kernel), as --reps launches captured in one CUDA
+graph and replayed (the device alone), and by the host's time a call;
+where the host's time is the larger, the first reads it.
+
+B6 (lane walk), `--part lanes`: at the indexed decode's batch (the first
+8 level-3 text shards, as for B7) and on a chained-route row chunk (the
+first lane walk of the chained decode of the 8 MiB level-1 mixed member,
+64 rows x 2^19 positions), each with its steps, the most marks in one
+lane and that lane's chain floor (marks x 20.3 ns); where the measured
+tree's kernel takes them, its device split (staging alone, + phase 1, +
+the join, against the whole launch) and its device time at 1, 2, 4, 8, 16
+and 31 lanes a block.
+
+    python3 tools/torch_kernel_probe.py --part runs,lanes [--tree DIR]
+
+End to end, `--part e2e` (not in the default parts): the public entry
+points on the host clock, best of 3 (the level-6 encode of 32 MiB mixed,
+the indexed decode of the text corpus from levels 1 and 3, the chained
+decode of the 8 MiB level-1 mixed member), so that a parent and a change
+compare in one call.
+
 --tree DIR measures the kernels of another checkout (its flate_tpu_torch,
 built into DIR/build) with this probe's code, so that a parent and a change
 run in one call on one card.
@@ -57,16 +87,28 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (B, CTX, S, cuda_ms, mixed_corpus, smi,  # noqa: E402
-                        text_corpus)
+from chip_smoke import (B, CHAIN_STEP_NS, CTX, S,  # noqa: E402
+                        chained_chunk, cuda_ms, graph_ms, host_ms,
+                        mixed_corpus, most_marks, smi, text_corpus)
 
 # the checkout whose flate_tpu_torch is measured: set by main() (--tree)
-bitonic = inflate2 = match2 = parse = pipeline2 = None
+api = bitonic = inflate2 = match2 = parse = pipeline2 = runs = None
 
 
 def timed(fn, reps: int) -> float:
     fn()
     return cuda_ms(fn, reps)
+
+
+def three_ways(out: dict, key: str, fn, reps: int) -> str:
+    """fn's time by events around reps calls (as chip_smoke.py times it),
+    replayed from a CUDA graph (the device alone) and the host's time a
+    call, into out[key], out[key + "_graph"], out[key + "_host"]."""
+    out[key] = timed(fn, reps)
+    out[f"{key}_graph"] = graph_ms(fn, reps)
+    out[f"{key}_host"] = host_ms(fn, reps)
+    return (f"{out[key]:.4f} ms (graph {out[f'{key}_graph']:.4f}, host "
+            f"{out[f'{key}_host']:.4f} a call)")
 
 
 def level6_batch():
@@ -173,10 +215,25 @@ def block_hops(step: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (mask & ~(prev & lit & (pos % 8 != 0))).sum(dim=1)
 
 
-def walks(reps: int) -> dict:
-    from flate_tpu_torch import api
+def text_words():
+    """(word, start, nbits) of the first 8 level-3 text shards, the decode
+    batch chip_smoke.py phase 5 times B6 and B7 on."""
     from flate_tpu_torch.containers import Container, parse_header
     from flate_tpu_torch.shard_index import parse_index_extra
+    blob = api.gzip.compress(text_corpus(3_359_630), level=3)
+    hdr, meta = parse_header(Container.GZIP, blob)
+    comp_lens, out_lens, _ = parse_index_extra(meta.extra)
+    run, off = [], hdr
+    for c_len, o_len in zip(comp_lens[:8], out_lens[:8]):
+        sh = blob[off:off + int(c_len)]
+        off += int(c_len)
+        run.append((inflate2.plan_shard(sh, int(o_len)), sh))
+    dargs = inflate2.pack_coded_run(run, b"", torch.device("cuda"))
+    word = inflate2._pass1(dargs[0], *dargs[3:9])
+    return word, dargs[2], 8 * dargs[1]
+
+
+def walks(reps: int) -> dict:
     dev = torch.device("cuda")
     out = {}
 
@@ -190,17 +247,7 @@ def walks(reps: int) -> dict:
         print(f"{name}: {out[name]:.4f} ms", flush=True)
 
     # B7 on the first 8 level-3 text shards, as chip_smoke.py phase 5
-    blob = api.gzip.compress(text_corpus(3_359_630), level=3)
-    hdr, meta = parse_header(Container.GZIP, blob)
-    comp_lens, out_lens, _ = parse_index_extra(meta.extra)
-    run, off = [], hdr
-    for c_len, o_len in zip(comp_lens[:8], out_lens[:8]):
-        sh = blob[off:off + int(c_len)]
-        off += int(c_len)
-        run.append((inflate2.plan_shard(sh, int(o_len)), sh))
-    dargs = inflate2.pack_coded_run(run, b"", dev)
-    word = inflate2._pass1(dargs[0], *dargs[3:9])
-    start, nbits = dargs[2], 8 * dargs[1]
+    word, start, nbits = text_words()
     DB, DN = word.shape
     NS = S + 128
     _, counts = inflate2._walk(word, start, nbits, NS)
@@ -228,7 +275,7 @@ def walks(reps: int) -> dict:
           f"{out['B7_text_steps_max']} steps in the longest row -> walk "
           f"{out['B7_text_walk_ms']:.4f} ms of {out['B7_text']:.4f}",
           flush=True)
-    del word, dargs
+    del word
 
     # B9 on the level-6 batch: parse blocks at levels 6 and 9, shards
     window, ctx_len, valid = level6_batch()
@@ -275,12 +322,144 @@ def walks(reps: int) -> dict:
     return out
 
 
+def leave_shares(win: torch.Tensor, limit: torch.Tensor) -> dict:
+    """Per d, the share of groups of 4 positions whose run leaves their
+    32-position stop word (no mismatch and not past min(W, limit) at or
+    after the group's last position in the word), and the share of
+    4,096-position tiles with such a group at any d."""
+    Bw, W = win.shape
+    Wp = -(-W // 4096) * 4096
+    w = win.to(torch.int16)
+    pos = torch.arange(Wp, device=win.device)[None, :]
+    end = torch.clamp(limit.to(torch.int64), max=W)[:, None]
+    idx = torch.arange(32, device=win.device)
+    g_last = torch.arange(8, device=win.device) * 4 + 3
+    out, leave_any = {}, None
+    for d in (1, 2, 3, 4, 8):
+        prev = torch.nn.functional.pad(w[:, :W - d], (d, 0))
+        stop = torch.nn.functional.pad(w != prev, (0, Wp - W), value=True)
+        stop = (stop | (pos >= end)).reshape(Bw, Wp // 32, 32)
+        last = torch.where(stop, idx, -1).amax(dim=2)
+        leave = last[..., None] < g_last            # (B, words, 8 groups)
+        out[f"d{d}"] = float(leave.float().mean())
+        leave_any = leave if leave_any is None else leave_any | leave
+    out["tiles"] = float(leave_any.reshape(Bw, Wp // 4096, -1).any(dim=2)
+                         .float().mean())
+    return out
+
+
+def small_runs(reps: int) -> dict:
+    window, ctx_len, valid = level6_batch()
+    Bw, W = window.shape
+    dev = window.device
+    min_src = (CTX - ctx_len).to(torch.int32)
+    limit = (CTX + valid).to(torch.int32)
+    out = {}
+    for L in (1, 3, 6, 9):
+        line = three_ways(out, f"B3_l{L}", lambda: runs.small_dist_runs(
+            window, limit, min_src), reps)
+        print(f"B3 at level {L}'s inputs: {line}", flush=True)
+    rng = np.random.default_rng(0)
+    corpora = {
+        "mixed": window,
+        "text": torch.frombuffer(bytearray(text_corpus(Bw * W)),
+                                 dtype=torch.uint8).reshape(Bw, W).to(dev),
+        "random": torch.from_numpy(rng.integers(0, 256, (Bw, W),
+                                                dtype=np.uint8)).to(dev),
+        "zeros": torch.zeros_like(window)}
+    for name, win in corpora.items():
+        line = three_ways(out, f"B3_{name}", lambda: runs.small_dist_runs(
+            win, limit, min_src), reps)
+        share = leave_shares(win, limit)
+        out[f"B3_{name}_leave_share"] = share
+        print(f"B3 on {name}: {line}; groups of 4 that leave their "
+              f"word by d " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        share.items() if k != "tiles")
+              + f"; tiles with such a group {share['tiles']:.4f}",
+              flush=True)
+    return out
+
+
+def lanes(reps: int) -> dict:
+    G, J = inflate2.LANE_G, inflate2.LANE_J
+    out = {}
+    chunks = {"table": text_words(),
+              "chained": chained_chunk(api, inflate2, api.gzip.compress(
+                  mixed_corpus(B * S), level=1))}
+    split = hasattr(inflate2, "_lane_walk_cuda")
+    for name, (word, start, nbits) in chunks.items():
+        steps = {}
+        mask = inflate2._lane_walk_plain(word, start, nbits, G, J, steps)[0]
+        marks = most_marks(mask, G)
+        key = f"B6_{name}"
+        times = three_ways(out, key, lambda: inflate2._lane_walk(
+            word, start, nbits, G=G, J=J), reps)
+        out[f"{key}_steps"] = steps
+        out[f"{key}_most_marks"] = marks
+        out[f"{key}_chain_floor_ms"] = marks * CHAIN_STEP_NS * 1e-6
+        line = (f"B6 {name}: {tuple(word.shape)}, {times}; steps {steps}; "
+                f"most marks in one lane {marks} -> chain floor "
+                f"{out[f'{key}_chain_floor_ms']:.4f} ms")
+        if split:                    # device times, from CUDA graphs
+            for ph, what in ((0, "staging"), (1, "phase1"), (2, "join")):
+                out[f"{key}_upto_{what}_graph"] = graph_ms(
+                    lambda: inflate2._lane_walk_cuda(word, start, nbits, G, J,
+                                                     phases=ph), reps)
+            st, p1, jn = (out[f"{key}_upto_{w}_graph"]
+                          for w in ("staging", "phase1", "join"))
+            line += (f"; device split: staging {st:.4f}, phase 1 "
+                     f"{p1 - st:.4f}, join {jn - p1:.4f}, write-out "
+                     f"{out[f'{key}_graph'] - jn:.4f} ms")
+            for L in (1, 2, 4, 8, 16, 31):
+                out[f"{key}_L{L}_graph"] = graph_ms(
+                    lambda: inflate2._lane_walk_cuda(word, start, nbits, G, J,
+                                                     L=L), reps)
+            line += "; device ms by lanes a block " + ", ".join(
+                f"{L}: {out[f'{key}_L{L}_graph']:.4f}"
+                for L in (1, 2, 4, 8, 16, 31))
+        print(line, flush=True)
+    return out
+
+
+def e2e(reps: int) -> dict:
+    """The public entry points on the host clock, as chip_smoke.py phases
+    4, 6 and 8 time them, best of 3 after a warm-up: the 32 MiB mixed
+    corpus encoded at level 6, the text corpus decoded from levels 1 and 3
+    (indexed route) and the 8 MiB level-1 mixed member (chained route)."""
+    data32 = mixed_corpus(4 * B * S)
+    text = text_corpus(3_359_630)
+    mixed1 = api.gzip.compress(data32[:B * S], level=1)
+    calls = {"encode_l6_mixed32": (len(data32),
+                                   lambda: api.gzip.compress(data32, level=6))}
+    for L in (1, 3):
+        blob = api.gzip.compress(text, level=L)
+        calls[f"decode_text_l{L}"] = (len(text),
+                                      lambda b=blob: api.gzip.decompress(b))
+    calls["decode_mixed8_l1_chained"] = (
+        B * S, lambda: api.gzip.decompress(mixed1))
+    out = {}
+    for name, (size, fn) in calls.items():
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        out[f"{name}_gbps"] = size / best / 1e9
+        print(f"{name}: best of 3 {best:.4f} s = "
+              f"{out[f'{name}_gbps']:.4f} GB/s", flush=True)
+    return out
+
+
 def main() -> int:
-    global bitonic, inflate2, match2, parse, pipeline2
+    global api, bitonic, inflate2, match2, parse, pipeline2, runs
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--part", default="matcher,network,walks",
-                    help="comma-separated: matcher, network, walks")
+    ap.add_argument("--part", default="matcher,network,walks,runs,lanes",
+                    help="comma-separated: matcher, network, walks, runs, "
+                         "lanes, e2e")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -288,13 +467,15 @@ def main() -> int:
         print("torch_kernel_probe: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.tree))
+    from flate_tpu_torch import api
     from flate_tpu_torch.device import bitonic, inflate2, match2, parse
-    from flate_tpu_torch.device import pipeline2
+    from flate_tpu_torch.device import pipeline2, runs
     card = smi()
     print(card, flush=True)
     print(f"tree: {os.path.abspath(args.tree)}", flush=True)
     res = {"card": card, "tree": os.path.abspath(args.tree)}
-    parts = {"matcher": matcher, "network": network, "walks": walks}
+    parts = {"matcher": matcher, "network": network, "walks": walks,
+             "runs": small_runs, "lanes": lanes, "e2e": e2e}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
