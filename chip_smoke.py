@@ -13,7 +13,11 @@ Phases, one line each:
      of bench.py's mixed corpus, every kernel fed with the real outputs of
      the stages before it: exact equality, kernel and plain times, and the
      bound (bytes over the memory rate or the integer operations this
-     data needs over the int32 issue rate, whichever is larger);
+     data needs over the int32 issue rate, whichever is larger); B1, B3
+     and B5 (the whole pack_fields call, its offsets included) also
+     replayed from a CUDA graph (graph_ms, the device alone), and a line
+     each for torch.sort of B1's int32 keys beside the same keys as
+     int64;
   4. the main path: flate_tpu_torch.api.gzip.compress of 32 MiB of the
      mixed corpus at levels 1 and 3 with the launch counters reset just
      before each run and read just after; the output must decode with zlib,
@@ -29,8 +33,8 @@ Phases, one line each:
      on one chained-route row chunk (the first lane walk of the chained
      decode of phase 4's 8 MiB level-1 mixed member: up to 64 rows of
      64 KiB spans, 2^19 positions each), with its steps and chain floor;
-     B3 and B6 are also timed replayed from a CUDA graph (graph_ms, the
-     device alone: their calls' host time is as large as the kernels);
+     B6 is also timed replayed from a CUDA graph (graph_ms, the device
+     alone: its calls' host time is as large as the kernel);
   6. the decode path through flate_tpu_torch.api.*.decompress on the card:
      (a) the text corpus as encoded at levels 1 and 3 (indexed route),
      (b) the 32 MiB mixed member of level 3 and the 8 MiB one of level 1
@@ -66,8 +70,8 @@ Phases, one line each:
      compaction, decoded by zlib, with parse_walk held against
      parse_doubling on the same matches;
   9. B10, the bitonic sort probe's network (tools/bitonic_probe.py), on
-     the level-6 payload of phase 3's batch: B1's keys and the 8 carry
-     words of each position (built from the window) padded from 163,840
+     the level-6 payload of phase 3's batch: B1's keys (as u32) and the 8
+     carry words of each position (built from the window) padded from 163,840
      to 2^18 (key 0xFFFFFFFF, operands the position), all 171 substages
      in the passes plan_passes cuts them into (printed), through
      device/bitonic.run with the launch counter reset before and read
@@ -377,8 +381,21 @@ def main() -> int:
             nbytes(win) + rows * Wp * 4 * (1 + nf),    # u32 key + nf words
             # one op per byte hashed or gathered into a fingerprint
             rows * Wp * (4 * ((ne << nf) - ne if nf else 0) + hash_bytes),
-            note=note)
+            note=note, graph=True)
         skey, order = torch.sort(key, dim=1)
+        # the key sort at B1's int32 keys, beside the same keys as int64
+        # (the sort's width before B1 wrote int32)
+        k64 = match2.key_u32(key)
+        sorts = {"sort_ms": cuda_ms(lambda: torch.sort(key, dim=1), 20),
+                 "sort_int64_ms": cuda_ms(lambda: torch.sort(k64, dim=1), 20)}
+        if not torch.equal(match2.key_u32(skey), torch.sort(k64, dim=1)[0]):
+            raise AssertionError(f"{tag}: the int32 key sort is not the u32 "
+                                 f"order")
+        cases[-1].update(sorts)
+        del k64
+        print(f"[{phase}] key sort {tag}: torch.sort of the int32 keys "
+              f"{sorts['sort_ms']:.4f} ms (of the same keys as int64 "
+              f"{sorts['sort_int64_ms']:.4f} ms)", flush=True)
         args = (skey, order, win, fps, ms_, lim_, W, K, max_dist, ne,
                 hash_bytes, top2)
         # what the scan needs on this data: the candidates within K before
@@ -487,22 +504,24 @@ def main() -> int:
         vals, bits, _, _ = encode2.build_fields(
             window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S,
             seg)
-        bits = bits.to(torch.int32)
-        incl = torch.cumsum(bits, dim=1, dtype=torch.int32)
-        off = (incl - bits).contiguous()
-        nwords = pipeline2._nwr(S, seg) * 128
+        nwr = pipeline2._nwr(S, seg)
+        # the whole pack_fields call (its offsets included), words as
+        # (B, nwords) beside the plain version's cumsum + placement
         case(phase, path, f"pack_l{L}", "flate_pack",
              "flate_tpu/jx/pack.py:32",
-             lambda: pack._place(vals, off, nwords),
-             lambda: pack._place_plain(vals, off, nwords),
-             vals.numel() * 4 + nbytes(off) + B * nwords * 4,  # u32 values
-             2 * int((vals != 0).sum()))   # shift + atomic OR per field
+             lambda: (lambda w, t: (w.reshape(B, -1), t))(
+                 *pack.pack_fields(vals, bits, nwr)),
+             lambda: pack._pack_plain(vals, bits, nwr * 128),
+             # u32 values and widths in, the words out
+             nbytes(vals, bits) + B * nwr * 128 * 4,
+             3 * int((bits != 0).sum()),   # add, shift and OR per field
+             graph=True)
         if L == 6:
             # rows = shards, as parse_walk cuts them: untruncated matches
             _, step = parse.decide(*whole, True, 32)
             walk_case(7, ("fp", "parse_walk"), "parse_walk_shards",
                       step[:, CTX:].to(torch.int32).contiguous())
-        del ld, vals, off, whole, mask, step
+        del ld, vals, bits, whole, mask, step
 
     # the fp/top-2 matcher (no level sets it) and the top-2 extension
     ne, nf = match2._split_words(8, True)
@@ -837,7 +856,7 @@ def main() -> int:
     words6 = to_i32(match2._window_words(
         window, torch.arange(Wp, device=dev).expand(B, Wp), 8, 4))
     k10 = torch.full((B, n10), -1, dtype=torch.int32, device=dev)
-    k10[:, :Wp] = to_i32(key6)
+    k10[:, :Wp] = to_i32(match2.key_u32(key6))    # B1 stores u32 ^ 2^31
     pos = torch.arange(n10, dtype=torch.int32, device=dev).expand(B, n10)
     o10 = []
     for i in range(words6.shape[1]):

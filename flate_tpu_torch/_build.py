@@ -45,7 +45,7 @@ ENCODE_KERNELS = {
     "flate_extend": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flate_extend2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "flate_parse_walk": [_P, _P, _I, _I, _P],
-    "flate_pack": [_P, _P, _P, _I, _I, _I, _P],
+    "flate_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 DECODE_KERNELS = {
     "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -4,24 +4,25 @@
 // package.  They compute what the TPU kernels compute, not how: the TPU
 // versions tile (8, 1024) vregs, halo neighbouring tiles through extra
 // BlockSpecs and count runs by saturating doubling because VMEM rounds are
-// cheap there.  On the H100 each is one thread per position (or field),
-// reading device memory directly, except the matcher (B2: a block stages a
-// tile of sorted rows and their candidates in shared memory), the small-
-// distance runs (B3: a block stages a tile and reads runs off stop bitmaps)
-// and the parse walk (B9: one chain per row, read from shared memory — a
-// warp stages a parse block, a longer row streams through ring_walk.cuh).
+// cheap there.  On the H100 the chain extensions (B4, B8) are one thread
+// per position, reading device memory directly; the prep (B1: a block
+// stages a tile of bytes and a thread hashes 4 positions), the matcher
+// (B2: a block stages a tile of sorted rows and their candidates), the
+// small-distance runs (B3: a block stages a tile and reads runs off stop
+// bitmaps) and the bit pack (B5: a block packs a tile of fields into its
+// words, its offset from a single-pass scan) work from shared memory, and
+// the parse walk (B9) chases one chain per row there — a warp stages a
+// parse block, a longer row streams through ring_walk.cuh.
 // B1 and B3-B5 are bound by memory traffic (a few bytes moved per
-// position, a handful of integer operations); the design keeps each
-// thread's reads within a few cache lines of its neighbours' so warps stay
-// coalesced where the data allows.
+// position, a handful of integer operations).
 //
 // Interface: plain C (ctypes), every entry point launches on the caller's
 // stream and returns cudaGetLastError().  Buffers are allocated by the
 // Python wrappers (flate_tpu_torch/device/*.py), which check dtype, shape,
 // device and contiguity before calling.
 //
-// u32 quantities travel as int32 bit patterns in 32-bit buffers, sort keys
-// as non-negative int64.
+// u32 quantities travel as int32 bit patterns in 32-bit buffers; a sort
+// key travels as u32 key ^ 0x80000000, whose int32 order is the u32 order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,7 +35,6 @@ constexpr uint32_t kHashMul = 0x9E3779B1u;   // Fibonacci hashing multiplier
 constexpr int kPosBits = 18;                  // window <= 256 KiB positions
 constexpr uint32_t kPosMask = (1u << kPosBits) - 1u;
 constexpr int kHashBits = 32 - kPosBits;      // 14-bit buckets
-constexpr long long kSentinel = 0xFFFFFFFFll;
 constexpr int kMinMatch = 3;
 constexpr int kMaxMatch = 258;
 constexpr int kThreads = 256;
@@ -51,40 +51,93 @@ inline unsigned grid_for(long long n) {
 // little-endian words [ne*2^j, ne*2^(j+1)) of the bytes from pos onward
 // (zero past W) as fp = fp * 0x01000193 + word in u32 wraparound.  The
 // TPU kernel also writes the ne exact carry words, which ride its sort;
-// here B2 builds them from the window, so they are not written.
-// Bound: bytes — W bytes in, 8 + 4*nf bytes out per position; each
-// thread's read overlaps its neighbours', so the window is served from
-// L1/L2 after the first touch.
+// here B2 builds them from the window, so they are not written.  The key
+// is written as the int32 bit pattern of key ^ 0x80000000 (kKeyFlip), so
+// that a signed 32-bit sort orders it as the u32 key: PyTorch's CUDA sort
+// takes no uint32, and an int64 key would double the bytes of B1 and of
+// the sort.
+// Bound: bytes — W bytes in, 4 + 4*nf bytes out a position.  So no byte
+// is loaded twice from device memory or bounds-tested alone: a block takes
+// a tile of kPrepTile positions of one row and stages its bytes and the
+// halo a position reads past it (up to 4*(ne<<nf) - 1 bytes, zero past W,
+// never the next row) in shared memory with cp.async 16-byte copies (byte
+// copies when W % 16 != 0 or the row is unaligned); a thread then takes 4
+// consecutive positions at a time from two aligned words and each word
+// past them by funnel shifts (the big-endian hash prefix by __byte_perm),
+// and writes its 4 keys, and 4 words of each fingerprint plane, with
+// 16-byte stores.
 // --------------------------------------------------------------------------
-__global__ void prep_kernel(const uint8_t* __restrict__ window,
-                            long long* __restrict__ key,
-                            uint32_t* __restrict__ words,
-                            int B, int W, int Wp, int ne, int nf,
-                            int hash_bytes) {
-  long long gid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (gid >= static_cast<long long>(B) * Wp) return;
-  int b = static_cast<int>(gid / Wp);
-  int pos = static_cast<int>(gid - static_cast<long long>(b) * Wp);
+constexpr int kPrepTile = 4096;                 // positions a block
+constexpr int kPrepThreads = 256;
+constexpr uint32_t kSentinel32 = 0xFFFFFFFFu;
+constexpr uint32_t kKeyFlip = 0x80000000u;      // stored key = u32 key ^ flip
+constexpr int kMaxGridY = 65535;                // rows past it go to gridDim.z
+
+// Bytes prep_kernel stages: the tile and the words past it that its last
+// group of 4 positions reads (4 * span4 bytes), in 16-byte copies.
+__host__ __device__ constexpr int prep_stage(int span4) {
+  return kPrepTile + ((4 * span4 + 15) & ~15);
+}
+
+__global__ void __launch_bounds__(kPrepThreads)
+prep_kernel(const uint8_t* __restrict__ window, int* __restrict__ key,
+            uint32_t* __restrict__ words, int B, int W, int Wp, int ne,
+            int nf, int hash_bytes, int stage, int vec_in) {
+  extern __shared__ __align__(16) uint8_t prep_smem[];   // w[t0 + i], 0 past W
+  const int t0 = blockIdx.x * kPrepTile;
+  const int b = blockIdx.z * kMaxGridY + blockIdx.y;
+  if (b >= B) return;
   const uint8_t* row = window + static_cast<long long>(b) * W;
-  auto at = [&](int i) -> uint32_t { return i < W ? row[i] : 0u; };
-  auto le_word = [&](int w) -> uint32_t {
-    uint32_t v = 0;
-    for (int j = 0; j < 4; ++j) v |= at(pos + 4 * w + j) << (8 * j);
-    return v;
-  };
-  uint32_t* wout = words + static_cast<long long>(b) * nf * Wp + pos;
-  for (int j = 0; j < nf; ++j) {
-    int lo = ne << j, hi = ne << (j + 1);
-    uint32_t fp = le_word(lo);
-    for (int w = lo + 1; w < hi; ++w) fp = fp * kFpMul + le_word(w);
-    wout[static_cast<long long>(j) * Wp] = fp;
+  if (vec_in) {                                // W % 16 == 0: no copy straddles W
+    for (int i = threadIdx.x; i < stage / 16; i += kPrepThreads) {
+      const int y = t0 + 16 * i;
+      if (y < W) ring::cp_async16(prep_smem + 16 * i, row + y);
+      else reinterpret_cast<uint4*>(prep_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    ring::cp_async_wait_all();
+  } else {
+    for (int i = threadIdx.x; i < stage; i += kPrepThreads) {
+      const int y = t0 + i;
+      prep_smem[i] = y < W ? row[y] : 0;
+    }
   }
-  // big-endian packed prefix for the Fibonacci hash
-  uint32_t v = 0;
-  for (int j = 0; j < hash_bytes; ++j) v = (v << 8) | at(pos + j);
-  uint32_t h = (v * kHashMul) >> (32 - kHashBits);
-  key[gid] = pos < W ? static_cast<long long>((h << kPosBits) | static_cast<uint32_t>(pos))
-                     : kSentinel;
+  __syncthreads();
+  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(prep_smem);
+  const int hshift = 8 * (4 - hash_bytes);     // big-endian prefix of hash_bytes
+  const long long at = static_cast<long long>(b) * Wp + t0;
+  for (int g = threadIdx.x; g < kPrepTile / 4; g += kPrepThreads) {
+    const int p = 4 * g;                       // the group's first position
+    const uint32_t a0 = s32[g], a1 = s32[g + 1];
+    uint32_t k[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t le = __funnelshift_r(a0, a1, 8 * q);
+      const uint32_t v = __byte_perm(le, 0u, 0x0123) >> hshift;
+      const uint32_t h = (v * kHashMul) >> (32 - kHashBits);
+      const int pos = t0 + p + q;
+      k[q] = (pos < W ? (h << kPosBits) | static_cast<uint32_t>(pos) : kSentinel32)
+             ^ kKeyFlip;
+    }
+    *reinterpret_cast<int4*>(key + at + p) =
+        make_int4(static_cast<int>(k[0]), static_cast<int>(k[1]),
+                  static_cast<int>(k[2]), static_cast<int>(k[3]));
+    for (int j = 0; j < nf; ++j) {
+      const int lo = ne << j, hi = ne << (j + 1);
+      uint32_t fp[4];
+      uint32_t w0 = s32[g + lo];
+      for (int w = lo; w < hi; ++w) {
+        const uint32_t w1 = s32[g + w + 1];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t x = __funnelshift_r(w0, w1, 8 * q);
+          fp[q] = w == lo ? x : fp[q] * kFpMul + x;
+        }
+        w0 = w1;
+      }
+      *reinterpret_cast<uint4*>(words + (static_cast<long long>(b) * nf + j) * Wp +
+                                t0 + p) = make_uint4(fp[0], fp[1], fp[2], fp[3]);
+    }
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -128,6 +181,8 @@ __global__ void prep_kernel(const uint8_t* __restrict__ window,
 // rows keep their words in shared memory, the K halo rows keep their keys,
 // and a halo candidate's words are built from the window as it is compared
 // (window_match), as far as the first word that differs.
+// The sorted keys arrive as B1 stores them (int32, u32 key ^ kKeyFlip) and
+// are flipped back as they are staged.
 // Bound: bytes — the sorted keys (u32), the window, one or two outputs
 // (scattered 4-byte stores), and the fingerprint words when nf > 0; the
 // window is read (T + K) / T times and every other candidate read comes
@@ -137,7 +192,6 @@ constexpr int kMatchThreads = 256;
 constexpr int kMatchRowsMax = 1024;           // sorted rows a block scans
 constexpr size_t kMatchSmemTarget = 64 * 1024;
 constexpr size_t kSmemMax = 227 * 1024;
-constexpr uint32_t kSentinel32 = 0xFFFFFFFFu;
 
 // Words a staged row takes in shared memory: odd, so a warp's rows fall
 // in different banks.
@@ -173,7 +227,7 @@ __device__ __forceinline__ int window_match(const uint32_t (&tw)[NE],
 
 template <int NE, bool HALO>
 __global__ void __launch_bounds__(kMatchThreads)
-matcher_kernel(const long long* __restrict__ skey,
+matcher_kernel(const int* __restrict__ skey,
                const uint32_t* __restrict__ window,
                const uint32_t* __restrict__ fps,
                const int* __restrict__ min_src,
@@ -189,7 +243,7 @@ matcher_kernel(const long long* __restrict__ skey,
   const int worded = HALO ? K : 0;             // first row staged with words
   uint32_t* skeys = msm;
   uint32_t* cw = msm + rows;                   // words of rows worded ..
-  const long long* krow = skey + static_cast<long long>(b) * Wp;
+  const int* krow = skey + static_cast<long long>(b) * Wp;
   const int nw4 = Ww >> 2;
   const uint32_t* wrow = window + static_cast<long long>(b) * nw4;
   const uint32_t mask0 = hash_bytes < 4 ? (1u << (8 * hash_bytes)) - 1u : ~0u;
@@ -197,8 +251,8 @@ matcher_kernel(const long long* __restrict__ skey,
   // under its NE words, loaded together, and NE funnel shifts
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     const int g = i0 - K + r;
-    const uint32_t k =
-        g >= 0 && g < Wp ? static_cast<uint32_t>(krow[g]) : kSentinel32;
+    const uint32_t k =                         // B1's stored key, flipped back
+        g >= 0 && g < Wp ? static_cast<uint32_t>(krow[g]) ^ kKeyFlip : kSentinel32;
     skeys[r] = k;
     if (r < worded) continue;
     uint32_t* dst = cw + (r - worded) * stride;
@@ -322,7 +376,6 @@ constexpr int kRunHalo = kMaxMatch - 1;         // bits right of the tile a run 
 constexpr int kRunWords = (kRunTile + kRunHalo) / 32 + 1;   // stop words a d
 constexpr int kRunLead = 16;                    // staged bytes left of the tile (d <= 8)
 constexpr int kRunStage = kRunLead + 32 * kRunWords;        // a multiple of 16
-constexpr int kMaxGridY = 65535;                // rows past it go to gridDim.z
 
 __global__ void __launch_bounds__(kRunThreads)
 small_runs_kernel(const uint8_t* __restrict__ window,
@@ -715,46 +768,230 @@ parse_ring_kernel(const int* __restrict__ step, uint8_t* __restrict__ mask,
 }
 
 // --------------------------------------------------------------------------
-// B5 bit placement — replaces flate_tpu/jx/pack.py:_pack_kernel (via
-// pack_fields).  One thread per field: ORs v<<sh into word off>>5 and, when
-// the field straddles, v>>(32-sh) into the next word.  Offsets are the
-// exclusive prefix sum of the field widths (computed by the wrapper); the
-// words are zeroed by the wrapper, so the zero tail is exact.  The TPU uses
-// two bf16 one-hot matmuls per 512 fields because it has no scatter; the
-// H100 has atomics.  Bound: bytes — 12 bytes in per field, the packed
-// words out.
+// B5 bit pack — replaces flate_tpu/jx/pack.py:_pack_kernel (via
+// pack_fields).  Fields (value, width) of a row go LSB-first, each at the
+// exclusive prefix sum of the widths before it in its row; the words are
+// zero past the stream and bits at or past word nwords are dropped; the
+// row's total width is written too.  The TPU does the prefix sums in XLA
+// and places groups of 512 fields with two bf16 one-hot matmuls, because
+// it has no scatter.
+// Bound: bytes — u32 values and widths in, the words out.  So the offsets
+// are not a pass of their own and a field is not an atomic in device
+// memory: a block takes a tile of kPackTile consecutive fields of one
+// row, 16 a thread, read with 16-byte loads, and finds the tile's offset
+// in its row by a single-pass scan with decoupled look-back (Merrill &
+// Garland): tiles are handed out in order by an atomic ticket, so every
+// tile a block waits on is already running; a tile publishes its width
+// sum, then its inclusive prefix, each with its flag in one 64-bit status
+// word, and warp 0 of the next tile sums the 32 statuses before it at a
+// time back to the first inclusive one.  The status words and the ticket are zeroed by the
+// wrapper for every call (it zeroes the words as well), so a CUDA graph
+// replays the kernel as it is.  Each thread assembles its run of fields in
+// registers into whole words (a field spans at most 2) and puts them into a
+// shared-memory buffer of the tile's words (the first and the last word of
+// a thread's run by a shared atomicOr: its neighbours' runs share them).
+// The block then stores the buffer with 16-byte stores; only the tile's
+// first and last word, which the tiles beside it may share, are ORed into
+// device memory with atomics.
 // --------------------------------------------------------------------------
-__global__ void pack_kernel(const long long* __restrict__ vals,
-                            const int* __restrict__ off,
-                            uint32_t* __restrict__ words,
-                            int B, int slots, int nwords) {
-  long long gid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (gid >= static_cast<long long>(B) * slots) return;
-  uint32_t v = static_cast<uint32_t>(vals[gid]);
-  if (v == 0) return;
-  int b = static_cast<int>(gid / slots);
-  int o = off[gid];
-  int w = o >> 5;
-  int sh = o & 31;
-  uint32_t* row = words + static_cast<long long>(b) * nwords;
-  if (w < nwords) atomicOr(row + w, v << sh);
-  if (sh != 0 && w + 1 < nwords) {
-    uint32_t hi = v >> (32 - sh);
-    if (hi) atomicOr(row + w + 1, hi);
+constexpr int kPackTile = 4096;                 // fields a block
+constexpr int kPackThreads = 256;
+constexpr int kPackPer = kPackTile / kPackThreads;   // consecutive fields a thread
+// the tile's words: at most (31 + 32 * kPackTile) / 32 + 1, from a lead
+// of up to 3 that aligns them with the row's 16-byte words
+constexpr int kPackWords = kPackTile + 8;
+constexpr unsigned long long kTileAggregate = 1ull << 32;   // status flags
+constexpr unsigned long long kTileInclusive = 2ull << 32;
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(const uint32_t* __restrict__ vals, const int* __restrict__ bits,
+            uint32_t* __restrict__ words, int* __restrict__ total_bits,
+            unsigned long long* __restrict__ status,
+            unsigned int* __restrict__ ticket, int slots, int nwords,
+            int tiles, int vec_in, int vec_out) {
+  __shared__ __align__(16) uint32_t buf[kPackWords];
+  __shared__ uint32_t warp_sum[kPackThreads / 32];
+  __shared__ unsigned int s_tile;
+  __shared__ uint32_t s_excl;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  for (int i = threadIdx.x; i < kPackWords / 4; i += kPackThreads)
+    reinterpret_cast<uint4*>(buf)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int b = static_cast<int>(s_tile / tiles);
+  const int t = static_cast<int>(s_tile - static_cast<unsigned>(b) * tiles);
+
+  // this thread's fields; past the row they are empty
+  const int first = t * kPackTile + kPackPer * threadIdx.x;
+  const long long f0 = static_cast<long long>(b) * slots + first;
+  uint32_t v[kPackPer];
+  uint32_t n[kPackPer];
+  if (vec_in && first + kPackPer <= slots) {   // slots % 4 == 0: aligned
+#pragma unroll
+    for (int i = 0; i < kPackPer / 4; ++i) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(vals + f0) + i);
+      const int4 y = __ldg(reinterpret_cast<const int4*>(bits + f0) + i);
+      v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
+      n[4 * i] = y.x; n[4 * i + 1] = y.y; n[4 * i + 2] = y.z; n[4 * i + 3] = y.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPackPer; ++i) {
+      const bool in = first + i < slots;
+      v[i] = in ? __ldg(vals + f0 + i) : 0u;
+      n[i] = in ? static_cast<uint32_t>(__ldg(bits + f0 + i)) : 0u;
+    }
   }
+  uint32_t sum = 0;
+#pragma unroll
+  for (int i = 0; i < kPackPer; ++i) sum += n[i];
+
+  // the thread's offset in the tile and the tile's width: warp shuffles
+  uint32_t x = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(~0u, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  uint32_t before = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kPackThreads / 32; ++w) {
+    const uint32_t s = warp_sum[w];
+    before += w < warp ? s : 0u;
+    agg += s;
+  }
+  const uint32_t mine = before + x - sum;
+
+  // the tile's offset in its row: decoupled look-back
+  if (warp == 0) {
+    unsigned long long* st = status + static_cast<long long>(b) * tiles;
+    uint32_t excl = 0;
+    if (t == 0) {
+      if (lane == 0) store_status(st, kTileInclusive | agg);
+    } else {
+      if (lane == 0) store_status(st + t, kTileAggregate | agg);
+      for (int j = t - 1 - lane;; j -= 32) {   // lane l reads tile j
+        unsigned long long s = kTileInclusive;  // before the row: 0
+        if (j >= 0) {
+          do {
+            s = load_status(st + j);
+          } while ((s >> 32) == 0);
+        }
+        const unsigned inc = __ballot_sync(~0u, (s >> 32) == 2);
+        const int stop = inc ? __ffs(inc) - 1 : 31;   // the nearest inclusive
+        uint32_t add = lane <= stop ? static_cast<uint32_t>(s) : 0u;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(~0u, add, o);
+        excl += add;
+        if (inc) break;
+      }
+      if (lane == 0) store_status(st + t, kTileInclusive | (excl + agg));
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      if (t == tiles - 1) total_bits[b] = static_cast<int>(excl + agg);
+    }
+  }
+  __syncthreads();
+  const uint32_t E = s_excl;
+  const long long row0 = static_cast<long long>(b) * nwords;
+  const int wf = static_cast<int>(E >> 5);     // the tile's first word
+  const int lead = vec_out ? static_cast<int>((row0 + wf) & 3) : 0;
+
+  // the thread's run into whole words: the first and the last (partial)
+  // word may be shared with the threads beside it, the others are its own
+  uint32_t* tb = buf + lead;
+  const uint32_t at = (E & 31u) + mine;        // bit in the tile's words
+  int wi = static_cast<int>(at >> 5);
+  uint32_t sh = at & 31u;
+  uint32_t cur = 0;
+  bool shared_word = true;
+#pragma unroll
+  for (int i = 0; i < kPackPer; ++i) {
+    cur |= v[i] << sh;
+    if (sh + n[i] >= 32u) {                    // the word is full
+      if (shared_word) {
+        if (cur) atomicOr(tb + wi, cur);
+        shared_word = false;
+      } else {
+        tb[wi] = cur;
+      }
+      ++wi;
+      cur = sh ? v[i] >> (32u - sh) : 0u;
+      sh = sh + n[i] - 32u;
+    } else {
+      sh += n[i];
+    }
+  }
+  if (sh != 0u && cur) atomicOr(tb + wi, cur);
+  __syncthreads();
+
+  // out: the tile's words, dropped at or past nwords
+  if (agg == 0u) return;
+  const int nloc = static_cast<int>(((E & 31u) + agg + 31u) >> 5);
+  const bool at0 = (E & 31u) != 0u;            // shares word 0 with tiles before
+  const bool atn = ((E + agg) & 31u) != 0u;    // shares its last with tiles after
+  uint32_t* wrow = words + row0 + wf;
+  const int room = nwords - wf;
+  if (threadIdx.x == 0 && at0 && room > 0 && tb[0]) atomicOr(wrow, tb[0]);
+  if (threadIdx.x == 32 && atn && !(at0 && nloc == 1) && nloc - 1 < room &&
+      tb[nloc - 1])
+    atomicOr(wrow + nloc - 1, tb[nloc - 1]);
+  const int i0 = at0 ? 1 : 0;
+  const int i1 = min(atn ? nloc - 1 : nloc, room);
+  if (i1 <= i0) return;
+  int ia = i0, ib = i0;                        // the 16-byte body [ia, ib)
+  if (vec_out) {
+    ia = min(i1, ((i0 + lead + 3) & ~3) - lead);
+    ib = max(ia, ((i1 + lead) & ~3) - lead);
+  }
+  for (int i = i0 + threadIdx.x; i < ia; i += kPackThreads) wrow[i] = tb[i];
+  for (int i = ia + 4 * threadIdx.x; i < ib; i += 4 * kPackThreads)
+    *reinterpret_cast<uint4*>(wrow + i) = *reinterpret_cast<const uint4*>(tb + i);
+  for (int i = ib + threadIdx.x; i < i1; i += kPackThreads) wrow[i] = tb[i];
 }
 
 }  // namespace
 
 extern "C" {
 
+// key: (B, Wp) int32, words: (B, nf, Wp); Wp a multiple of kPrepTile.
 int flate_prep(const void* window, void* key, void* words, int B, int W,
                int Wp, int ne, int nf, int hash_bytes, void* stream) {
-  long long n = static_cast<long long>(B) * Wp;
-  if (n > 0)
-    prep_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(window), static_cast<long long*>(key),
-        static_cast<uint32_t*>(words), B, W, Wp, ne, nf, hash_bytes);
+  if (B <= 0 || Wp <= 0) return static_cast<int>(cudaGetLastError());
+  if (Wp % kPrepTile != 0 || W > Wp || ne < 1 || nf < 0 || hash_bytes < 1 ||
+      hash_bytes > 4 || reinterpret_cast<uintptr_t>(key) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(words) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int span4 = nf > 0 ? ne << nf : 1;     // words a position reads past it
+  const int stage = prep_stage(span4);
+  if (static_cast<size_t>(stage) > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (stage > 48 * 1024) {
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, stage));
+    if (rc != 0) return rc;
+  }
+  const int vec_in = W % 16 == 0 && reinterpret_cast<uintptr_t>(window) % 16 == 0;
+  const dim3 grid(Wp / kPrepTile, min(B, kMaxGridY), (B + kMaxGridY - 1) / kMaxGridY);
+  prep_kernel<<<grid, kPrepThreads, stage, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(window), static_cast<int*>(key),
+      static_cast<uint32_t*>(words), B, W, Wp, ne, nf, hash_bytes, stage, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -795,7 +1032,7 @@ int flate_matcher(const void* skey, const void* window, const void* fps,
         static_cast<int>(smem)));
     if (rc != 0) return rc;
     kernel<<<grid, kMatchThreads, smem, s>>>(
-        static_cast<const long long*>(skey), static_cast<const uint32_t*>(window),
+        static_cast<const int*>(skey), static_cast<const uint32_t*>(window),
         static_cast<const uint32_t*>(fps), static_cast<const int*>(min_src),
         static_cast<const int*>(limit), static_cast<int*>(out),
         static_cast<int*>(out2), W, Ww, Wp, ne, nf, K, max_dist, hash_bytes, T);
@@ -898,13 +1135,27 @@ int flate_parse_walk(const void* step, void* mask, int R, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int flate_pack(const void* vals, const void* off, void* words, int B,
-               int slots, int nwords, void* stream) {
-  long long n = static_cast<long long>(B) * slots;
-  if (n > 0)
-    pack_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(vals), static_cast<const int*>(off),
-        static_cast<uint32_t*>(words), B, slots, nwords);
+// vals: (B, slots) u32, bits: (B, slots) int32 widths (<= 32); words: (B,
+// nwords) and total_bits: (B,), zeroed; scratch: zeroed, 8 * B * tiles +
+// 4 bytes (the tiles' status words, then the ticket), tiles = ceil(slots /
+// kPackTile), 8-byte aligned.
+int flate_pack(const void* vals, const void* bits, void* words,
+               void* total_bits, void* scratch, int B, int slots, int nwords,
+               void* stream) {
+  if (B <= 0 || slots <= 0) return static_cast<int>(cudaGetLastError());
+  if (reinterpret_cast<uintptr_t>(scratch) % 8 != 0 || nwords < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (slots + kPackTile - 1) / kPackTile;
+  auto* status = static_cast<unsigned long long*>(scratch);
+  auto* ticket = reinterpret_cast<unsigned int*>(status + static_cast<long long>(B) * tiles);
+  const int vec_in = slots % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(bits) % 16 == 0;
+  const int vec_out = reinterpret_cast<uintptr_t>(words) % 16 == 0;
+  pack_kernel<<<static_cast<unsigned>(B) * tiles, kPackThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(vals), static_cast<const int*>(bits),
+      static_cast<uint32_t*>(words), static_cast<int*>(total_bits), status,
+      ticket, slots, nwords, tiles, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 

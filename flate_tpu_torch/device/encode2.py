@@ -12,7 +12,8 @@ per shard by exact cost); stored runs merge into stored blocks of up to
 65535 bytes.  Every shard ends with an empty stored block: the sync
 marker, or the BFINAL block of the last shard.
 
-u32 values are carried as int64.  The stored/coded estimate is float32
+u32 values are carried as int64, and the field values leave as int32 u32
+bit patterns, the packer's width.  The stored/coded estimate is float32
 with the JAX formula; sums run in another order than XLA's, so a near tie
 could pick the other (equally valid) representation.
 """
@@ -94,8 +95,8 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
 
     window_tail (B, S) uint8 shard bytes; mlen/mdist/starts/take (B, S)
     parse results; valid_len (B,) real bytes per shard; final (B,)
-    last-shard flag.  Returns (vals (B, SLOTS) int64 u32 values, bits
-    (B, SLOTS) int32, total_bits (B,) int64, kind (B,) int64)."""
+    last-shard flag.  Returns (vals (B, SLOTS) int32 u32 bit patterns,
+    bits (B, SLOTS) int32, total_bits (B,) int64, kind (B,) int64)."""
     if seg is None:
         seg = seg_size(S)
     nseg = _nseg(S, seg)
@@ -355,6 +356,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
         raise AssertionError("field slots overflow")
     vals = torch.nn.functional.pad(vals, (0, pad_slots))
     bits = torch.nn.functional.pad(bits, (0, pad_slots)).to(torch.int32)
-    # dead fields must carry zero values: the packer ORs values verbatim
-    vals = torch.where(bits > 0, vals, 0)
+    # dead fields must carry zero values: the packer ORs values verbatim;
+    # the packer reads them as int32 u32 bit patterns (every value < 2^28)
+    vals = torch.where(bits > 0, vals.to(torch.int32), 0)
     return vals, bits, total_bits, kind

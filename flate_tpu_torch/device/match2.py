@@ -12,7 +12,10 @@ scalarize there.  Keys are unique (pos sits in the low 18 bits), so here a
 key-only torch.sort gives the identical order, the matcher builds the
 exact words of each sorted row from the window bytes (`_window_words`),
 B1 writes only the keys and the fingerprint words, and the unsort is an
-inverse-permutation scatter (fused into the CUDA matcher).
+inverse-permutation scatter (fused into the CUDA matcher).  A key is
+stored as int32 `sort_key(key)` = u32 key ^ 0x80000000: a signed sort of
+it is the u32 order (PyTorch's CUDA sort takes no uint32), at half the
+bytes of an int64 key; `key_u32` turns it back.
 
 Kernels (csrc/encode_kernels.cu): B1 `_prep`, B2 `_run_matcher`.
 """
@@ -30,7 +33,8 @@ TILE = 8192                      # key rows are padded to a multiple of this
 POS_BITS = 18                    # window <= 256 KiB positions
 POS_MASK = (1 << POS_BITS) - 1
 HASH_BITS = 32 - POS_BITS        # 14-bit buckets
-SENTINEL = 0xFFFFFFFF
+SENTINEL = 0xFFFFFFFF            # the u32 key of a pad position: sorts last
+KEY_FLIP = 0x80000000            # stored key = u32 key ^ KEY_FLIP, as int32
 _M32 = 0xFFFFFFFF
 FP_MUL = 0x01000193              # FNV prime: the fingerprint polynomial
 
@@ -41,6 +45,18 @@ def _mul_u32(v: torch.Tensor, m: int) -> torch.Tensor:
     lo = v * (m & 0xFFFF)
     hi = ((v * (m >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _M32
+
+
+def sort_key(key: torch.Tensor) -> torch.Tensor:
+    """u32 keys (int64) -> the int32 keys B1 stores: key ^ 0x80000000 as
+    a bit pattern, whose signed order is the u32 order."""
+    return to_i32(key ^ KEY_FLIP)
+
+
+def key_u32(stored: torch.Tensor) -> torch.Tensor:
+    """B1's stored int32 keys -> the u32 keys (int64): the inverse of
+    `sort_key`."""
+    return (stored.to(torch.int64) & _M32) ^ KEY_FLIP
 
 
 def _split_words(nw: int, fp: bool | int = False) -> tuple[int, int]:
@@ -91,7 +107,7 @@ def _prep_plain(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
         v = (v << 8) | planes[j]
     h = _mul_u32(v, consts.HASH_MUL) >> (32 - HASH_BITS)
     pos = torch.arange(Wp, dtype=torch.int64, device=window.device)[None, :]
-    key = torch.where(pos < W, (h << POS_BITS) | pos, SENTINEL)
+    key = sort_key(torch.where(pos < W, (h << POS_BITS) | pos, SENTINEL))
     if not words:
         return key, torch.empty((B, 0, Wp), dtype=torch.int32,
                                 device=window.device)
@@ -100,16 +116,19 @@ def _prep_plain(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
 
 def _prep(window: torch.Tensor, ne: int, hash_bytes: int, nf: int = 0
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """window (B, W) uint8 -> (key (B, Wp) int64, fps (B, nf, Wp) int32
-    u32 bit patterns: the FNV fingerprints of the spans that follow the ne
-    exact words), Wp = W rounded up to TILE.  The exact words are not
-    written: the matcher builds them from the window."""
+    """window (B, W) uint8 -> (key (B, Wp) int32 `sort_key`s of the u32
+    keys, fps (B, nf, Wp) int32 u32 bit patterns: the FNV fingerprints of
+    the spans that follow the ne exact words), Wp = W rounded up to TILE.
+    The exact words are not written: the matcher builds them from the
+    window."""
     if _build.use_plain(window):
         return _prep_plain(window, ne, hash_bytes, nf)
     B, W = window.shape
     Wp = -(-W // TILE) * TILE
     _build.check_cuda("prep.window", window, torch.uint8, (B, W))
-    key = torch.empty((B, Wp), dtype=torch.int64, device=window.device)
+    if not 1 <= hash_bytes <= 4:
+        raise ValueError(f"hash_bytes must be 1..4, got {hash_bytes}")
+    key = torch.empty((B, Wp), dtype=torch.int32, device=window.device)
     words = torch.empty((B, nf, Wp), dtype=torch.int32,
                         device=window.device)
     _build.launch("flate_prep", window.data_ptr(), key.data_ptr(),
@@ -165,21 +184,23 @@ def _candidates(skey: torch.Tensor, order: torch.Tensor,
                 min_src: torch.Tensor, limit: torch.Tensor, K: int,
                 max_dist: int, ne: int, hash_bytes: int = 4,
                 stats: dict | None = None):
-    """The K candidates of every sorted row as whole-row shifts: yields,
-    for d = 1..K, (score, ld) (B, Wp) int32 — score = (est<<16) - dist of
-    the candidate d rows back, or -1 where it is no match of len >= 3, and
-    ld = len<<16 | dist.  With `stats`, also counts what the data asks of
-    any scan (set when the generator ends).  Going back within a bucket the
-    positions fall, so a scan may end at the first candidate of another
-    bucket, past max_dist or below min_src, and a row with fewer than 3
-    bytes before its limit needs no scan: stats["visits"] counts the
-    candidates within K before that end in the rows that need one (a few
-    tests each), stats["compares"] the word compares of their valid
-    candidates, one per exact word up to and including the first that
-    differs and one per fingerprint word likewise."""
+    """The K candidates of every sorted row (skey as B1 stores it) as
+    whole-row shifts: yields, for d = 1..K, (score, ld) (B, Wp) int32 —
+    score = (est<<16) - dist of the candidate d rows back, or -1 where it
+    is no match of len >= 3, and ld = len<<16 | dist.  With `stats`, also
+    counts what the data asks of any scan (set when the generator ends).
+    Going back within a bucket the positions fall, so a scan may end at the
+    first candidate of another bucket, past max_dist or below min_src, and
+    a row with fewer than 3 bytes before its limit needs no scan:
+    stats["visits"] counts the candidates within K before that end in the
+    rows that need one (a few tests each), stats["compares"] the word
+    compares of their valid candidates, one per exact word up to and
+    including the first that differs and one per fingerprint word
+    likewise."""
     B, Wp = skey.shape
     nf = fps.shape[1]
     cap = 4 * ne
+    skey = key_u32(skey)
     tpos = (skey & POS_MASK).to(torch.int32)
     tbucket = skey >> POS_BITS
     # words in sorted order: the exact ones from the window, then B1's
@@ -276,11 +297,12 @@ def _run_matcher(skey: torch.Tensor, order: torch.Tensor,
                  min_src: torch.Tensor, limit: torch.Tensor, W: int, K: int,
                  max_dist: int, ne: int, hash_bytes: int = 4,
                  top2: bool = False):
-    """skey (B, Wp) int64 sorted keys, order (B, Wp) their positions,
-    window (B, W) uint8, fps (B, nf, Wp) int32 B1's fingerprint words by
-    position (they rank only); ne exact words, made from the window with
-    `hash_bytes` (`_window_words`).  Returns best len<<16|dist (B, W) int32
-    in position order, and the runner-up beside it when top2."""
+    """skey (B, Wp) int32 sorted keys as B1 stores them (`sort_key`),
+    order (B, Wp) their positions, window (B, W) uint8, fps (B, nf, Wp)
+    int32 B1's fingerprint words by position (they rank only); ne exact
+    words, made from the window with `hash_bytes` (`_window_words`).
+    Returns best len<<16|dist (B, W) int32 in position order, and the
+    runner-up beside it when top2."""
     if _build.use_plain(skey):
         return _run_matcher_plain(skey, order, window, fps, min_src, limit,
                                   W, K, max_dist, ne, hash_bytes, top2)
@@ -288,7 +310,7 @@ def _run_matcher(skey: torch.Tensor, order: torch.Tensor,
     nf = fps.shape[1]
     min_src = min_src.to(torch.int32).contiguous()
     limit = limit.to(torch.int32).contiguous()
-    _build.check_cuda("matcher.skey", skey, torch.int64, (B, Wp))
+    _build.check_cuda("matcher.skey", skey, torch.int32, (B, Wp))
     _build.check_cuda("matcher.window", window, torch.uint8, (B, W))
     _build.check_cuda("matcher.fps", fps, torch.int32, (B, nf, Wp))
     _build.check_cuda("matcher.min_src", min_src, torch.int32, (B,))

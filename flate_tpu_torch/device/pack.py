@@ -1,10 +1,11 @@
 """Bit-pack of (value, nbits) fields into LSB-first u32 words.
 
-Counterpart of flate_tpu/jx/pack.py:pack_fields (:66).  The offset math
-(exclusive prefix sum of field widths) stays plain PyTorch; the placement
-is CUDA kernel B5 (csrc/encode_kernels.cu) for CUDA tensors, with a plain
-scatter-add version for CPU tensors (fields occupy disjoint bits, so sums
-equal ORs).
+Counterpart of flate_tpu/jx/pack.py:pack_fields (:66).  For CUDA tensors
+the whole function is CUDA kernel B5 (csrc/encode_kernels.cu): the offsets
+(exclusive prefix sums of the field widths) come from the kernel's own
+single-pass scan, and only its buffer is zeroed beside it.  For CPU tensors
+the plain version: a cumsum, then a scatter-add (fields occupy disjoint
+bits, so sums equal ORs).
 """
 
 from __future__ import annotations
@@ -14,8 +15,14 @@ import torch
 from .. import _build
 from . import to_i32
 
+PACK_TILE = 4096        # fields a block of B5 takes (kPackTile)
+
+
 def _place_plain(vals: torch.Tensor, off: torch.Tensor,
                  nwords: int) -> torch.Tensor:
+    """vals (B, SLOTS) u32 values (int64, or int32 bit patterns; dead
+    fields zero), off (B, SLOTS) exclusive bit offsets -> (B, nwords)
+    int32 u32 words; bits at or past word nwords are dropped."""
     B = vals.shape[0]
     off = off.to(torch.int64)
     word = off >> 5
@@ -29,30 +36,46 @@ def _place_plain(vals: torch.Tensor, off: torch.Tensor,
     return to_i32(acc[:, :nwords])
 
 
-def _place(vals: torch.Tensor, off: torch.Tensor,
-           nwords: int) -> torch.Tensor:
-    """vals (B, SLOTS) int64 u32 values (dead fields zero), off (B, SLOTS)
-    int32 exclusive bit offsets -> (B, nwords) int32 u32 words."""
-    if _build.use_plain(vals):
-        return _place_plain(vals, off, nwords)
+def _pack_plain(vals: torch.Tensor, bits: torch.Tensor, nwords: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: offsets by cumsum, then `_place_plain`;
+    returns (words (B, nwords), total_bits (B,) int32)."""
+    incl = torch.cumsum(bits, dim=1, dtype=torch.int32)
+    return _place_plain(vals, incl - bits, nwords), incl[:, -1]
+
+
+def _pack_cuda(vals: torch.Tensor, bits: torch.Tensor, nwords: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B5.  One zeroed buffer holds the words, the tiles' status
+    words and ticket, and total_bits."""
     B, slots = vals.shape
-    _build.check_cuda("pack.vals", vals, torch.int64, (B, slots))
-    _build.check_cuda("pack.off", off, torch.int32, (B, slots))
-    words = torch.zeros((B, nwords), dtype=torch.int32, device=vals.device)
-    _build.launch("flate_pack", vals.data_ptr(), off.data_ptr(),
-                  words.data_ptr(), B, slots, nwords)
-    return words
+    _build.check_cuda("pack.vals", vals, torch.int32, (B, slots))
+    _build.check_cuda("pack.bits", bits, torch.int32, (B, slots))
+    tiles = -(-slots // PACK_TILE)
+    n_words = B * nwords
+    at_status = n_words + (n_words & 1)          # 8-byte aligned
+    at_total = at_status + 2 * B * tiles + 2     # after the ticket
+    buf = torch.zeros(at_total + B, dtype=torch.int32, device=vals.device)
+    ptr = buf.data_ptr()
+    _build.launch("flate_pack", vals.data_ptr(), bits.data_ptr(), ptr,
+                  ptr + 4 * at_total, ptr + 4 * at_status, B, slots, nwords)
+    return buf[:n_words].view(B, nwords), buf[at_total:]
 
 
 def pack_fields(vals: torch.Tensor, bits: torch.Tensor, nwr: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """vals (B, SLOTS) u32 values in int64 (dead fields zero), bits (B,
-    SLOTS) int32 widths (<= 28).  Returns (words (B, nwr, 128) int32 u32
-    bit patterns, total_bits (B,) int32); words past the stream are
-    zero."""
+    """vals (B, SLOTS) u32 values as int32 bit patterns (dead fields zero;
+    int64 u32 values are narrowed here), bits (B, SLOTS) int32 widths (<=
+    28).  Returns (words (B, nwr, 128) int32 u32 bit patterns, total_bits
+    (B,) int32); words past the stream are zero, bits past nwr * 128 words
+    are dropped."""
     B = vals.shape[0]
-    bits = bits.to(torch.int32)
-    incl = torch.cumsum(bits, dim=1, dtype=torch.int32)
-    off = (incl - bits).contiguous()
-    words = _place(vals.to(torch.int64).contiguous(), off, nwr * 128)
-    return words.reshape(B, nwr, 128), incl[:, -1]
+    if vals.dtype == torch.int64:
+        vals = to_i32(vals)
+    vals = vals.contiguous()
+    bits = bits.to(torch.int32).contiguous()
+    if _build.use_plain(vals):
+        words, total = _pack_plain(vals, bits, nwr * 128)
+    else:
+        words, total = _pack_cuda(vals, bits, nwr * 128)
+    return words.reshape(B, nwr, 128), total

@@ -203,3 +203,61 @@ def lane_edge_rows(G: int, NL: int, seed: int = 0):
     nbits = np.array([N, N, mid, N, mid, 0])
     return (word.astype(np.int32), start.astype(np.int32),
             nbits.astype(np.int32))
+
+
+PACK_TILE = 4096     # fields a block of the bit-pack kernel takes
+PACK_EDGES = ("straddle", "dead_tile", "word_end", "word_start",
+              "one_word_tile", "empty", "full")
+
+
+def _fields_to(bits: np.ndarray, f: int, target: int) -> None:
+    """Set the widths of fields f-2 and f-1 (both live) so that field f
+    starts at bit target mod 32."""
+    d = (target - int(bits[:f - 2].sum())) % 32
+    d += 32 if d < 2 else 0
+    bits[f - 2], bits[f - 1] = d // 2, d - d // 2
+
+
+def pack_edge_rows(slots: int, max_bits: int, tile: int = PACK_TILE,
+                   seed: int = 0):
+    """(vals uint32, bits int32) rows of bit-pack fields, one per name of
+    PACK_EDGES, at every tile end of `tile` fields: `straddle` (random
+    widths, the fields on each side of every tile end laid across a word
+    boundary), `dead_tile` (as straddle, the second tile's fields dead),
+    `word_end` (the stream is the first tile's fields, 8 bits each: it ends
+    on a word boundary at the tile end), `word_start` (as word_end, then
+    random fields: the second tile starts a word), `one_word_tile` (the
+    second tile holds 3 live fields, 12 bits within one word), `empty` (no
+    live field) and `full` (28-bit fields to the end).  Fields whose end
+    passes max_bits are dead, so the stream fits the word grid; values fit
+    their widths, dead fields are zero."""
+    rng = np.random.default_rng(seed)
+    wmax = int(np.clip(2 * max_bits // slots - 1, 1, 28))
+    rows = []
+    for name in PACK_EDGES:
+        bits = rng.integers(1, wmax + 1, slots).astype(np.int64)
+        if name in ("straddle", "dead_tile"):
+            for end in range(tile, slots, tile):
+                bits[end - 1] = bits[end] = 28
+                _fields_to(bits, end - 1, 30)
+            if name == "dead_tile":
+                bits[tile:2 * tile] = 0
+        elif name in ("word_end", "word_start"):
+            bits[:tile] = 8
+            if name == "word_end":
+                bits[tile:] = 0
+        elif name == "one_word_tile":
+            bits[tile:2 * tile] = 0
+            bits[[tile + 5, tile + 100, 2 * tile - 1]] = [3, 5, 4]
+            _fields_to(bits, tile, 7)
+        elif name == "empty":
+            bits[:] = 0
+        else:
+            bits[:] = 28
+        bits = np.where(np.cumsum(bits) <= max_bits, bits, 0)
+        vals = rng.integers(0, 2**28, slots, dtype=np.int64)
+        vals = np.where(bits > 0, vals & ((1 << bits) - 1), 0)
+        rows.append((vals, bits))
+    vals = np.stack([r[0] for r in rows]).astype(np.uint32)
+    bits = np.stack([r[1] for r in rows]).astype(np.int32)
+    return vals, bits

@@ -19,8 +19,8 @@ from flate_tpu_torch.device import match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
 
 from _torch_corpora import (CTX, KINDS, S, corpus, lane_edge_rows,
-                            parse_edge_rows, small_run_edge_rows,
-                            walk_edge_rows, windows)
+                            pack_edge_rows, parse_edge_rows,
+                            small_run_edge_rows, walk_edge_rows, windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +85,8 @@ def test_small_runs_edges_equal_plain(cuda, W):
 
 
 def test_pack_equal_plain(cuda):
+    """B5 on build_fields' fields (int32 u32 bit patterns), its offsets
+    from its own scan, against the plain cumsum and placement."""
     win = torch.from_numpy(windows("mixed", seed=8)).to(cuda)
     valid = torch.tensor([S, 1500], dtype=torch.int32, device=cuda)
     ml, md = match2.find_matches_fused(
@@ -96,10 +98,108 @@ def test_pack_equal_plain(cuda):
     vals, bits, _, _ = encode2.build_fields(
         win[:, CTX:], ml[:, CTX:], md[:, CTX:], starts[:, CTX:],
         take[:, CTX:], valid, torch.tensor([0, 1], device=cuda), S, seg)
-    incl = torch.cumsum(bits, dim=1, dtype=torch.int32)
-    off = (incl - bits).contiguous()
-    n = pipeline2._nwr(S, seg) * 128
-    _eq(pack._place(vals, off, n), pack._place_plain(vals, off, n))
+    assert vals.dtype == torch.int32
+    nwr = pipeline2._nwr(S, seg)
+    _build.LAUNCHES.clear()
+    kw, kt = pack.pack_fields(vals, bits, nwr)
+    assert _build.LAUNCHES["flate_pack"] == 1
+    pw, pt = pack._pack_plain(vals, bits, nwr * 128)
+    _eq(kw.reshape(2, -1), pw)
+    _eq(kt, pt)
+
+
+def _pack_both(vals, bits, nwr, cuda):
+    """B5 and its plain version on the card, on numpy (vals uint32, bits
+    int32) rows."""
+    v = torch.from_numpy(vals.view(np.int32)).to(cuda)
+    b = torch.from_numpy(bits).to(cuda)
+    kw, kt = pack.pack_fields(v, b, nwr)
+    pw, pt = pack._pack_plain(v, b, nwr * 128)
+    _eq(kw.reshape(v.shape[0], -1), pw)
+    _eq(kt, pt)
+    return pw
+
+
+@pytest.mark.parametrize("slots,nwr", [(11264, 14), (283648, 262),
+                                       (4096 * 3 + 2, 14)])
+def test_pack_edges_equal_plain(cuda, slots, nwr):
+    """B5 on tests/_torch_corpora.py pack_edge_rows at the small shards'
+    and the batch's slot counts and at a count no multiple of 4 (scalar
+    loads): fields across every tile end, a dead tile, a stream ending on
+    a word boundary at a tile end, a tile starting a word, a tile within
+    one word, an empty row, a full row; and a row of 28-bit fields that
+    overruns the word grid (bits past it are dropped)."""
+    vals, bits = pack_edge_rows(slots, (nwr - 5) * 128 * 32, seed=slots)
+    over = np.full((1, slots), 28, np.int32)
+    over_v = np.random.default_rng(slots).integers(
+        0, 2**28, (1, slots)).astype(np.uint32)
+    pw = _pack_both(np.concatenate([vals, over_v]),
+                    np.concatenate([bits, over]), nwr, cuda)
+    assert int((pw[-1] == 0).sum()) == 0 and int(pw[-3].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("fill", [0.05, 0.3, 1.0])
+def test_pack_random_fill_equal_plain(cuda, fill):
+    """B5 at the batch's shape (64 rows x 283,648 slots: 4,480 tiles in
+    flight) on random fields (1-28 bits) over a share `fill` of the slots;
+    even rows are cut to fit the word grid, odd rows may overrun it."""
+    B, slots, nwr = 64, 283648, 262
+    rng = np.random.default_rng(int(fill * 100))
+    bits = rng.integers(1, 29, (B, slots)).astype(np.int64)
+    bits = np.where(rng.random((B, slots)) < fill, bits, 0)
+    fits = np.cumsum(bits, axis=1) <= nwr * 128 * 32
+    bits[::2] = np.where(fits[::2], bits[::2], 0)
+    vals = rng.integers(0, 2**28, (B, slots), dtype=np.int64)
+    vals = np.where(bits > 0, vals & ((1 << bits) - 1), 0)
+    _pack_both(vals.astype(np.uint32), bits.astype(np.int32), nwr, cuda)
+
+
+def test_pack_graph_replay(cuda):
+    """B5 captured in a CUDA graph and replayed on new fields: the tiles'
+    status words and ticket are zeroed in the call, so every replay
+    starts afresh."""
+    slots, nwr = 283648, 262
+    vals, bits = pack_edge_rows(slots, (nwr - 5) * 128 * 32, seed=1)
+    v = torch.from_numpy(vals.view(np.int32)).to(cuda)
+    b = torch.from_numpy(bits).to(cuda)
+    pack.pack_fields(v, b, nwr)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        kw, kt = pack.pack_fields(v, b, nwr)
+    for seed in (2, 3):
+        nv, nb = pack_edge_rows(slots, (nwr - 5) * 128 * 32, seed=seed)
+        v.copy_(torch.from_numpy(nv.view(np.int32)))
+        b.copy_(torch.from_numpy(nb))
+        g.replay()
+        pw, pt = pack._pack_plain(v, b, nwr * 128)
+        _eq(kw.reshape(v.shape[0], -1), pw)
+        _eq(kt, pt)
+
+
+PREP_KNOBS = [(4, 8, 0), (3, 1, 0), (4, 2, 2), (4, 2, 5), (4, 3, 1)]
+
+
+@pytest.mark.parametrize("hb,ne,nf", PREP_KNOBS)
+@pytest.mark.parametrize("W", [1000, 4099, 3 * 8192 + 100, 163840])
+def test_prep_equal_plain(cuda, W, hb, ne, nf):
+    """B1 against its plain version: keys (int32, u32 key ^ 2^31) and
+    fingerprint words, W below a tile, no multiple of 16 or of the tile,
+    and the batch's W; the 3-byte hash, no fingerprint, and up to 5
+    fingerprint words over 2 exact ones (nw = 64: a 255-byte halo); each
+    from a 16-byte aligned window and from one a byte past it (byte
+    copies)."""
+    B = 3
+    raw = corpus("mixed", B * W + 16, seed=W)
+    flat = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(cuda)
+    for off in (0, 1):
+        win = flat[off:off + B * W].view(B, W)
+        assert (win.data_ptr() % 16 == 0) == (off == 0)
+        k = match2._prep(win, ne, hb, nf)
+        p = match2._prep_plain(win, ne, hb, nf)
+        assert k[0].dtype == torch.int32
+        _eq(k[0], p[0])
+        _eq(k[1], p[1])
 
 
 @pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6, 7, 8, 9])
@@ -267,6 +367,16 @@ def test_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(ValueError):
         parse._parse_walk(torch.ones((2, 64), dtype=torch.int32,
                                      device=cuda)[:, ::2])
+    v = torch.zeros((2, 100), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pack.pack_fields(v, v[:, :50], 1)
+    w8 = torch.zeros((2, 100), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        match2._prep(w8, 1, 5)
+    key, fps = match2._prep(w8, 1, 4)
+    with pytest.raises(TypeError):              # keys are int32 since B1's
+        match2._run_matcher(key.to(torch.int64), key, w8, fps,  # redesign
+                            v[:, 0], v[:, 0], 100, 4, 32768, 1)
 
 
 # ---------------------------------------------------------------------------

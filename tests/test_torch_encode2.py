@@ -95,6 +95,7 @@ def _check_build(parts, valid, final):
                                seg)
     t = encode2.build_fields(*(tt(p) for p in parts), tt(valid), tt(final),
                              S, seg)
+    assert t[0].dtype == torch.int32            # vals: the packer's width
     np.testing.assert_array_equal(u32(t[0]), u32(j[0]))     # vals
     np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
     np.testing.assert_array_equal(t[2].numpy(), np.asarray(j[2]))

@@ -45,7 +45,8 @@ def test_prep_contents_equal(nw, hash_bytes):
     win = windows("mixed", seed=2)
     jkey, jwords = _jax_words(win, nw, 0, hash_bytes)
     key, words = match2._prep(tt(win), nw, hash_bytes)
-    np.testing.assert_array_equal(u32(key), u32(jkey))
+    assert key.dtype == torch.int32           # stored as u32 key ^ 2^31
+    np.testing.assert_array_equal(u32(match2.key_u32(key)), u32(jkey))
     assert words.shape == (win.shape[0], 0, key.shape[1])
     np.testing.assert_array_equal(u32(_all_words(tt(win), nw, hash_bytes)),
                                   u32(jwords))
@@ -119,7 +120,7 @@ def test_prep_fingerprints_equal(nw, fp):
     assert nf > 0
     jkey, jwords = _jax_words(win, ne, nf, 4)
     key, words = match2._prep(tt(win), ne, 4, nf)
-    np.testing.assert_array_equal(u32(key), u32(jkey))
+    np.testing.assert_array_equal(u32(match2.key_u32(key)), u32(jkey))
     np.testing.assert_array_equal(u32(words), u32(jwords[:, ne:]))
     np.testing.assert_array_equal(u32(_all_words(tt(win), ne, 4)),
                                   u32(jwords[:, :ne]))
@@ -192,7 +193,7 @@ def test_run_matcher_plain_counts_the_scan(ne, nf):
     stats = {}
     counted = match2._run_matcher_plain(*args, stats=stats)
     assert torch.equal(counted, match2._run_matcher_plain(*args))
-    sk = skey.numpy()
+    sk = match2.key_u32(skey).numpy()
     wd = np.concatenate([_all_words(win, ne, 4).numpy(),
                          u32(fps).astype(np.int64)], axis=1)
     visits = compares = 0

@@ -1,4 +1,4 @@
-"""Where the time of kernels B2, B3, B6, B7, B9 and B10 goes.
+"""Where the time of kernels B1, B2, B3, B5, B6, B7, B9 and B10 goes.
 
     python3 tools/torch_kernel_probe.py [--reps 20]
 
@@ -62,6 +62,19 @@ and 31 lanes a block.
 
     python3 tools/torch_kernel_probe.py --part runs,lanes [--tree DIR]
 
+B1 (prep) and B5 (bit pack), `--part prep,pack`: on the level-6 batch.
+B1 at level 6's knobs (8 exact words), level 9's (16, and the 3-byte K3
+pass's 1) and in fp mode (2 exact + 2 fingerprint words), and the key
+sort of its keys at int64 and at int32 (u32 key ^ 2^31, the order the
+same), whichever width the measured tree's B1 writes; B5 as the whole
+pack_fields call on the level-6 fields (a parent's offsets by torch.cumsum
+included), held against its plain version where the tree has one; the
+zero-filled buffer it writes into, alone; and, where the tree has it, a
+parent's placement alone (`_place`).
+Each is timed three ways, as B3 and B6 are.
+
+    python3 tools/torch_kernel_probe.py --part prep,pack [--tree DIR]
+
 End to end, `--part e2e` (not in the default parts): the public entry
 points on the host clock, best of 3 (the level-6 encode of 32 MiB mixed,
 the indexed decode of the text corpus from levels 1 and 3, the chained
@@ -92,7 +105,8 @@ from chip_smoke import (B, CHAIN_STEP_NS, CTX, S,  # noqa: E402
                         mixed_corpus, most_marks, smi, text_corpus)
 
 # the checkout whose flate_tpu_torch is measured: set by main() (--tree)
-api = bitonic = inflate2 = match2 = parse = pipeline2 = runs = None
+api = bitonic = encode2 = inflate2 = match2 = pack = parse = None
+pipeline2 = runs = None
 
 
 def timed(fn, reps: int) -> float:
@@ -421,6 +435,93 @@ def lanes(reps: int) -> dict:
     return out
 
 
+def prep(reps: int) -> dict:
+    window, _, _ = level6_batch()
+    out = {}
+    for name, ne, hb, nf in (("l6", 8, 4, 0), ("l9", 16, 4, 0),
+                             ("k3", 1, 3, 0), ("fp", 2, 4, 2)):
+        line = three_ways(out, f"B1_{name}", lambda: match2._prep(
+            window, ne, hb, nf), reps)
+        print(f"B1 {name} (ne={ne}, hash_bytes={hb}, nf={nf}): {line}",
+              flush=True)
+    key = match2._prep(window, 8, 4)[0]
+    out["B1_key_dtype"] = str(key.dtype)
+    # the same u32 keys at both widths, whatever this tree's B1 writes
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    if key.dtype == torch.int32:
+        k64 = k64 ^ 0x80000000
+    k32 = k64 ^ 0x80000000
+    k32 = torch.where(k32 >= 1 << 31, k32 - (1 << 32), k32).to(torch.int32)
+    if not torch.equal(torch.sort(k32, dim=1)[1][:, :window.shape[1]],
+                       torch.sort(k64, dim=1)[1][:, :window.shape[1]]):
+        raise AssertionError("int32 and int64 key sorts differ")
+    for width, k in (("int64", k64), ("int32", k32)):
+        line = three_ways(out, f"sort_{width}", lambda: torch.sort(k, dim=1),
+                          reps)
+        print(f"key sort at {width}: {line}", flush=True)
+    line = three_ways(out, "sort_tree_keys", lambda: torch.sort(key, dim=1),
+                      reps)
+    print(f"key sort of this tree's B1 keys ({key.dtype}): {line}",
+          flush=True)
+    return out
+
+
+def level6_fields():
+    """build_fields' (vals, bits) of the level-6 batch and its word rows,
+    through the measured tree's stages as encode_batch_packed runs them."""
+    window, ctx_len, valid = level6_batch()
+    lvl = pipeline2.level_params(6, S)
+    blk = lvl["blk"]
+    ml, md = match2.find_matches_fused(window, ctx_len, valid, K=lvl["K"],
+                                       nw=lvl["nw"], ctx=CTX, K3=lvl["K3"])
+    ml, md = parse.truncate_matches(ml, md, CTX, blk)
+    take, _ = parse.decide(ml, md, lvl["lazy"], lvl["max_lazy"])
+    starts = parse.parse_blocks(ml, md, start=CTX, lazy=lvl["lazy"],
+                                max_lazy=lvl["max_lazy"], blk=blk)
+    m_r, d_r = ml[:, CTX:], md[:, CTX:]
+    take_r, starts_r = take[:, CTX:], starts[:, CTX:]
+    take_r, starts_r, m_r = pipeline2._squeeze_stage(
+        window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
+    seg = encode2.seg_size(S, blk)
+    finals = torch.zeros(B, dtype=torch.int32, device=window.device)
+    vals, bits, _, _ = encode2.build_fields(
+        window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S, seg)
+    return vals, bits, pipeline2._nwr(S, seg)
+
+
+def pack_part(reps: int) -> dict:
+    vals, bits, nwr = level6_fields()
+    out = {"B5_vals_dtype": str(vals.dtype),
+           "B5_live_fields": int((bits != 0).sum())}
+    if hasattr(pack, "_pack_plain"):     # the kernel against its plain version
+        got = pack.pack_fields(vals, bits, nwr)
+        want = pack._pack_plain(vals, bits, nwr * 128)
+        if not (torch.equal(got[0].reshape(B, -1), want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError("B5: pack_fields != its plain version")
+    line = three_ways(out, "B5_pack_fields", lambda: pack.pack_fields(
+        vals, bits, nwr), reps)
+    print(f"B5 pack_fields at level 6 ({tuple(vals.shape)} fields, "
+          f"{out['B5_live_fields']} live, values {vals.dtype}): {line}",
+          flush=True)
+    if hasattr(pack, "PACK_TILE"):       # the zeroed buffer B5 writes into
+        n = B * nwr * 128 + 2 * B * -(-vals.shape[1] // pack.PACK_TILE) + 2 + B
+        line = three_ways(out, "B5_zero_fill", lambda: torch.zeros(
+            n, dtype=torch.int32, device=vals.device), reps)
+        print(f"B5's zero-filled buffer alone ({4 * n} bytes): {line}",
+              flush=True)
+    if hasattr(pack, "_place"):          # a parent: the placement alone
+        b32 = bits.to(torch.int32)
+        incl = torch.cumsum(b32, dim=1, dtype=torch.int32)
+        off = (incl - b32).contiguous()
+        v64 = vals.to(torch.int64).contiguous()
+        line = three_ways(out, "B5_place", lambda: pack._place(
+            v64, off, nwr * 128), reps)
+        print(f"B5 placement alone (_place: zeros and the kernel): {line}",
+              flush=True)
+    return out
+
+
 def e2e(reps: int) -> dict:
     """The public entry points on the host clock, as chip_smoke.py phases
     4, 6 and 8 time them, best of 3 after a warm-up: the 32 MiB mixed
@@ -454,12 +555,14 @@ def e2e(reps: int) -> dict:
 
 
 def main() -> int:
-    global api, bitonic, inflate2, match2, parse, pipeline2, runs
+    global api, bitonic, encode2, inflate2, match2, pack, parse
+    global pipeline2, runs
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--part", default="matcher,network,walks,runs,lanes",
+    ap.add_argument("--part",
+                    default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
-                         "lanes, e2e")
+                         "lanes, prep, pack, e2e")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -468,14 +571,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.tree))
     from flate_tpu_torch import api
-    from flate_tpu_torch.device import bitonic, inflate2, match2, parse
-    from flate_tpu_torch.device import pipeline2, runs
+    from flate_tpu_torch.device import bitonic, encode2, inflate2, match2
+    from flate_tpu_torch.device import pack, parse, pipeline2, runs
     card = smi()
     print(card, flush=True)
     print(f"tree: {os.path.abspath(args.tree)}", flush=True)
     res = {"card": card, "tree": os.path.abspath(args.tree)}
     parts = {"matcher": matcher, "network": network, "walks": walks,
-             "runs": small_runs, "lanes": lanes, "e2e": e2e}
+             "runs": small_runs, "lanes": lanes, "prep": prep,
+             "pack": pack_part, "e2e": e2e}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
