@@ -88,6 +88,22 @@ Phases, one line each:
      32 KiB of text) decodes with zlib's zdict and is smaller than without
      it; a split DeviceEncoder at level 6 on 8 shards in batches of 8 gives
      the same bytes on the card and the CPU.
+ 11. the fused path, compress_device2(fused=True): each batch replays one
+     CUDA graph of encode_batch (captured on the first batch of a shape and
+     level).  Level 6 on the 32 MiB mixed corpus (4 batches, 2 in flight)
+     must give phase 8's level-6 bytes and decode with zlib, with the
+     launches counted from the replays equal to phase 8's staged run;
+     levels 1 and 9 on 8 MiB must give the staged bytes; level 6 on 8
+     shards in batches of 8 the CPU's fused bytes.  Printed: capture and
+     instantiate seconds, the graph's node count, replays, launches, one
+     replay's device time by CUDA events, and the 32 MiB seconds and GB/s
+     beside phase 8's staged level 6;
+ 12. the mesh encoder on one card: a one-rank NCCL group over a FileStore
+     in a temporary directory under build/, compress_mesh2 on 8 MiB mixed
+     at level 6 with 64 shards a rank must equal compress_device2(batch=64)
+     (phase 8's 8 MiB bytes), compress_to_regions must tile the stream,
+     and the group is destroyed.  The exchange between ranks is held on
+     the CPU by tests/test_torch_mesh2.py.
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
@@ -103,6 +119,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -266,7 +283,8 @@ def main() -> int:
     from flate_tpu_torch import _build, api
     from flate_tpu_torch.containers import Container, parse_header
     from flate_tpu_torch.device import bitonic, encode2, inflate2, match2
-    from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
+    from flate_tpu_torch.device import graphs, pack, parse, pipeline2, runs
+    from flate_tpu_torch.device import squeeze
     from flate_tpu_torch.device import to_i32
     from flate_tpu_torch.shard_index import parse_index_extra
 
@@ -766,6 +784,7 @@ def main() -> int:
             raise AssertionError(f"level {L}: zlib round trip differs")
         if L == 6:
             oneshot6 = secs
+            blobs["mixed 32 MiB", 6] = blob
         line = (f"[8] level {L}: {len(data) >> 20} MiB mixed in {secs:.4f} s"
                 f" = {len(data) / secs / 1e9:.4f} GB/s; launches {counts}; "
                 f"zlib round trip ok; {len(blob)} bytes = "
@@ -780,6 +799,7 @@ def main() -> int:
             sized = {"text": api.gzip.compress(text, level=L),
                      "mixed 8 MiB": blob if data is data8
                      else api.gzip.compress(data8, level=L)}
+            blobs["mixed 8 MiB", L] = sized["mixed 8 MiB"]
             for cname, cdata in (("text", text), ("mixed 8 MiB", data8)):
                 if zlib.decompress(sized[cname], 31) != cdata:
                     raise AssertionError(f"level {L}: {cname} round trip")
@@ -1008,6 +1028,118 @@ def main() -> int:
           f"zdict; DeviceEncoder level 6, 8 shards in batches of 8, split at "
           f"3 x 128 KiB + 17: cuda == cpu bytes ({len(gpu[0])}, cpu twin "
           f"{cpu_s:.1f} s)", flush=True)
+
+    # ---- phase 11: the fused path, one CUDA graph a batch ----
+    staged6 = launches[("encode", 6)]            # phase 8: 4 batches
+    graphs.clear()
+
+    def fused(data, L, **kw):
+        """compress_device2(fused=True) and the graph its last batch
+        replayed, with the call's seconds."""
+        t = time.time()
+        out = pipeline2.compress_device2(data, level=L, fused=True, **kw)
+        return out, next(reversed(graphs._GRAPHS.values())), time.time() - t
+
+    def graph_line(g):
+        return (f"capture {g.capture_s:.3f} s, instantiate "
+                f"{g.instantiate_s:.3f} s, {g.nodes} nodes")
+
+    _, g6, first_s = fused(data8, 6)             # captures 64 x 128 KiB
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    replays0 = g6.replays
+    blob, _, secs = fused(data32, 6)
+    counts = dict(_build.LAUNCHES)
+    if blob != blobs["mixed 32 MiB", 6]:
+        raise AssertionError("fused level 6: bytes differ from phase 8's")
+    if zlib.decompress(blob, 31) != data32:
+        raise AssertionError("fused level 6: zlib round trip differs")
+    if g6.replays - replays0 != 4:
+        raise AssertionError(f"fused level 6: {g6.replays - replays0} "
+                             f"replays for 4 batches")
+    per_batch = dict(g6.launches)
+    if counts != staged6 or counts != {k: 4 * v for k, v in
+                                       per_batch.items()}:
+        raise AssertionError(f"fused level 6: launches {counts}, staged "
+                             f"{staged6}, a replay {per_batch}")
+    need_launched("fused level 6", counts)
+    launches[("fused", 6)] = counts
+    replay_ms = cuda_ms(g6.graph.replay, 5)
+    print(f"[11] fused level 6 (one CUDA graph a 64 x 128 KiB batch): "
+          f"{graph_line(g6)}; first call on 8 MiB {first_s:.3f} s; 32 MiB "
+          f"mixed in {secs:.4f} s = {len(data32) / secs / 1e9:.4f} GB/s "
+          f"(staged, phase 8: {oneshot6:.4f} s = "
+          f"{len(data32) / oneshot6 / 1e9:.4f} GB/s); 4 batches, 2 in "
+          f"flight, {g6.replays} replays in all; launches {counts} = 4 x a "
+          f"replay's {per_batch} = phase 8's staged; one replay "
+          f"{replay_ms:.3f} ms of device time (CUDA events over 5); bytes "
+          f"== phase 8's level 6, zlib round trip ok", flush=True)
+    for L in (1, 9):
+        blob, g, first_s = fused(data8, L)
+        if blob != blobs["mixed 8 MiB", L]:
+            raise AssertionError(f"fused level {L}: bytes != staged bytes")
+        _, _, secs = fused(data8, L)
+        print(f"[11] fused level {L}: 8 MiB mixed, bytes == staged; "
+              f"{graph_line(g)}; first call {first_s:.3f} s, then "
+              f"{secs:.4f} s = {len(data8) / secs / 1e9:.4f} GB/s; a replay "
+              f"launches {dict(g.launches)}; one replay "
+              f"{cuda_ms(g.graph.replay, 3):.3f} ms of device time",
+              flush=True)
+    gpu, g, _ = fused(mixed1, 6, batch=8)
+    t = time.time()
+    cpu = pipeline2.compress_device2(mixed1, level=6, batch=8, fused=True,
+                                     device="cpu")
+    cpu_s = time.time() - t
+    if gpu != cpu:
+        raise AssertionError("fused level 6, 8 shards: cuda bytes != cpu")
+    print(f"[11] fused level 6 on 8 shards in batches of 8: cuda == cpu "
+          f"bytes ({len(gpu)}, cpu {cpu_s:.1f} s); {graph_line(g)}; "
+          f"{len(graphs._GRAPHS)} graphs alive in one pool", flush=True)
+
+    # ---- phase 12: the mesh encoder on one card ----
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from flate_tpu_torch.parallel import distributed, mesh2
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as td:
+        torch.cuda.set_device(0)
+        tdist.init_process_group(
+            "nccl", store=tdist.FileStore(os.path.join(td, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t = time.time()
+            blob = mesh2.compress_mesh2(data8, mesh, level=6, per_device=B)
+            secs = time.time() - t
+            counts = dict(_build.LAUNCHES)
+            need_launched("mesh level 6", counts)
+            launches[("mesh", 6)] = counts
+            if blob != blobs["mixed 8 MiB", 6]:
+                raise AssertionError("mesh: bytes != compress_device2's")
+            t = time.time()
+            blob2, regions = distributed.compress_to_regions(
+                data8, mesh, level=6, per_device=B)
+            secs2 = time.time() - t
+            pos = 0
+            for off, ln in sorted(sp for r in regions for sp in r):
+                if off != pos:
+                    raise AssertionError(f"mesh regions: gap at {pos}")
+                pos += ln
+            if blob2 != blob or pos != len(blob):
+                raise AssertionError("mesh regions do not tile the stream")
+        finally:
+            tdist.destroy_process_group()
+    print(f"[12] compress_mesh2 on a one-rank NCCL mesh (FileStore), 8 MiB "
+          f"mixed at level 6, 64 shards a rank: bytes == compress_device2"
+          f"(batch=64) ({len(blob)}); first call {secs:.3f} s (the graph "
+          f"captured: its warm-up and one replay, launches {counts}); "
+          f"compress_to_regions {secs2:.3f} s, {len(regions[0])} span(s) "
+          f"tile the stream; group destroyed.  The multi-rank exchange "
+          f"(the context tail by send/recv, meta and bytes gathered in "
+          f"rank order) is held only on the CPU (gloo, "
+          f"tests/test_torch_mesh2.py) until a machine has several cards",
+          flush=True)
 
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)

@@ -2,9 +2,10 @@
 
 Counterpart of flate_tpu/jx/checksum.py: _crc32_rows_any (:102) and
 _adler_rows_any (:242), with copies of padded_width (:112), crc32_fixup
-(:128) and adler_finalize (:250).  The container checksum comes from
-these per-shard values combined on the host; no host pass reads the
-whole input.
+(:128) and adler_finalize (:250), and the public crc32_shards (:145),
+crc32_device (:190), adler32_shards (:259) and adler32_device (:267).
+The container checksum comes from these per-shard values combined on the
+host; no host pass reads the whole input.
 
 CRC32 here is a tree over 4-byte words: the linear (init 0, no xorout)
 CRC of each word by slice tables, then log2 rounds of
@@ -22,7 +23,8 @@ import zlib
 import numpy as np
 import torch
 
-from ..checksums import ADLER_MOD, CRC_TABLE, crc32_combine
+from ..checksums import ADLER_MOD, CRC_TABLE, adler32_combine, crc32_combine
+from . import resolve_device
 
 LANES = 256                      # the JAX kernel's lane split (row padding)
 _M32 = 0xFFFFFFFF
@@ -68,6 +70,17 @@ def _slice_tables() -> np.ndarray:
     return tabs.astype(np.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(log2_bytes: int | None, device: torch.device
+                   ) -> torch.Tensor:
+    """`_slice_tables()` (log2_bytes None) or `_zero_shift_tables` on
+    `device`, made once per device so that no call copies from host
+    memory (a CUDA graph captures none)."""
+    tabs = (_slice_tables() if log2_bytes is None
+            else _zero_shift_tables(log2_bytes))
+    return torch.from_numpy(tabs).to(device)
+
+
 def _lookup4(tabs: torch.Tensor, x: torch.Tensor, order) -> torch.Tensor:
     """XOR of tabs[order[k]][byte k of x] over the four bytes of x."""
     y = tabs[order[0]][x & 0xFF]
@@ -88,11 +101,10 @@ def _crc32_rows_any(rows: torch.Tensor) -> torch.Tensor:
     b = b.reshape(B, nwords, 4)
     word = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
     word = torch.nn.functional.pad(word, (P - nwords, 0))
-    slices = torch.as_tensor(_slice_tables(), device=dev)
-    crc = _lookup4(slices, word, (3, 2, 1, 0))     # linear CRC per word
+    crc = _lookup4(_device_tables(None, dev), word, (3, 2, 1, 0))
     nbytes_log2 = 2                                # each leaf covers 4 bytes
     while crc.shape[1] > 1:
-        z = torch.as_tensor(_zero_shift_tables(nbytes_log2), device=dev)
+        z = _device_tables(nbytes_log2, dev)
         pairs = crc.reshape(B, -1, 2)
         crc = _lookup4(z, pairs[:, :, 0], (0, 1, 2, 3)) ^ pairs[:, :, 1]
         nbytes_log2 += 1
@@ -175,3 +187,69 @@ def adler_finalize(s1: np.ndarray, s2: np.ndarray,
     s1 = (np.asarray(s1).astype(np.int64) + 1) % ADLER_MOD
     s2 = (np.asarray(s2).astype(np.int64) + lens % ADLER_MOD) % ADLER_MOD
     return ((s2 << 16) | s1).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# public: per-row and whole-buffer checksums on the device
+# ---------------------------------------------------------------------------
+
+ROW = 1 << 20           # crc32_device / adler32_device hash rows of 1 MiB
+
+
+def crc32_shards(rows: np.ndarray, lens: np.ndarray,
+                 device: str | torch.device = "cuda") -> np.ndarray:
+    """(B, S) uint8 rows, zero past lens[b] -> (B,) uint32 standard crc32
+    of each row's first lens[b] bytes: the rows are hashed on `device`,
+    the ragged tails fixed up on the host.  Any S (the JAX function takes
+    multiples of 4 * LANES)."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    full = _crc32_rows_any(torch.from_numpy(rows).to(resolve_device(device)))
+    return crc32_fixup(full.cpu().numpy(), lens,
+                       padded_width(rows.shape[1]))
+
+
+def adler32_shards(rows: np.ndarray, lens: np.ndarray,
+                   device: str | torch.device = "cuda") -> np.ndarray:
+    """(B, S) uint8 rows, zero past lens[b] -> (B,) uint32 standard
+    adler32 of each row's first lens[b] bytes, summed on `device`."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    dev = resolve_device(device)
+    lens = np.asarray(lens, dtype=np.int64)
+    s1, s2 = _adler_rows_any(torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(lens).to(dev))
+    return adler_finalize(s1.cpu().numpy(), s2.cpu().numpy(), lens)
+
+
+def _as_rows(data) -> tuple[np.ndarray, np.ndarray]:
+    """A buffer as zero-padded rows of ROW bytes and their lengths."""
+    arr = np.frombuffer(data, np.uint8) if isinstance(
+        data, (bytes, bytearray, memoryview)) else np.asarray(data, np.uint8)
+    n = arr.size
+    nrows = -(-n // ROW)
+    width = min(ROW, n)
+    rows = np.zeros(nrows * width, dtype=np.uint8)
+    rows[:n] = arr.reshape(-1)
+    lens = np.minimum(width, n - width * np.arange(nrows))
+    return rows.reshape(nrows, width), lens
+
+
+def crc32_device(data, device: str | torch.device = "cuda") -> int:
+    """Standard crc32 of a whole buffer: rows of up to 1 MiB hashed on
+    `device`, combined on the host in order."""
+    rows, lens = _as_rows(data)
+    crc = 0
+    if rows.size:
+        for v, ln in zip(crc32_shards(rows, lens, device), lens):
+            crc = crc32_combine(crc, int(v), int(ln))
+    return crc
+
+
+def adler32_device(data, device: str | torch.device = "cuda") -> int:
+    """Standard adler32 of a whole buffer (1 for no bytes): rows of up to
+    1 MiB summed on `device`, combined on the host in order."""
+    rows, lens = _as_rows(data)
+    adl = 1
+    if rows.size:
+        for v, ln in zip(adler32_shards(rows, lens, device), lens):
+            adl = adler32_combine(adl, int(v), int(ln))
+    return adl

@@ -20,6 +20,8 @@ could pick the other (equally valid) representation.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -87,6 +89,25 @@ def _entropy_bits(h: torch.Tensor) -> torch.Tensor:
     return torch.where(h > 0, bits, 0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _consts(S: int, seg: int, device: torch.device) -> dict:
+    """The host-made constants of build_fields on `device`, made once per
+    (shard, segment, device) so that no call copies from host memory (a
+    CUDA graph captures none): segment lengths and starts, the
+    merge-grid columns, and the fixed tables' lengths and packed
+    codes."""
+    nseg = _nseg(S, seg)
+    merge = max(1, MAX_STORED // seg)
+    host = {"seg_len": np.minimum(seg, S - seg * np.arange(nseg)),
+            "seg_start": seg * np.arange(nseg),
+            "grid": (np.arange(nseg) % merge == 0)[None, :],
+            "fix_ll": _FIX_LL_LENS[None, :], "fix_d": _FIX_D_LENS[None, :],
+            "fix_ll_packed": _FIX_LL_PACKED[None, :],
+            "fix_d_packed": _FIX_D_PACKED[None, :]}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host.items()}
+
+
 def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
                  mdist: torch.Tensor, starts: torch.Tensor,
                  take: torch.Tensor, valid_len: torch.Tensor,
@@ -106,9 +127,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     dev = window_tail.device
     i64 = torch.int64
 
-    def const(x):
-        return torch.as_tensor(x, device=dev)
-
+    geo = _consts(S, seg, dev)
     wt = window_tail.to(i64)
     mlen = mlen.to(i64)
     mdist = mdist.to(i64)
@@ -148,8 +167,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     extras_seg = segsum(torch.where(is_m, leb + deb, 0))
 
     # ---- segment geometry ----
-    seg_len = const(np.minimum(seg, S - seg * np.arange(nseg)))
-    seg_start = const(seg * np.arange(nseg))
+    seg_len, seg_start = geo["seg_len"], geo["seg_start"]
     live_bytes = torch.minimum(
         torch.clamp(valid_len[:, None] - seg_start[None, :], min=0),
         seg_len[None, :])
@@ -194,7 +212,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     extras = torch.where(seg_coded, extras_seg, 0).sum(dim=1)
 
     d1 = torch.zeros(consts.NUM_DIST, dtype=i64, device=dev)
-    d1[0] = 1
+    d1[0].fill_(1)            # a fill, not a host copy: capture-safe
     ll_lens = huff.pm_lengths(hll, consts.MAX_CODE_BITS)
     d_lens = huff.pm_lengths(hdd, consts.MAX_CODE_BITS)
     no_d = d_lens.sum(dim=1) == 0
@@ -214,8 +232,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     stored_const = 44 * stored_hdrs + 8 * stored_bytes
     dyn_cost = nopen * dyn_hbits + huff.coded_size(hll, ll_lens) \
         + huff.coded_size(hdd, d_lens) + extras + stored_const
-    fix_ll = const(_FIX_LL_LENS)[None, :]
-    fix_d = const(_FIX_D_LENS)[None, :]
+    fix_ll, fix_d = geo["fix_ll"], geo["fix_d"]
     fix_cost = nopen * 3 + huff.coded_size(hll, fix_ll) \
         + huff.coded_size(hdd, fix_d) + extras + stored_const
     lit_cost = nopen * lit_hbits + huff.coded_size(hbyte, lit_lens) \
@@ -237,8 +254,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     prev_coded = prev_col(seg_coded)
     open_j = seg_coded & ~prev_coded
     close_j = prev_coded & seg_stored
-    grid = const(np.arange(nseg) % MERGE == 0)
-    hdr_here = seg_stored & (~prev_col(seg_stored) | grid[None, :])
+    hdr_here = seg_stored & (~prev_col(seg_stored) | geo["grid"])
 
     # merged stored-run byte cover per header (backward accumulation)
     covers = [None] * nseg
@@ -263,22 +279,23 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
                                              consts.MAX_CODE_BITS),
                     d_sel_lens)
     # fixed blocks use the full-table codes (see _FIX_LL_PACKED)
-    ll_tab = torch.where(k_fix, const(_FIX_LL_PACKED)[None, :], ll_tab)
-    d_tab = torch.where(k_fix, const(_FIX_D_PACKED)[None, :], d_tab)
+    ll_tab = torch.where(k_fix, geo["fix_ll_packed"], ll_tab)
+    d_tab = torch.where(k_fix, geo["fix_d_packed"], d_tab)
 
     # ---- selected block-header fields (replicated per opening) ----
     hv = torch.where(k_dyn, dyn_hv, lit_hv)
     hb = torch.where(k_dyn, dyn_hb, lit_hb)
     fix_hv = torch.zeros_like(dyn_hv)
-    fix_hv[:, 0] = 1 << 1
+    fix_hv[:, 0].fill_(1 << 1)
     fix_hb = torch.zeros_like(dyn_hb)
-    fix_hb[:, 0] = 3
+    fix_hb[:, 0].fill_(3)
     hv = torch.where(k_fix, fix_hv, hv)
     hb = torch.where(k_fix, fix_hb, hb)
     hbits_sel = hb.sum(dim=1)
 
     # ---- body fields (2 per position) ----
-    stored_pos = torch.repeat_interleave(seg_stored, seg, dim=1)[:, :S]
+    stored_pos = seg_stored[:, :, None].expand(B, nseg, seg).reshape(
+        B, P)[:, :S]
     lle = onehot.lookup_onehot(ll_tab, llsym)
     dde = onehot.lookup_onehot(d_tab, dsym)
     llc, llb = lle & 0xFFFFFF, lle >> 24

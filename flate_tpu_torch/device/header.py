@@ -10,6 +10,8 @@ boundary (the section id is part of the run key).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import consts
@@ -80,6 +82,16 @@ def _rle_emit(v: torch.Tensor, live: torch.Tensor):
     return sym, ev, eb, emit
 
 
+@functools.lru_cache(maxsize=None)
+def _consts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """CODEGEN_ORDER and the widths of the four head fields on `device`,
+    made once per device so that no call copies from host memory (a CUDA
+    graph captures none)."""
+    return (torch.tensor(consts.CODEGEN_ORDER, dtype=torch.int64,
+                         device=device),
+            torch.tensor([[3, 5, 5, 4]], dtype=torch.int64, device=device))
+
+
 def build_headers(ll_lens: torch.Tensor, d_lens: torch.Tensor,
                   final: torch.Tensor):
     """Dynamic-header fields for a batch.
@@ -109,7 +121,7 @@ def build_headers(ll_lens: torch.Tensor, d_lens: torch.Tensor,
     cg_lens = huff.pm_lengths(cg_freq, consts.MAX_CODEGEN_BITS)
     cg_codes = huff.canonical_codes_dev(cg_lens, consts.MAX_CODEGEN_BITS)
 
-    order = torch.tensor(consts.CODEGEN_ORDER, dtype=torch.int64, device=dev)
+    order, head_bits = _consts(dev)
     ordered = cg_lens[:, order]                               # (B, 19)
     iO = torch.arange(consts.NUM_CODEGEN, dtype=torch.int64, device=dev)[None]
     hclen = torch.clamp(torch.where(ordered > 0, iO + 1, 0).amax(dim=1),
@@ -120,8 +132,7 @@ def build_headers(ll_lens: torch.Tensor, d_lens: torch.Tensor,
 
     head_vals = torch.stack([final.to(torch.int64) | (2 << 1), hlit - 257,
                              hdist - 1, hclen - 4], dim=1)
-    head_bits = torch.tensor([3, 5, 5, 4], dtype=torch.int64,
-                             device=dev)[None].expand(B, 4)
+    head_bits = head_bits.expand(B, 4)
     cl_bits = torch.where(iO < hclen[:, None], 3, 0)
     item_vals = torch.stack([item_code, ev], dim=2).reshape(B, 2 * SEQ)
     item_bits = torch.where(emit[:, :, None],

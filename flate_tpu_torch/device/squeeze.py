@@ -27,6 +27,7 @@ these keys overflow, and the integers are equal.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -82,6 +83,39 @@ def _length_code_py(length: int) -> tuple[int, int]:
     return code, (code >> 2) - 1
 
 
+def _options(grid_only: bool) -> list[tuple[int, int]]:
+    """(rank, constant length) of the DP's options in stack order: the
+    literal, the grid lengths, then (not grid_only) the full length,
+    whose length is per lane (0 here)."""
+    sgrid = GRID if grid_only else GRID[:-1]     # 258 comes via full_l
+    opts = [(0, 1)] + [(i + 1 + (not grid_only), g)
+                       for i, g in enumerate(sgrid)]
+    return opts if grid_only else opts + [(1, 0)]
+
+
+def _heads(blk: int) -> np.ndarray:
+    """Ring slot of cost[i+1] at each of the blk + 1 steps."""
+    return (-np.arange(blk + 1, dtype=np.int64)) % WIN
+
+
+@functools.lru_cache(maxsize=None)
+def _dp_consts(blk: int, grid_only: bool, device: torch.device):
+    """The DP's host-made constants on `device`, made once per device so
+    that no call copies from host memory (a CUDA graph captures none):
+    len_of (32,) the length of each option rank, slots (blk, NC) the ring
+    slot each constant-length option reads at each step, and head_col
+    (blk, 1) the head slot at each step."""
+    opts = _options(grid_only)
+    len_of = np.zeros(1 << _RANK_BITS, dtype=np.int64)
+    for rank, g in opts:
+        len_of[rank] = g
+    const_lens = np.asarray([g for _, g in opts if g], dtype=np.int64)
+    heads = _heads(blk)
+    slots = (heads[:blk, None] + const_lens[None, :] - 1) % WIN
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (len_of, slots, heads[:blk, None].copy()))
+
+
 def squeeze_parse(window_tail: torch.Tensor, mlen: torch.Tensor,
                   mdist: torch.Tensor, ll_bits: torch.Tensor,
                   d_bits: torch.Tensor, blk: int = 1024,
@@ -109,26 +143,26 @@ def squeeze_parse(window_tail: torch.Tensor, mlen: torch.Tensor,
     # options as (rank in the DP's order, constant length, cost (B, S));
     # the full-length option (rank 1) has a per-lane length and goes last
     # in the stack, so that the constant-length rows are one range
-    opts = [(0, 1, lit_bits)]
-    if grid_only:
-        sgrid = GRID                             # incl. 258
-    else:
+    if not grid_only:
         has = mlen >= consts.MIN_MATCH_LEN
         full_l = torch.where(has, mlen, 0).reshape(L, blk)
         lc = enc.length_code(torch.clamp(mlen, min=3))
         _, leb = enc.length_extra(torch.clamp(mlen, min=3), lc)
         lbits = onehot.lookup_onehot(ll64, 257 + lc)
         full_c = torch.where(has, lbits + leb + dcost, BIG)
-        sgrid = GRID[:-1]                        # 258 comes via full_l
-    for g in sgrid:
-        okay = (mlen >= g) if grid_only else (mlen > g)
-        gc, geb = _length_code_py(g)
-        cost = ll64[:, 257 + gc][:, None] + geb + dcost
-        opts.append((len(opts) + (not grid_only), g,
-                     torch.where(okay, cost, BIG)))
-    NC = len(opts)                               # constant-length rows
-    if not grid_only:
-        opts.append((1, 0, full_c))
+    opts = []
+    for rank, g in _options(grid_only):
+        if rank == 0:
+            cost = lit_bits
+        elif g == 0:
+            cost = full_c
+        else:
+            okay = (mlen >= g) if grid_only else (mlen > g)
+            gc, geb = _length_code_py(g)
+            cost = torch.where(okay, ll64[:, 257 + gc][:, None] + geb + dcost,
+                               BIG)
+        opts.append((rank, g, cost))
+    NC = len(opts) - (not grid_only)             # constant-length rows
     O = len(opts)
 
     def by_step(x):
@@ -139,23 +173,16 @@ def squeeze_parse(window_tail: torch.Tensor, mlen: torch.Tensor,
     keys = torch.empty((blk, O, L), dtype=i64, device=dev)
     for o, (rank, _, c) in enumerate(opts):
         keys[:, o, :] = by_step((c << _RANK_BITS) + rank)
-    len_of = [0] * (1 << _RANK_BITS)
-    for rank, g, _ in opts:
-        len_of[rank] = g
-    len_of = torch.tensor(len_of, dtype=i64, device=dev)
-    const_lens = np.asarray([g for _, g, _ in opts[:NC]], dtype=np.int64)
+    len_of, slots, head_col = _dp_consts(blk, grid_only, dev)
     del opts
 
     # ring (WIN, L) of cost << 5 (beyond the block's end: 0); head h = slot
     # of cost[i+1], the slot of cost[i + l] is (h + l - 1) % WIN, and h
     # steps back once per position
-    heads = (-np.arange(blk + 1, dtype=np.int64)) % WIN
-    slots = torch.from_numpy(
-        (heads[:blk, None] + const_lens[None, :] - 1) % WIN).to(dev)
+    heads = _heads(blk).tolist()
     if not grid_only:
-        full_slot = torch.remainder(
-            torch.from_numpy(heads[:blk]).to(dev)[:, None]
-            + by_step(full_l) - 1, WIN)                      # (blk, L)
+        full_slot = torch.remainder(head_col + by_step(full_l) - 1,
+                                    WIN)                     # (blk, L)
     ring = torch.zeros((WIN, L), dtype=i64, device=dev)
     best = torch.empty((blk, L), dtype=i64, device=dev)     # winning keys
     tot = torch.empty((O, L), dtype=i64, device=dev)
@@ -169,7 +196,6 @@ def squeeze_parse(window_tail: torch.Tensor, mlen: torch.Tensor,
     if not grid_only:
         full_keys, tot_full = keys[:, NC:].unbind(0), tot[NC:]
         full_slot_j = full_slot.unsqueeze(1).unbind(0)
-    heads = heads.tolist()
     for j in range(blk):
         torch.add(const_keys[j], ring.index_select(0, slots_j[j]),
                   out=tot_const)

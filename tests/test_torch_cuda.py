@@ -15,7 +15,8 @@ import torch
 from flate_tpu_torch import _build
 from flate_tpu_torch import api
 from flate_tpu_torch.device import anyinflate, bitonic, encode2, inflate2
-from flate_tpu_torch.device import match2
+from flate_tpu_torch.containers import Container
+from flate_tpu_torch.device import checksum, graphs, match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
 
 from _torch_corpora import (CTX, KINDS, S, corpus, lane_edge_rows,
@@ -715,3 +716,94 @@ def test_device_encoder_cuda_equal_cpu(cuda):
         outs.append((enc.comp_lens, enc.out_lens))
     assert outs[0] == outs[2] and outs[1] == outs[3]
     assert zlib.decompressobj(-15, zdict=d).decompress(outs[0]) == data
+
+
+# ---------------------------------------------------------------------------
+# the single-program encode: one CUDA graph a batch (device/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _graph_batch(cuda, level, B=4, seed=0):
+    """A batch of B mixed shards on the card, primed from a carry, the
+    last row ragged and final: encode_batch's arguments and knobs."""
+    data = np.frombuffer(corpus("mixed", CTX + B * S, seed=seed), np.uint8)
+    shards = torch.from_numpy(data[CTX:].reshape(B, S).copy()).to(cuda)
+    ctx0 = torch.from_numpy(data[:CTX].copy()).to(cuda)
+    ctx_lens = torch.full((B,), CTX, dtype=torch.int32, device=cuda)
+    valid = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    valid[-1] = S - 777
+    finals = torch.zeros(B, dtype=torch.int32, device=cuda)
+    finals[-1] = 1
+    return ((shards, ctx0, ctx_lens, valid, finals),
+            dict(S=S, ctx=CTX, **pipeline2.level_params(level, S)))
+
+
+def _eager_core(args, kn):
+    windows = pipeline2._prime_windows(args[0], args[1], CTX)
+    return pipeline2.encode_core(windows, *args[2:], **kn)
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_graph_replay_equal_eager(cuda, level):
+    """encode_batch's replays (the first call captures) equal the eager
+    encode_core on the same batch, and on a second batch written into the
+    same graph."""
+    graphs.clear()
+    for seed in (0, 1, 1):
+        args, kn = _graph_batch(cuda, level, seed=seed)
+        want = _eager_core(args, kn)
+        got = pipeline2.encode_batch(*args, **kn)
+        for a, b in zip(got, want):
+            _eq(a, b)
+    assert len(graphs._GRAPHS) == 1
+
+
+def test_graph_launch_counts(cuda):
+    """LAUNCHES after N replays is N x one eager batch's counts: the
+    capture adds nothing, a replay adds what the capture recorded."""
+    graphs.clear()
+    args, kn = _graph_batch(cuda, 6)
+    _build.LAUNCHES.clear()
+    _eager_core(args, kn)
+    eager = dict(_build.LAUNCHES)
+    assert eager.get("flate_matcher", 0) == 1
+    _build.LAUNCHES.clear()
+    pipeline2.encode_batch(*args, **kn)     # warm-up (eager), then a replay
+    assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in eager.items()}
+    (g,) = graphs._GRAPHS.values()
+    assert dict(g.launches) == eager
+    _build.LAUNCHES.clear()
+    for _ in range(3):
+        pipeline2.encode_batch(*args, **kn)
+    assert dict(_build.LAUNCHES) == {k: 3 * v for k, v in eager.items()}
+    assert g.replays == 4
+
+
+def test_second_key_captures_its_own_graph(cuda):
+    """Levels 1 and 6 hold a graph each in the one pool; replays of the
+    two in turns stay right."""
+    graphs.clear()
+    for level in (1, 6, 1, 6):
+        args, kn = _graph_batch(cuda, level, seed=level)
+        for a, b in zip(pipeline2.encode_batch(*args, **kn),
+                        _eager_core(args, kn)):
+            _eq(a, b)
+    assert len(graphs._GRAPHS) == 2
+
+
+@pytest.mark.parametrize("container", ["GZIP", "ZLIB"])
+def test_fused_loop_equal_staged(cuda, container):
+    """Three batches through the fused loop, two in flight, equal the
+    staged bytes on the card and on the CPU."""
+    data = corpus("mixed", 11 * S + 99, seed=4)
+    kw = dict(level=6, container=Container[container], shard_len=S,
+              ctx=CTX, batch=4)
+    fused = pipeline2.compress_device2(data, fused=True, **kw)
+    assert fused == pipeline2.compress_device2(data, **kw)
+    assert fused == pipeline2.compress_device2(data, device="cpu", **kw)
+    assert zlib.decompress(fused, 31 if container == "GZIP" else 15) == data
+
+
+def test_checksums_on_the_card(cuda):
+    data = corpus("mixed", (1 << 20) + 4097, seed=6)
+    assert checksum.crc32_device(data) == zlib.crc32(data)
+    assert checksum.adler32_device(data) == zlib.adler32(data)

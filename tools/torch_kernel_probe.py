@@ -81,6 +81,19 @@ the indexed decode of the text corpus from levels 1 and 3, the chained
 decode of the 8 MiB level-1 mixed member), so that a parent and a change
 compare in one call.
 
+The fused path, `--part fused` (not in the default parts): the level-1,
+-6 and -9 batch (64 x 128 KiB of the mixed corpus, as above) through
+pipeline2.encode_batch, one CUDA graph a batch: its capture and
+instantiate seconds and node count, one replay's device time (CUDA events
+over --reps replays), the eager encode_batch_staged's device time by
+events and its host time with a synchronise, and one replay under
+torch.profiler: the device time of each of the port's kernels inside it,
+the sum over all kernels and the ten largest entries; then the 32 MiB
+level-6 encode through compress_device2(fused=False / True), best of 3
+on the host clock.
+
+    python3 tools/torch_kernel_probe.py --part fused
+
 --tree DIR measures the kernels of another checkout (its flate_tpu_torch,
 built into DIR/build) with this probe's code, so that a parent and a change
 run in one call on one card.
@@ -554,6 +567,91 @@ def e2e(reps: int) -> dict:
     return out
 
 
+PORT_KERNELS = ("prep_kernel", "matcher_kernel", "small_runs_kernel",
+                "extend_kernel", "parse_rows_kernel", "parse_ring_kernel",
+                "pack_kernel")
+
+
+def replay_profile(replay) -> dict:
+    """Device time (ms) by kernel name of one replay, from torch.profiler
+    (empty when the profiler sees no kernel inside a graph)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t:
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    return out
+
+
+def fused(reps: int) -> dict:
+    from flate_tpu_torch.device import graphs
+    window, ctx_len, valid = level6_batch()
+    dev = window.device
+    shards = window[:, CTX:].contiguous()
+    ctx0 = window[0, :CTX].contiguous()
+    finals = torch.zeros(B, dtype=torch.int32, device=dev)
+    finals[-1] = 1
+    args = (shards, ctx0, ctx_len, valid, finals)
+    out = {}
+    for L in (1, 6, 9):
+        kn = dict(S=S, ctx=CTX, **pipeline2.level_params(L, S))
+        graphs.clear()
+        pipeline2.encode_batch(*args, **kn)
+        (g,) = graphs._GRAPHS.values()
+        replay = g.graph.replay
+        out[f"l{L}_capture_s"] = g.capture_s
+        out[f"l{L}_instantiate_s"] = g.instantiate_s
+        out[f"l{L}_nodes"] = g.nodes
+        out[f"l{L}_replay_ms"] = timed(replay, reps)
+        staged = lambda: pipeline2.encode_batch_staged(*args, **kn)  # noqa
+        out[f"l{L}_staged_ms"] = timed(staged, 3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        staged()
+        torch.cuda.synchronize()
+        out[f"l{L}_staged_host_ms"] = (time.perf_counter() - t) * 1e3
+        prof = replay_profile(replay)
+        ours = {k: sum(v for name, v in prof.items() if k in name)
+                for k in PORT_KERNELS}
+        out[f"l{L}_kernels_ms"] = ours
+        out[f"l{L}_profiled_ms"] = sum(prof.values())
+        top = [(k[:60], round(v, 3))
+               for k, v in sorted(prof.items(), key=lambda kv: -kv[1])[:10]]
+        mine = {k: round(v, 4) for k, v in ours.items()}
+        print(f"level {L}: graph capture {g.capture_s:.3f} s, instantiate "
+              f"{g.instantiate_s} s, {g.nodes} nodes; one replay "
+              f"{out[f'l{L}_replay_ms']:.3f} ms of device time; staged "
+              f"batch {out[f'l{L}_staged_ms']:.3f} ms by events, "
+              f"{out[f'l{L}_staged_host_ms']:.3f} ms on the host clock; "
+              f"profiled replay: {out[f'l{L}_profiled_ms']:.3f} ms in "
+              f"kernels, the port's {mine}; largest {top}", flush=True)
+    graphs.clear()
+    data32 = mixed_corpus(4 * B * S)
+    for flag in (False, True, True, False):
+        fn = lambda: pipeline2.compress_device2(data32, level=6,  # noqa
+                                                fused=flag)
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        key = f"encode_l6_mixed32_{'fused' if flag else 'staged'}_s"
+        out.setdefault(key, []).append(best)
+        print(f"32 MiB level 6, fused={flag}: best of 3 {best:.4f} s = "
+              f"{len(data32) / best / 1e9:.4f} GB/s", flush=True)
+    return out
+
+
 def main() -> int:
     global api, bitonic, encode2, inflate2, match2, pack, parse
     global pipeline2, runs
@@ -562,7 +660,7 @@ def main() -> int:
     ap.add_argument("--part",
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
-                         "lanes, prep, pack, e2e")
+                         "lanes, prep, pack, e2e, fused")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -579,7 +677,7 @@ def main() -> int:
     res = {"card": card, "tree": os.path.abspath(args.tree)}
     parts = {"matcher": matcher, "network": network, "walks": walks,
              "runs": small_runs, "lanes": lanes, "prep": prep,
-             "pack": pack_part, "e2e": e2e}
+             "pack": pack_part, "e2e": e2e, "fused": fused}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
