@@ -35,13 +35,13 @@ MAX_GRAPHS = 8                  # graphs kept alive (least recently used go)
 
 
 def _node_count(raw_graph: int) -> int:
-    """Nodes of a captured cudaGraph_t, from the driver."""
+    """Nodes of a captured cudaGraph_t (libcuda's cuGraphGetNodes)."""
     libcuda = ctypes.CDLL("libcuda.so.1")
     count = ctypes.c_size_t(0)
     rc = libcuda.cuGraphGetNodes(ctypes.c_void_p(raw_graph), None,
                                  ctypes.byref(count))
     if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes: CUDA driver error {rc}")
+        raise RuntimeError(f"cuGraphGetNodes returned CUresult {rc}")
     return count.value
 
 
