@@ -39,10 +39,11 @@ Phases, one line each:
      (a) the text corpus as encoded at levels 1 and 3 (indexed route),
      (b) the 32 MiB mixed member of level 3 and the 8 MiB one of level 1
      (segmented shards: re-routed to the chained route), (c) the text corpus
-     from CPython's zlib at level 9 (unindexed, one chain from bit 0),
-     (d) the first 8 text shards with walk="serial".  Each output must
-     equal its input; the launch counters are reset before and read after
-     each run, and each run prints its route, seconds, GB/s of output,
+     from CPython's zlib at level 9 (unindexed: chains from bit 0 and from
+     the chunk entries the scanner finds every 512 KiB), (d) the first 8
+     text shards with walk="serial".  Each output must equal its input;
+     the launch counters are reset before and read after each run, and
+     each run prints its route, chain heads, seconds, GB/s of output,
      launches, batches walked again serially and re-routes;
   7. (phase 3's loop, run right after it on its batch) B1-B5 at level
      6's and level 9's knobs (K=48, nw=8; K=160, nw=16 with the 3-byte K3
@@ -104,12 +105,28 @@ Phases, one line each:
      (phase 8's 8 MiB bytes), compress_to_regions must tile the stream,
      and the group is destroyed.  The exchange between ranks is held on
      the CPU by tests/test_torch_mesh2.py.
+ 13. the chunk-entry scanner (S1, scan_kernel) on the body of
+     zlib.compress(32 MiB mixed, 6), a stream another encoder wrote:
+     chunk_entries at the decode's 512 KiB chunks and scan_headers
+     (max_out=64) over the body's first 8 MiB must equal their plain
+     versions on the host; the kernel's time (CUDA events, and replayed
+     from a CUDA graph), the whole call's host time, the plain version's,
+     and the bound (the body read and the bitmap written once, or the
+     operations the plain version counts: three tests an offset, two a
+     Kraft field, one a header bit parsed; whichever is larger)
+     with the kernel's share of it.  Then api.zlib.decompress of that
+     stream (launch counters reset before, read after) must return the
+     input with flate_scan_headers launched and more than one chain head,
+     beside anyinflate._decompress_member_any(entries=[0]), one chain, and
+     decompress_device_any at 128 KiB chunks (over 64 chains: a round's
+     rows go through in row chunks) on the same stream: seconds, GB/s of
+     output and rounds of each.
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 140 s on an H100 (the kernel build ~5 s, the CPU twins of phases 8
-and 10 ~30-55 s, the plain versions' host loops ~25 s).
+About 170 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
+and 10 ~30-55 s, the plain versions' host loops ~25 s, phase 13 ~15 s).
 """
 
 from __future__ import annotations
@@ -282,9 +299,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from flate_tpu_torch import _build, api
     from flate_tpu_torch.containers import Container, parse_header
-    from flate_tpu_torch.device import bitonic, encode2, inflate2, match2
-    from flate_tpu_torch.device import graphs, pack, parse, pipeline2, runs
-    from flate_tpu_torch.device import squeeze
+    from flate_tpu_torch.device import anyinflate, bitonic, encode2
+    from flate_tpu_torch.device import graphs, inflate2, match2, pack
+    from flate_tpu_torch.device import parse, pipeline2, runs, scan, squeeze
     from flate_tpu_torch.device import to_i32
     from flate_tpu_torch.shard_index import parse_index_extra
 
@@ -718,7 +735,8 @@ def main() -> int:
             raise AssertionError(f"decode {tag}: member was not re-routed: "
                                  f"{stats}")
         print(f"[6] decode {tag} ({ns}, {len(blob)} -> {len(want)} bytes"
-              f"{', ' + str(kw) if kw else ''}): route {route}, "
+              f"{', ' + str(kw) if kw else ''}): route {route}, chain heads "
+              f"{stats.get('chain_heads', 0)}, "
               f"{secs:.4f} s = {len(want) / secs / 1e9:.4f} GB/s of output; "
               f"launches {counts}; {nshards} shards, host-decoded 0 (no "
               f"host decode on the path), batches walked again serially "
@@ -1139,6 +1157,101 @@ def main() -> int:
           f"(the context tail by send/recv, meta and bytes gathered in "
           f"rank order) is held only on the CPU (gloo, "
           f"tests/test_torch_mesh2.py) until a machine has several cards",
+          flush=True)
+
+    # ---- phase 13: the chunk-entry scanner (S1) on a foreign stream ----
+    foreign = zlib.compress(data32, 6)
+    body = foreign[2:]                  # the member body the decode scans
+    sbuf = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+    sbuf_cpu = sbuf.cpu()
+    chunk = anyinflate.CHUNK_BYTES
+    nchunks = -(-len(body) // chunk)
+    scans = (
+        ("scan_chunk_entries", 8 * chunk, nchunks * 8 * chunk,
+         lambda b, st=None: scan.chunk_entries(b, chunk, stats=st)),
+        ("scan_headers_8mib", 0, 8 * (8 << 20),
+         lambda b, st=None: scan.scan_headers(b, 0, 8 * (8 << 20), 64,
+                                              stats=st)),
+    )
+    for label, lo_, hi_, run in scans:
+        lo, hi = scan._range(len(body), lo_, hi_)
+        got = run(sbuf)
+        st = {}
+        t = time.time()
+        want = run(sbuf_cpu, st)
+        plain_ms = (time.time() - t) * 1e3
+        if got != want:
+            raise AssertionError(f"{label}: kernel != plain ({got[:8]} vs "
+                                 f"{want[:8]})")
+        ms = cuda_ms(lambda: scan._scan_cuda(sbuf, lo, hi), 20)
+        gms = graph_ms(lambda: scan._scan_cuda(sbuf, lo, hi), 20)
+        call_ms = host_ms(lambda: run(sbuf), 5)
+        moved = (hi - lo) // 8 + 4 * (-(-(hi - (lo & ~31)) // 32))
+        ops = scan.ops_needed(st)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / INT_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        cases.append(dict(
+            name=label, entry="flate_scan_headers", path=("decode", "e"),
+            route="cuda", source=_build.source_of("flate_scan_headers"),
+            replaces="flate_tpu/native/fastinflate.c:1046 (host C; no "
+                     "pallas_call)",
+            max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, graph_ms=gms,
+            call_ms=call_ms, offsets=hi - lo, found=len(got)))
+        print(f"[13] {label}: {len(got)} offsets equal to the plain "
+              f"version's ({got[:6]}...); kernel {ms:.4f} ms over "
+              f"{hi - lo} offsets (from a CUDA graph {gms:.4f} ms; the "
+              f"whole call with its selection and fetch {call_ms:.4f} ms); "
+              f"plain {plain_ms:.1f} ms on the host; bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({moved} bytes {bytes_ms:.4f} ms, {ops} ops "
+              f"{ops_ms:.4f} ms: {st}), {bound_ms / ms:.1%} of it", flush=True)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    inflate2.STATS.clear()
+    t = time.time()
+    got = api.zlib.decompress(foreign)
+    secs = time.time() - t
+    counts = dict(_build.LAUNCHES)
+    stats = dict(inflate2.STATS)
+    launches["decode", "e"] = counts
+    if got != data32:
+        raise AssertionError("foreign stream: output differs from input")
+    if counts.get("flate_scan_headers", 0) <= 0 or \
+            counts.get("flate_lane_walk", 0) <= 0:
+        raise AssertionError(f"foreign stream: kernels not launched: {counts}")
+    if stats.get("chain_heads", 0) <= 1:
+        raise AssertionError(f"foreign stream: one chain head: {stats}")
+    inflate2.STATS.clear()
+    t = time.time()
+    one, end = anyinflate._decompress_member_any(
+        foreign, 0, Container.ZLIB, True, dev, entries=[0])
+    secs1 = time.time() - t
+    stats1 = dict(inflate2.STATS)
+    if one != data32 or end != len(foreign):
+        raise AssertionError("foreign stream, one chain: output differs")
+    # 128 KiB chunks: more chains than a round's row chunk holds at the
+    # first span (MAX_POSITIONS / 2^19 positions = 64 rows)
+    inflate2.STATS.clear()
+    t = time.time()
+    fine = anyinflate.decompress_device_any(foreign, Container.ZLIB,
+                                            chunk_bytes=1 << 17)
+    secs2 = time.time() - t
+    stats2 = dict(inflate2.STATS)
+    if fine != data32 or stats2.get("chain_heads", 0) <= 64:
+        raise AssertionError(f"foreign stream, 128 KiB chunks: output "
+                             f"differs or too few chains: {stats2}")
+    print(f"[13] api.zlib.decompress of zlib.compress(32 MiB mixed, 6) "
+          f"({len(foreign)} bytes, {nchunks} chunks of {chunk}): "
+          f"{secs:.4f} s = {len(data32) / secs / 1e9:.4f} GB/s of output, "
+          f"chain heads {stats['chain_heads']}, rounds "
+          f"{stats.get('chained_rounds')}, launches {counts}; one chain "
+          f"(entries=[0]) {secs1:.4f} s = {len(data32) / secs1 / 1e9:.4f} "
+          f"GB/s, rounds {stats1.get('chained_rounds')}; 128 KiB chunks "
+          f"{secs2:.4f} s = {len(data32) / secs2 / 1e9:.4f} GB/s, chain "
+          f"heads {stats2['chain_heads']}, rounds "
+          f"{stats2.get('chained_rounds')}; all equal the input",
           flush=True)
 
     for c in cases:

@@ -35,6 +35,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # argument types of each C entry point (pointers and the stream as void*),
 # by the source that holds it
 ENCODE_KERNELS = {
@@ -51,6 +52,7 @@ DECODE_KERNELS = {
     "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     "flate_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "flate_scan_headers": [_P, _P, _L, _L, _L, _P],
 }
 SORT_KERNELS = {
     "flate_bitonic": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,

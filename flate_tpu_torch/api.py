@@ -182,8 +182,10 @@ class _Namespace:
         shard-parallel, `batch` shards at a time (device/inflate2.py).  A
         member without a usable index (a foreign encoder's stream, zlib
         and raw streams, or shards over 128 KiB) decodes on the same
-        device as one chain of blocks from bit 0
-        (device/anyinflate.py).  There is no host decoder to fall back
+        device as chains of blocks, from bit 0 and from the first
+        dynamic-block header the device scanner finds in each further
+        512 KiB of the body (device/anyinflate.py, device/scan.py).
+        There is no host decoder to fall back
         to, and the decode never leaves the named device on its own: a
         missing card raises DeviceUnavailable.
 

@@ -2,11 +2,17 @@
 
 Counterpart of flate_tpu/jx/anyinflate.py:
 
-1. **Chain entries**: known block-header bit positions of the member body.
-   A member re-routed from the indexed path brings its shard offsets, one
-   exact entry per shard.  A foreign stream enters at bit 0 only: the
-   chunk-entry scanner that finds further entries is not part of this
-   package yet, so such a stream decodes as one chain.
+1. **Chain entries**: block-header bit positions of the member body.  A
+   member re-routed from the indexed path brings its shard offsets, one
+   exact entry per shard.  A foreign stream gets bit 0 and, for each
+   further chunk of `chunk_bytes`, the first validated dynamic-block
+   header the chunk-entry scanner finds there (device/scan.py, one kernel
+   launch for the member).  Such an entry is speculative: a header inside
+   a stored block's payload (a deflate stream stored as data) passes the
+   scanner too.  A block that fails to parse or decode raises only once
+   the chain from bit 0 reaches it, so a false entry's garbage chain
+   costs rounds, never the result.  (The JAX package raises at the first
+   failure of any chain, also on such streams that zlib decodes.)
 2. **Chained block decode** (device): each round decodes one block per
    active chain position — pass1 speculative symbol decode over the
    block's span, multi-lane walk with join resolve (device/inflate2.py),
@@ -40,11 +46,11 @@ from ..errors import (
     WrongStoredBlockNlen,
 )
 from . import inflate2 as i2
-from . import resolve_device
+from . import resolve_device, scan
 
 CTX = consts.MAX_DISTANCE
 
-CHUNK_BYTES = 1 << 19            # chain spacing of a chunk-entry scanner
+CHUNK_BYTES = 1 << 19            # chain spacing of the chunk-entry scanner
 SPAN0 = 1 << 16                  # initial block span (64 KiB comp)
 MAX_SPAN = 1 << 21               # escalation cap (2 MiB comp)
 RES_B = 8                        # resolve batch rows
@@ -264,15 +270,17 @@ def _decode_round(body: bytes, plans: list, span: dict,
 def decompress_device_any(data: bytes,
                           container: Container = Container.GZIP,
                           verify: bool = True, *,
+                          chunk_bytes: int = CHUNK_BYTES,
                           device: str | torch.device = "cuda") -> bytes:
     """Device decode of an arbitrary (unindexed) single/multi-member
-    stream, each member as one chain from bit 0 of its body."""
+    stream, each member as chains from bit 0 and from the chunk entries
+    the scanner finds every `chunk_bytes` of its body."""
     dev = resolve_device(device)
     out = bytearray()
     offset = 0
     while offset < len(data):
         chunk, offset = _decompress_member_any(
-            data, offset, container, verify, dev)
+            data, offset, container, verify, dev, chunk_bytes=chunk_bytes)
         out += chunk
         if container is not Container.GZIP:
             break
@@ -281,10 +289,13 @@ def decompress_device_any(data: bytes,
 
 def _decompress_member_any(data: bytes, offset: int,
                            container: Container, verify: bool,
-                           dev: torch.device, entries: list | None = None):
+                           dev: torch.device, *,
+                           chunk_bytes: int = CHUNK_BYTES,
+                           entries: list | None = None):
     """`entries` gives KNOWN block-header bit positions (relative to the
     member body) as chain heads — e.g. the per-shard offsets of an FLT1
-    index, which make every chain exact.  None enters at bit 0 only."""
+    index, which make every chain exact.  None scans the body for one
+    entry per chunk of `chunk_bytes` (scan.chunk_entries)."""
     i2.STATS["chained_members"] += 1
     hdr_len, _meta = parse_header(container, data[offset:])
     body = data[offset + hdr_len:]
@@ -292,12 +303,14 @@ def _decompress_member_any(data: bytes, offset: int,
 
     # ---- chain heads --------------------------------------------------
     if entries is None:
-        entries = [0]
+        entries = scan.chunk_entries(body, chunk_bytes, device=dev)
     else:
         entries = sorted({0, *(int(e) for e in entries if e < nbits)})
+    i2.STATS["chain_heads"] += len(entries)
 
     # ---- chained decode rounds ----------------------------------------
     decoded: dict = {}           # header bit pos -> result/stored plan
+    failed: dict = {}            # header bit pos -> its FlateError
     frontier = set(entries)
     span: dict = {}
     serial_set: set = set()
@@ -305,7 +318,7 @@ def _decompress_member_any(data: bytes, offset: int,
     chain_head = 0
     stall = 0
     while True:
-        todo = sorted(frontier - set(decoded))
+        todo = sorted(frontier - set(decoded) - set(failed))
         if not todo:
             break
         plans = []
@@ -315,10 +328,11 @@ def _decompress_member_any(data: bytes, offset: int,
                 continue
             try:
                 p = plan_block_at(body, pos)
-            except FlateError:
-                if pos in entries and pos != 0:
-                    continue     # bad speculative entry: chain 0 catches up
-                raise
+            except FlateError as e:
+                # a chain from a false entry runs into garbage: an error
+                # counts only once chain 0 reaches its position
+                failed[pos] = e
+                continue
             if p.kind == "stored":
                 decoded[pos] = {"plan": p, "end_bit": p.end_bit,
                                 "ok": True, "stored": True}
@@ -329,6 +343,7 @@ def _decompress_member_any(data: bytes, offset: int,
             else:
                 plans.append(p)
         if plans:
+            i2.STATS["chained_rounds"] += 1
             res = _decode_round(body, plans, span, serial_set, dev)
             for pos, r in res.items():
                 if not r["has_eob"] and r["span"] < MAX_SPAN \
@@ -343,7 +358,9 @@ def _decompress_member_any(data: bytes, offset: int,
                     frontier.add(pos)
                     continue
                 if not r["ok"]:
-                    raise InvalidCode(f"block at bit {pos} undecodable")
+                    failed[pos] = InvalidCode(
+                        f"block at bit {pos} undecodable")
+                    continue
                 r["stored"] = False
                 decoded[pos] = r
                 if not r["plan"].bfinal:
@@ -359,6 +376,8 @@ def _decompress_member_any(data: bytes, offset: int,
             pos = decoded[pos]["end_bit"]
         if pos in decoded and decoded[pos]["plan"].bfinal:
             break
+        if pos in failed:
+            raise failed[pos]
         stall = stall + 1 if pos == chain_head else 0
         chain_head = pos
         frontier.add(pos)

@@ -60,8 +60,10 @@ LANE_J = 96                      # max join-walk steps
 # "decode_batch" count device batches of the indexed route (lane walk and
 # serial walk), "serial_retries" the lane-walk batches walked again
 # serially after an unproven speculation, "segmented_reroutes" the members
-# sent on to the chained route, and "chained_members" the members
-# device/anyinflate.py decoded.
+# sent on to the chained route, "chained_members" the members
+# device/anyinflate.py decoded, "chain_heads" their chain heads (bit 0,
+# the scanner's chunk entries or a re-routed member's shard offsets) and
+# "chained_rounds" the device rounds of their chained decode.
 STATS: collections.Counter = collections.Counter()
 
 

@@ -8,6 +8,7 @@ so the JAX package and the port see the same bytes.
 from __future__ import annotations
 
 import pathlib
+import zlib
 
 import numpy as np
 import torch
@@ -261,3 +262,240 @@ def pack_edge_rows(slots: int, max_bits: int, tile: int = PACK_TILE,
     vals = np.stack([r[0] for r in rows]).astype(np.uint32)
     bits = np.stack([r[1] for r in rows]).astype(np.int32)
     return vals, bits
+
+
+# ---------------------------------------------------------------------------
+# hand-built dynamic-block headers (the chunk-entry scanner's cases)
+# ---------------------------------------------------------------------------
+
+CODEGEN_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14,
+                 1, 15)
+
+
+def _rle(lens) -> list:
+    """The code-length symbols (sym, extra value, extra bits) of one run of
+    lengths, zlib-style: zeros as 17/18, repeats of a length as 16."""
+    out, i, n = [], 0, len(lens)
+    while i < n:
+        v, j = int(lens[i]), i
+        while j < n and lens[j] == v:
+            j += 1
+        run = j - i
+        if v == 0:
+            while run >= 11:
+                r = min(run, 138)
+                out.append((18, r - 11, 7))
+                run -= r
+            if run >= 3:
+                out.append((17, run - 3, 3))
+                run = 0
+        else:
+            out.append((v, 0, 0))
+            run -= 1
+            while run >= 3:
+                r = min(run, 6)
+                out.append((16, r - 3, 2))
+                run -= r
+        out += [(v, 0, 0)] * run
+        i = j
+    return out
+
+
+def _balanced(syms) -> dict:
+    """A complete code over `syms` (two or more): the balanced one."""
+    k = len(syms)
+    d = (k - 1).bit_length()
+    m = (1 << d) - k                     # leaves one level up
+    return {s: d - 1 if i < m else d for i, s in enumerate(sorted(syms))}
+
+
+def canonical_code(lens: dict) -> dict:
+    """sym -> (code, len) of the canonical code of `lens` (MSB-first)."""
+    code, out = 0, {}
+    for ln in range(1, 16):
+        for s in sorted(s for s, n in lens.items() if n == ln):
+            out[s] = (code, ln)
+            code += 1
+        code <<= 1
+    return out
+
+
+def dyn_header(ll_lens, d_lens, *, bfinal: int = 1, cl_lens=None,
+               hclen: int | None = None, hlit: int | None = None,
+               cross: bool = False) -> list:
+    """The bits (LSB-first order) of a dynamic-block header with these
+    literal/length and distance lengths.  cl_lens: the 19 code-length
+    code lengths (default: a complete code over the symbols used); hclen,
+    hlit: raw field values in place of the computed ones; cross: send the
+    first three distance lengths as a repeat-16 of the last
+    literal/length length (RFC 1951 lets a repeat cross that boundary;
+    the C scanner does not)."""
+    bits: list = []
+
+    def put(v, n):                       # a field, LSB-first
+        bits.extend((int(v) >> i) & 1 for i in range(n))
+
+    syms = _rle(ll_lens)
+    if cross:
+        syms += [(16, 0, 2)] + _rle(d_lens[3:])
+    else:
+        syms += _rle(d_lens)
+    if cl_lens is None:
+        used = sorted({s for s, _, _ in syms} | {0, 1})
+        lens = _balanced(used)
+        cl_lens = [lens.get(s, 0) for s in range(19)]
+    if hclen is None:
+        hclen = max(4, max(i + 1 for i, s in enumerate(CODEGEN_ORDER)
+                           if cl_lens[s]))
+    put(bfinal, 1)
+    put(2, 2)
+    put(len(ll_lens) - 257 if hlit is None else hlit, 5)
+    put(len(d_lens) - 1, 5)
+    put(hclen - 4, 4)
+    for i in range(hclen):
+        put(cl_lens[CODEGEN_ORDER[i]], 3)
+    codes = canonical_code({s: n for s, n in enumerate(cl_lens) if n})
+    for s, extra, nx in syms:
+        code, ln = codes.get(s, (0, 1))
+        bits.extend((code >> (ln - 1 - i)) & 1 for i in range(ln))
+        put(extra, nx)
+    return bits
+
+
+def with_eob(bits: list, ll_lens) -> list:
+    """Header bits followed by the code of symbol 256 under ll_lens: a
+    block with no data."""
+    code, ln = canonical_code({s: n for s, n in enumerate(ll_lens) if n})[256]
+    return bits + [(code >> (ln - 1 - i)) & 1 for i in range(ln)]
+
+
+def header_stream(bits: list, lead: int, tail: int, seed: int = 0
+                  ) -> bytes:
+    """`lead` random bits, the header bits, then random bytes to fill
+    `tail` more bytes."""
+    rng = np.random.default_rng(seed)
+    allb = list(rng.integers(0, 2, lead)) + list(bits)
+    allb += list(rng.integers(0, 2, (-len(allb)) % 8 + 8 * tail))
+    return np.packbits(np.asarray(allb, np.uint8),
+                       bitorder="little").tobytes()
+
+
+def deflate_raw(data: bytes, level: int, strategy: int = 0) -> bytes:
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, 8, strategy)
+    return c.compress(data) + c.flush()
+
+
+# A complete literal/length code (255 codes of 8 bits, 255 and 256 of 9)
+# and a complete distance code (4 of 2 bits).
+HDR_LL = [8] * 255 + [9, 9]
+HDR_D = [2, 2, 2, 2]
+
+
+def header_cases() -> dict:
+    """name -> (lengths and options for dyn_header, whether the C scanner
+    accepts the header): one accepted header and one case per rejection
+    of the C's parse."""
+    one_ll = [0] * 257
+    one_ll[256] = 1
+    no_eob = list(HDR_LL)
+    no_eob[256] = 0
+    no_eob[100] = 9                      # keep the code complete
+    # symbols 256 and 257 of length 2, as long as the distance codes
+    cross_ll = [9] * 256 + [2, 2]
+    over = [0] * 19
+    under = [0] * 19
+    for s in (0, 1, 2, 8, 9, 16, 17, 18):
+        over[s], under[s] = 2, 4         # 8 codes of 2 bits / of 4 bits
+    return {
+        "accepted": ((HDR_LL, HDR_D, {}), True),
+        "hlit_30": ((HDR_LL, HDR_D, {"hlit": 30}), False),
+        "hlit_31": ((HDR_LL, HDR_D, {"hlit": 31}), False),
+        "codelen_over": ((HDR_LL, HDR_D, {"cl_lens": over}), False),
+        "codelen_under": ((HDR_LL, HDR_D, {"cl_lens": under}), False),
+        "cross_ll": ((cross_ll, HDR_D, {}), True),
+        "repeat16_first_dist": ((cross_ll, HDR_D, {"cross": True}), False),
+        "no_code_256": ((no_eob, HDR_D, {}), False),
+        "lone_dist_len1": ((HDR_LL, [1], {}), True),
+        "incomplete_dist": ((HDR_LL, [1, 2], {}), False),
+        "zero_dist": ((HDR_LL, [0, 0, 0], {}), True),
+        "lone_litlen_len1": ((one_ll, HDR_D, {}), True),
+        "incomplete_litlen": ((HDR_LL[:-1] + [0], HDR_D, {}), False),
+        "bfinal_0": ((HDR_LL, HDR_D, {"bfinal": 0}), True),
+    }
+
+
+def header_case_stream(name: str, lead: int = 13, tail: int = 24) -> bytes:
+    """The stream of header case `name`: `lead` random bits, the header,
+    `tail` random bytes."""
+    (ll, d, kw), _ = header_cases()[name]
+    return header_stream(dyn_header(ll, d, **kw), lead, tail,
+                         seed=len(name))
+
+
+def edge_stream(lead: int, nbits: int = 112) -> bytes:
+    """A 93-bit valid header (only symbol 256 and one distance code, both
+    of length 1) at bit `lead` of an nbits-bit stream of random bits: the
+    C tests it only when lead < nbits - 96."""
+    one_ll = [0] * 257
+    one_ll[256] = 1
+    bits = dyn_header(one_ll, [1])
+    rng = np.random.default_rng(lead)
+    allb = list(rng.integers(0, 2, lead)) + bits
+    allb += list(rng.integers(0, 2, nbits - len(allb)))
+    return np.packbits(np.asarray(allb, np.uint8),
+                       bitorder="little").tobytes()
+
+
+def scan_cases() -> dict:
+    """name -> (data, start_bit, end_bit, max_out) of the chunk-entry
+    scanner's cases: deflate bodies of CPython's zlib at levels 0, 1, 6, 9
+    and Z_FIXED, random bytes, unaligned starts, ranges that end at a
+    header or in the last 96 bits, streams under 96 bits, a header just
+    below, at and above nbits - 96, and the hand-built headers."""
+    text = corpus("text", 200_000)
+    mixed = corpus("mixed", 200_000, seed=5)
+    cases = {}
+    for lv in (1, 6, 9):
+        cases[f"text_l{lv}"] = (deflate_raw(text, lv), 0, None, 64)
+        cases[f"mixed_l{lv}"] = (deflate_raw(mixed, lv), 0, None, 1000)
+    cases["stored_l0"] = (deflate_raw(text[:100_000], 0), 0, None, 64)
+    cases["fixed"] = (deflate_raw(text, 6, zlib.Z_FIXED), 0, None, 64)
+    rng = np.random.default_rng(17)
+    cases["random_64k"] = (rng.integers(0, 256, 1 << 16, dtype=np.uint8)
+                           .tobytes(), 0, None, 1000)
+    body = cases["mixed_l1"][0]
+    for s in (3, 8 * 20_000 + 5, 8 * 20_000 + 13):
+        cases[f"start_{s}"] = (body, s, None, 4)
+    hs = header_case_stream("accepted", lead=13, tail=40)   # header at 13
+    for s, e in ((13, None), (14, None), (5, 13), (5, 14)):
+        cases[f"hdr_range_{s}_{e}"] = (hs, s, e, 64)
+    nb = 8 * len(hs)
+    for e in (nb - 50, nb - 96, nb - 97, nb + 1000):
+        cases[f"hdr_end_{e - nb:+d}"] = (hs, 0, e, 64)
+    for lead in (15, 16, 17):            # nbits - 97, - 96, - 95
+        cases[f"edge_{lead}"] = (edge_stream(lead), 0, None, 64)
+        cases[f"edge_{lead}_end"] = (edge_stream(lead), 0, 100, 64)
+    cases["hdr_truncated"] = (hs[:30], 0, None, 64)   # reads past the end
+    hb = header_case_stream("accepted", lead=13, tail=0)
+    for cut in (0, 1, 11, 12, 13):
+        cases[f"short_{cut}"] = (hb[:cut], 0, None, 64)
+    for name in header_cases():
+        cases[f"hdr_{name}"] = (header_case_stream(name), 0, None, 64)
+    return cases
+
+
+def trap_stream() -> bytes:
+    """A zlib stream of stored blocks (4 KiB flushes) whose payload holds,
+    at ~40 KB, a valid dynamic header with BFINAL 0, its end-of-block code
+    and then the bits of a block type 3: the scanner's entry for chunk 1
+    at 32 KiB, whose chain fails at its second block."""
+    bits = with_eob(dyn_header(HDR_LL, HDR_D, bfinal=0), HDR_LL)
+    bits += [0, 1, 1]                    # BFINAL 0, BTYPE 3
+    bits += [0] * ((-len(bits)) % 8)
+    trap = np.packbits(np.asarray(bits, np.uint8), bitorder="little")
+    payload = corpus("text", 40000) + trap.tobytes() \
+        + corpus("text", 8000, seed=1)
+    c = zlib.compressobj(0, zlib.DEFLATED, 15)
+    return b"".join(c.compress(payload[i:i + 4096])
+                    + c.flush(zlib.Z_FULL_FLUSH)
+                    for i in range(0, len(payload), 4096)) + c.flush()

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from flate_tpu import errors as j_errors
+from flate_tpu.containers import Container as JContainer
 from flate_tpu.jx import anyinflate as j_ai
 
 import flate_tpu_torch as ftt
@@ -22,7 +24,7 @@ from flate_tpu_torch.containers import Container
 from flate_tpu_torch.device import anyinflate as ai
 from flate_tpu_torch.device import inflate2 as i2
 
-from _torch_corpora import tt, u32
+from _torch_corpora import corpus, trap_stream, tt, u32
 from _torch_decode_ref import S, coded_run, gz, port_blob, text
 
 NS = 2 * 8192
@@ -255,3 +257,99 @@ def test_any_without_card_raises():
         pytest.skip("a CUDA card is present: the no-card rule is untestable")
     with pytest.raises(errors.DeviceUnavailable):
         ai.decompress_device_any(gz(b"abc", 6))
+
+
+# ---------------------------------------------------------------------------
+# chunk entries from the scanner: many chains a member
+# ---------------------------------------------------------------------------
+
+CHUNK = 32768
+
+
+def _text_l(level: int) -> bytes:
+    return zlib.compress(text(400_000), level)
+
+
+def _mixed_blocks() -> bytes:
+    """Stored and coded blocks mixed: text and random runs at level 6."""
+    rng = np.random.default_rng(21)
+    parts = [text(30000), rng.integers(0, 256, 30000, dtype=np.uint8)
+             .tobytes()] * 4
+    return gz(b"".join(parts), 6)
+
+
+CHUNKED = {
+    "text_l1": (lambda: _text_l(1), Container.ZLIB),
+    "text_l6": (lambda: _text_l(6), Container.ZLIB),
+    "text_l9": (lambda: _text_l(9), Container.ZLIB),
+    "two_members": (lambda: gz(text(150_000), 6)
+                    + gz(corpus("mixed", 120_000, seed=3), 1),
+                    Container.GZIP),
+    "stored_and_coded": (_mixed_blocks, Container.GZIP),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNKED))
+def test_decompress_any_chunked_equal(case):
+    """Scanned chunk entries at 32 KiB: the JAX package's bytes, with more
+    than one chain head a member that spans chunks."""
+    make, container = CHUNKED[case]
+    blob = make()
+    i2.STATS.clear()
+    out = ai.decompress_device_any(blob, container, chunk_bytes=CHUNK,
+                                   device="cpu")
+    heads, members = i2.STATS["chain_heads"], i2.STATS["chained_members"]
+    assert out == j_ai.decompress_device_any(
+        blob, JContainer(container.value), chunk_bytes=CHUNK,
+        interpret=True)
+    assert heads > members
+    if container is Container.ZLIB:
+        assert out == zlib.decompress(blob)
+        i2.STATS.clear()
+        one = ai._decompress_member_any(blob, 0, container, True,
+                                        torch.device("cpu"), entries=[0])
+        assert one == (out, len(blob)) and i2.STATS["chain_heads"] == 1
+
+
+def test_corrupted_chunked_raises_as_jax():
+    blob = bytearray(_text_l(6))
+    blob[len(blob) // 2] ^= 0x10
+    with pytest.raises(j_errors.FlateError) as jexc:
+        j_ai.decompress_device_any(bytes(blob), JContainer.ZLIB,
+                                   chunk_bytes=CHUNK, interpret=True)
+    with pytest.raises(errors.FlateError) as texc:
+        ai.decompress_device_any(bytes(blob), Container.ZLIB,
+                                 chunk_bytes=CHUNK, device="cpu")
+    assert type(texc.value).__name__ == type(jexc.value).__name__
+
+
+def test_false_entry_chain_does_not_fail_the_member():
+    """A dynamic header inside a stored block's payload is a valid scanner
+    entry whose chain runs into garbage (here a block type 3).  zlib
+    decodes the stream; the JAX package raises at that chain's failure
+    (ROADMAP C); the port raises a chain's error only once the chain from
+    bit 0 reaches it."""
+    blob = trap_stream()
+    want = zlib.decompress(blob)
+    i2.STATS.clear()
+    assert ai.decompress_device_any(blob, Container.ZLIB, chunk_bytes=CHUNK,
+                                    device="cpu") == want
+    assert i2.STATS["chain_heads"] == 2
+    with pytest.raises(j_errors.InvalidBlockType):
+        j_ai.decompress_device_any(blob, JContainer.ZLIB, chunk_bytes=CHUNK,
+                                   interpret=True)
+
+
+def test_plan_block_at_fails_only_with_flate_errors():
+    """Every bit offset of a stream is a possible false entry: the host bit
+    cursor either plans a block there or raises a FlateError."""
+    body = _text_l(6)[2:3000] + np.random.default_rng(4).integers(
+        0, 256, 1000, dtype=np.uint8).tobytes()
+    planned = 0
+    for pos in range(0, 8 * len(body), 3):
+        try:
+            ai.plan_block_at(body, pos)
+            planned += 1
+        except errors.FlateError:
+            pass
+    assert planned > 0

@@ -17,11 +17,13 @@ from flate_tpu_torch import api
 from flate_tpu_torch.device import anyinflate, bitonic, encode2, inflate2
 from flate_tpu_torch.containers import Container
 from flate_tpu_torch.device import checksum, graphs, match2
-from flate_tpu_torch.device import pack, parse, pipeline2, runs, squeeze
+from flate_tpu_torch.device import pack, parse, pipeline2, runs, scan
+from flate_tpu_torch.device import squeeze
 
 from _torch_corpora import (CTX, KINDS, S, corpus, lane_edge_rows,
-                            pack_edge_rows, parse_edge_rows,
-                            small_run_edge_rows, walk_edge_rows, windows)
+                            pack_edge_rows, parse_edge_rows, scan_cases,
+                            small_run_edge_rows, trap_stream, walk_edge_rows,
+                            windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -807,3 +809,80 @@ def test_checksums_on_the_card(cuda):
     data = corpus("mixed", (1 << 20) + 4097, seed=6)
     assert checksum.crc32_device(data) == zlib.crc32(data)
     assert checksum.adler32_device(data) == zlib.adler32(data)
+
+
+SCAN_CASES = scan_cases()
+
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_scan_kernel_equal_plain(cuda, name):
+    """scan_kernel (S1) against the plain scanner on the CPU cases, and
+    chunk_entries at 32 KiB and 5,001-byte chunks."""
+    data, start, end, max_out = SCAN_CASES[name]
+    buf = torch.frombuffer(bytearray(data), dtype=torch.uint8) if data \
+        else torch.zeros(0, dtype=torch.uint8)
+    _build.LAUNCHES.clear()
+    got = scan.scan_headers(buf.to(cuda), start, end, max_out)
+    assert got == scan.scan_headers(buf, start, end, max_out)
+    lo, hi = scan._range(len(data), start, end)
+    assert _build.LAUNCHES["flate_scan_headers"] == (
+        1 if hi > lo and max_out > 0 else 0)
+    for chunk in (32768, 5001):
+        assert scan.chunk_entries(buf.to(cuda), chunk) == \
+            scan.chunk_entries(buf, chunk)
+
+
+def test_scan_kernel_every_offset(cuda):
+    """The whole bitmap of a body with many headers (level 1, 2 MiB of
+    mixed data) against the plain scan of every offset."""
+    body = zlib.compress(corpus("mixed", 2 << 20, seed=9), 1)[2:-4]
+    buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    lo, hi = scan._range(len(body), 5, None)
+    want = scan._scan_plain(scan._prepare(buf), lo, hi, 1 << 30)
+    got = scan._positions(scan._scan_cuda(buf.to(cuda), lo, hi), lo)
+    assert got.cpu().tolist() == want and len(want) > 10
+
+
+def test_scan_kernel_chunk_entries_full_width(cuda):
+    """chunk_entries at the decode's 512 KiB chunks on a 12 MiB level-6
+    mixed body, one launch."""
+    body = zlib.compress(corpus("mixed", 24 << 20, seed=2), 6)[2:]
+    buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    _build.LAUNCHES.clear()
+    got = scan.chunk_entries(buf.to(cuda), anyinflate.CHUNK_BYTES)
+    assert _build.LAUNCHES["flate_scan_headers"] == 1
+    assert got == scan.chunk_entries(buf, anyinflate.CHUNK_BYTES)
+    assert len(got) > 2
+
+
+@pytest.mark.parametrize("case", ["text", "trap", "mixed_default_chunk"])
+def test_decompress_any_chunked_cuda_equal_cpu(cuda, case):
+    """The chained decode with scanned entries: card bytes and chain heads
+    equal the CPU's."""
+    if case == "text":
+        blob, chunk = zlib.compress(corpus("text", 400_000), 6), 32768
+    elif case == "trap":
+        blob, chunk = trap_stream(), 32768
+    else:
+        blob = zlib.compress(corpus("mixed", 3 << 20, seed=6), 6)
+        chunk = anyinflate.CHUNK_BYTES
+    heads = []
+    outs = []
+    for dev in (cuda, "cpu"):
+        inflate2.STATS.clear()
+        _build.LAUNCHES.clear()
+        outs.append(anyinflate.decompress_device_any(
+            blob, Container.ZLIB, chunk_bytes=chunk, device=dev))
+        heads.append(inflate2.STATS["chain_heads"])
+        if dev == cuda:
+            assert _build.LAUNCHES["flate_scan_headers"] == 1
+    assert outs[0] == outs[1] == zlib.decompress(blob)
+    assert heads[0] == heads[1] > 1
+
+
+def test_scan_wrapper_rejects_bad_tensors(cuda):
+    with pytest.raises(ValueError):
+        scan.scan_headers(torch.zeros(400, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        scan._scan_cuda(torch.zeros((400, 2), dtype=torch.uint8,
+                                    device=cuda)[:, 0], 0, 100)

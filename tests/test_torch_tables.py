@@ -358,7 +358,7 @@ def test_port_imports_no_jax_and_no_flate_tpu():
         "import flate_tpu_torch.cli.gzip_cli, flate_tpu_torch.cli.gunzip_cli\n"
         "from flate_tpu_torch.device import anyinflate, bitonic, checksum, "
         "encode, encode2, header, huff, inflate2, match2, onehot, pack, "
-        "parse, pipeline2, runs, squeeze\n"
+        "parse, pipeline2, runs, scan, squeeze\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or "
         "m.startswith('jax.') or m == 'flate_tpu' or "
