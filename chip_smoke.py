@@ -110,11 +110,15 @@ Phases, one line each:
      chunk_entries at the decode's 512 KiB chunks and scan_headers
      (max_out=64) over the body's first 8 MiB must equal their plain
      versions on the host; the kernel's time (CUDA events, and replayed
-     from a CUDA graph), the whole call's host time, the plain version's,
-     and the bound (the body read and the bitmap written once, or the
-     operations the plain version counts: three tests an offset, two a
-     Kraft field, one a header bit parsed; whichever is larger)
-     with the kernel's share of it.  Then api.zlib.decompress of that
+     from a CUDA graph, and on an all-zero body of the same length where
+     no offset passes the first test), the whole call's host time, the
+     plain version's, and the bound of the list's function, counted by
+     the plain version up to each chunk's first header (or the 64th
+     header): the bytes those offsets span, the headers found and the
+     list written, or the operations (three tests an offset, two a Kraft
+     field, one a header bit parsed), whichever is larger, with the
+     kernel's share of it.  The kernel tests every offset, so the share
+     shows what an early exit could win.  Then api.zlib.decompress of that
      stream (launch counters reset before, read after) must return the
      input with flate_scan_headers launched and more than one chain head,
      beside anyinflate._decompress_member_any(entries=[0]), one chain, and
@@ -1166,27 +1170,36 @@ def main() -> int:
     sbuf_cpu = sbuf.cpu()
     chunk = anyinflate.CHUNK_BYTES
     nchunks = -(-len(body) // chunk)
+    zbuf = torch.zeros_like(sbuf)       # no offset passes the first test
+    # The function is the list of offsets: the bound counts what this
+    # run's data needs for it, the offsets up to each chunk's first header
+    # (or up to the 64th header) with their parses and the list written,
+    # not the bitmap of every offset that the kernel computes.
     scans = (
         ("scan_chunk_entries", 8 * chunk, nchunks * 8 * chunk,
-         lambda b, st=None: scan.chunk_entries(b, chunk, stats=st)),
+         lambda b: scan.chunk_entries(b, chunk),
+         lambda prep, st: scan._chunk_entries_plain(prep, len(body), chunk,
+                                                    st)),
         ("scan_headers_8mib", 0, 8 * (8 << 20),
-         lambda b, st=None: scan.scan_headers(b, 0, 8 * (8 << 20), 64,
-                                              stats=st)),
+         lambda b: scan.scan_headers(b, 0, 8 * (8 << 20), 64),
+         lambda prep, st: scan._scan_plain(
+             prep, *scan._range(len(body), 0, 8 * (8 << 20)), 64, st)),
     )
-    for label, lo_, hi_, run in scans:
+    for label, lo_, hi_, run, run_plain in scans:
         lo, hi = scan._range(len(body), lo_, hi_)
         got = run(sbuf)
         st = {}
         t = time.time()
-        want = run(sbuf_cpu, st)
+        want = run_plain(scan._prepare(sbuf_cpu), st)
         plain_ms = (time.time() - t) * 1e3
-        if got != want:
+        if got != want or want != run(sbuf_cpu):
             raise AssertionError(f"{label}: kernel != plain ({got[:8]} vs "
                                  f"{want[:8]})")
         ms = cuda_ms(lambda: scan._scan_cuda(sbuf, lo, hi), 20)
+        zero_ms = cuda_ms(lambda: scan._scan_cuda(zbuf, lo, hi), 20)
         gms = graph_ms(lambda: scan._scan_cuda(sbuf, lo, hi), 20)
         call_ms = host_ms(lambda: run(sbuf), 5)
-        moved = (hi - lo) // 8 + 4 * (-(-(hi - (lo & ~31)) // 32))
+        moved = scan.bytes_needed(st)
         ops = scan.ops_needed(st)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT_OPS_PER_S * 1e3
@@ -1199,14 +1212,18 @@ def main() -> int:
                      "pallas_call)",
             max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, graph_ms=gms,
-            call_ms=call_ms, offsets=hi - lo, found=len(got)))
+            call_ms=call_ms, zero_body_ms=zero_ms, offsets=hi - lo,
+            offsets_needed=st.get("offsets", 0), found=len(got)))
         print(f"[13] {label}: {len(got)} offsets equal to the plain "
-              f"version's ({got[:6]}...); kernel {ms:.4f} ms over "
-              f"{hi - lo} offsets (from a CUDA graph {gms:.4f} ms; the "
-              f"whole call with its selection and fetch {call_ms:.4f} ms); "
-              f"plain {plain_ms:.1f} ms on the host; bound {bound_ms:.4f} ms "
-              f"by {bound_by} ({moved} bytes {bytes_ms:.4f} ms, {ops} ops "
-              f"{ops_ms:.4f} ms: {st}), {bound_ms / ms:.1%} of it", flush=True)
+              f"version's ({got[:6]}...); kernel {ms:.4f} ms over all "
+              f"{hi - lo} offsets (on an all-zero body of the same length, "
+              f"where no offset passes the first test, {zero_ms:.4f} ms; "
+              f"from a CUDA graph {gms:.4f} ms; the whole call with its "
+              f"selection and fetch {call_ms:.4f} ms); plain {plain_ms:.1f} "
+              f"ms on the host; bound {bound_ms:.4f} ms by {bound_by} for "
+              f"what the list needs ({moved} bytes {bytes_ms:.4f} ms, {ops} "
+              f"ops {ops_ms:.4f} ms: {st}), {bound_ms / ms:.2%} of it",
+              flush=True)
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     inflate2.STATS.clear()

@@ -1,9 +1,8 @@
 """Shard stream construction on the device — fields, selection, histograms.
 
-Counterpart of flate_tpu/jx/encode2.py: seg_size, slot_count,
-slot_count_compact and build_fields (:116).  Builds per shard the (value,
-nbits) field sequence whose LSB-first pack is the byte-aligned shard
-stream:
+Counterpart of flate_tpu/jx/encode2.py: seg_size, slot_count and
+build_fields (:116, compact=False).  Builds per shard the (value, nbits)
+field sequence whose LSB-first pack is the byte-aligned shard stream:
 
     [block header][seg 0 body][boundary 1][seg 1 body]...[trailer]
 
@@ -79,18 +78,6 @@ def slot_count(S: int, seg: int | None = None) -> int:
     return -(-raw // 512) * 512
 
 
-def slot_count_compact(S: int, seg: int | None = None) -> int:
-    """Field slots after build_fields(compact=True): at most one live body
-    field a position (a token start emits fa; fb is live only for matches,
-    which take >= 3 positions each), plus <= 4 boundary fields a segment
-    and one full header a block opening (at most every other segment can
-    open a coded block), padded to 512."""
-    seg = seg or seg_size(S)
-    ns = _nseg(S, seg)
-    raw = S + 4 + ns * 4 + (ns // 2 + 1) * hdr.HDR_SLOTS
-    return -(-raw // 512) * 512
-
-
 def _entropy_bits(h: torch.Tensor) -> torch.Tensor:
     """Approximate code lengths from a histogram (B, n): -log2(p) + 0.35
     clipped to [1, 15], 0 where absent (float32).  Used only for the
@@ -124,17 +111,13 @@ def _consts(S: int, seg: int, device: torch.device) -> dict:
 def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
                  mdist: torch.Tensor, starts: torch.Tensor,
                  take: torch.Tensor, valid_len: torch.Tensor,
-                 final: torch.Tensor, S: int, seg: int | None = None,
-                 compact: bool = False):
+                 final: torch.Tensor, S: int, seg: int | None = None):
     """All-device stream planning for a batch of shards.
 
     window_tail (B, S) uint8 shard bytes; mlen/mdist/starts/take (B, S)
     parse results; valid_len (B,) real bytes per shard; final (B,)
     last-shard flag.  Returns (vals (B, SLOTS) int32 u32 bit patterns,
-    bits (B, SLOTS) int32, total_bits (B,) int64, kind (B,) int64).
-    compact=True moves the live fields to the front, in order, and cuts
-    the grid to slot_count_compact(S, seg) slots: the packed stream is the
-    same (dead fields have zero width)."""
+    bits (B, SLOTS) int32, total_bits (B,) int64, kind (B,) int64)."""
     if seg is None:
         seg = seg_size(S)
     nseg = _nseg(S, seg)
@@ -393,13 +376,4 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     # dead fields must carry zero values: the packer ORs values verbatim;
     # the packer reads them as int32 u32 bit patterns (every value < 2^28)
     vals = torch.where(bits > 0, vals.to(torch.int32), 0)
-    if not compact:
-        return vals, bits, total_bits, kind
-    # live fields first, each group in slot order: one sort of the unique
-    # keys idx (live) or idx + 2^20 (dead), then gathers
-    SLOTS = bits.shape[1]
-    idx = torch.arange(SLOTS, dtype=torch.int32, device=dev)[None, :]
-    order = torch.sort(torch.where(bits > 0, idx, idx + (1 << 20)),
-                       dim=1).indices[:, :slot_count_compact(S, seg)]
-    return (torch.gather(vals, 1, order), torch.gather(bits, 1, order),
-            total_bits, kind)
+    return vals, bits, total_bits, kind

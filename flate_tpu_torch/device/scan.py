@@ -69,27 +69,24 @@ OPS_PER_PARSED_BIT = 1
 # ---------------------------------------------------------------------------
 
 def scan_headers(data, start_bit: int = 0, end_bit: int | None = None,
-                 max_out: int = 64, *, device: str | torch.device = "cuda",
-                 stats: dict | None = None) -> list[int]:
+                 max_out: int = 64, *, device: str | torch.device = "cuda"
+                 ) -> list[int]:
     """The first `max_out` bit offsets in [start_bit, end_bit) that hold a
     validated dynamic-block header, ascending: the list
     flate_tpu/native/__init__.py:scan_headers gives.
 
-    data: bytes-like, or a 1-D uint8 tensor (then its own device is used).
-    stats (plain version only) counts the offsets, Kraft fields, headers
-    parsed and header bits they read that the scan needed."""
+    data: bytes-like, or a 1-D uint8 tensor (then its own device is used)."""
     buf = _buffer(data, device)
     lo, hi = _range(buf.numel(), start_bit, end_bit)
     if max_out <= 0 or hi <= lo:
         return []
     if _build.use_plain(buf):
-        return _scan_plain(_prepare(buf), lo, hi, max_out, stats)
+        return _scan_plain(_prepare(buf), lo, hi, max_out)
     return _positions(_scan_cuda(buf, lo, hi), lo)[:max_out].tolist()
 
 
 def chunk_entries(body, chunk_bytes: int, *,
-                  device: str | torch.device = "cuda",
-                  stats: dict | None = None) -> list[int]:
+                  device: str | torch.device = "cuda") -> list[int]:
     """[0] and the first validated header offset of each chunk k >= 1 of
     `body`, over [8 k chunk_bytes, 8 (k + 1) chunk_bytes): the chain heads
     flate_tpu/jx/anyinflate.py:365-373 builds.  On the card one launch
@@ -100,13 +97,7 @@ def chunk_entries(body, chunk_bytes: int, *,
     nchunks = max(1, -(-buf.numel() // chunk_bytes))
     step = 8 * chunk_bytes
     if _build.use_plain(buf):
-        prep = _prepare(buf)
-        entries = [0]
-        for k in range(1, nchunks):
-            lo, hi = _range(buf.numel(), k * step, (k + 1) * step)
-            if hi > lo:
-                entries += _scan_plain(prep, lo, hi, 1, stats)
-        return entries
+        return _chunk_entries_plain(_prepare(buf), buf.numel(), chunk_bytes)
     lo, hi = _range(buf.numel(), step, nchunks * step)
     if hi <= lo:
         return [0]
@@ -186,11 +177,28 @@ def _prepare(buf: torch.Tensor):
     return torch.cat([buf, pad]).to(torch.int64), bytes(buf.cpu().numpy())
 
 
+def _chunk_entries_plain(prep, in_len: int, chunk_bytes: int,
+                         stats: dict | None = None) -> list[int]:
+    """chunk_entries' list by the plain scan of each chunk k >= 1 up to its
+    first header.  prep: _prepare's pair; stats: see _scan_plain."""
+    step = 8 * chunk_bytes
+    entries = [0]
+    for k in range(1, max(1, -(-in_len // chunk_bytes))):
+        lo, hi = _range(in_len, k * step, (k + 1) * step)
+        if hi > lo:
+            entries += _scan_plain(prep, lo, hi, 1, stats)
+    return entries
+
+
 def _scan_plain(prep, lo: int, hi: int, max_out: int,
                 stats: dict | None = None) -> list[int]:
     """The cheap filter over the offsets of [lo, hi), window by window,
     then the full parse of its survivors in offset order until `max_out`
-    pass.  prep: _prepare's pair; stats: see scan_headers."""
+    pass.  prep: _prepare's pair.  stats, when given, counts what the scan
+    needed: the offsets up to its stop, the Kraft fields of those that
+    reach the Kraft test, the headers parsed and the bits they read, and
+    the headers found and their bits (for the bound, ops_needed and
+    bytes_needed)."""
     padded, data = prep
     out: list[int] = []
     w0, width = lo, FILTER_WINDOW0
@@ -199,13 +207,15 @@ def _scan_plain(prep, lo: int, hi: int, max_out: int,
         width = min(2 * width, FILTER_WINDOW)
         tested, hclen, cand = _filter(padded, w0, w1)
         stop = w1
-        parsed = parsed_bits = 0
+        parsed = parsed_bits = found_bits = 0
+        found0 = len(out)
         for p in cand.tolist():
             ok, nb = _validate(data, p)
             parsed += 1
             parsed_bits += nb
             if ok:
                 out.append(p)
+                found_bits += nb
                 if len(out) >= max_out:
                     stop = p + 1
                     break
@@ -215,6 +225,8 @@ def _scan_plain(prep, lo: int, hi: int, max_out: int,
                 hclen[tested < stop].sum())
             stats["parsed"] = stats.get("parsed", 0) + parsed
             stats["parsed_bits"] = stats.get("parsed_bits", 0) + parsed_bits
+            stats["found"] = stats.get("found", 0) + len(out) - found0
+            stats["found_bits"] = stats.get("found_bits", 0) + found_bits
         if len(out) >= max_out:
             break
         w0 = w1
@@ -267,3 +279,13 @@ def ops_needed(stats: dict) -> int:
     return (OPS_PER_OFFSET * stats.get("offsets", 0)
             + OPS_PER_KRAFT_FIELD * stats.get("kraft_fields", 0)
             + OPS_PER_PARSED_BIT * stats.get("parsed_bits", 0))
+
+
+def bytes_needed(stats: dict) -> int:
+    """The bytes a scan's data needs moved at the least, from the stats of
+    its plain version: the bytes its offsets up to the stop span, the
+    headers found (BTYPE and their parse), and the list written as
+    int64."""
+    found = stats.get("found", 0)
+    bits = stats.get("offsets", 0) + stats.get("found_bits", 0) + 3 * found
+    return -(-bits // 8) + 8 * found

@@ -14,7 +14,7 @@ from flate_tpu.jx import match2 as j_match2
 from flate_tpu.jx import onehot as j_onehot
 from flate_tpu.jx import parse as j_parse
 
-from flate_tpu_torch.device import encode2, header, huff, onehot, pack
+from flate_tpu_torch.device import encode2, header, huff, onehot
 
 from _torch_corpora import CTX, KINDS, S, tt, u32, windows
 
@@ -43,14 +43,6 @@ def test_pm_lengths_and_codes_equal(n, max_bits):
     np.testing.assert_array_equal(
         huff.coded_size(tt(h), tl).numpy(),
         np.asarray(j_huff.coded_size(jnp.asarray(h), jnp.asarray(jl))))
-
-
-@pytest.mark.parametrize("n,max_bits", [(286, 15), (30, 15), (19, 7)])
-def test_packed_tables_equal(n, max_bits):
-    jl = j_huff.pm_lengths(jnp.asarray(_hists(n + 1, n=n)), max_bits)
-    np.testing.assert_array_equal(
-        u32(huff.packed_tables(tt(np.asarray(jl)), max_bits)),
-        u32(j_huff.packed_tables(jl, max_bits)))
 
 
 def test_build_headers_equal():
@@ -96,13 +88,13 @@ def _parsed(win, ctx_len, valid, level_knobs=(12, 4)):
                  (win, ml, md, starts, take))
 
 
-def _check_build(parts, valid, final, compact=False):
+def _check_build(parts, valid, final):
     seg = encode2.seg_size(S, 1024)
     j = j_encode2.build_fields(*(jnp.asarray(p) for p in parts),
                                jnp.asarray(valid), jnp.asarray(final), S,
-                               seg, compact=compact)
+                               seg)
     t = encode2.build_fields(*(tt(p) for p in parts), tt(valid), tt(final),
-                             S, seg, compact=compact)
+                             S, seg)
     assert t[0].dtype == torch.int32            # vals: the packer's width
     np.testing.assert_array_equal(u32(t[0]), u32(j[0]))     # vals
     np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
@@ -118,38 +110,6 @@ def test_build_fields_equal(kind):
     valid = np.asarray([S, 1800], np.int32)
     final = np.asarray([0, 1], np.int32)
     _check_build(_parsed(win, ctx_len, valid), valid, final)
-
-
-@pytest.mark.parametrize("S_", [S, 1024, 7168, 1 << 17])
-def test_slot_count_compact_equal(S_):
-    for seg in (None, 1024, encode2.seg_size(S_)):
-        assert encode2.slot_count_compact(S_, seg) == \
-            j_encode2.slot_count_compact(S_, seg)
-        assert encode2.slot_count_compact(S_, seg) <= \
-            encode2.slot_count(S_, seg)
-
-
-@pytest.mark.parametrize("kind", KINDS)
-def test_build_fields_compact_equal(kind):
-    """compact=True equals the JAX grid element for element, and packs to
-    the full grid's words and total_bits."""
-    win = windows(kind, seed=13)
-    ctx_len = np.asarray([CTX, 0], np.int32)
-    valid = np.asarray([S, 1800], np.int32)
-    final = np.asarray([0, 1], np.int32)
-    parts = _parsed(win, ctx_len, valid)
-    _check_build(parts, valid, final, compact=True)
-    seg = encode2.seg_size(S, 1024)
-    args = (*(tt(p) for p in parts), tt(valid), tt(final), S, seg)
-    full = encode2.build_fields(*args)
-    comp = encode2.build_fields(*args, compact=True)
-    assert comp[0].shape == (2, encode2.slot_count_compact(S, seg))
-    nwr = -(-int(full[2].max()) // (32 * 128)) + 1
-    fw, ft = pack.pack_fields(full[0], full[1], nwr)
-    cw, ct = pack.pack_fields(comp[0], comp[1], nwr)
-    np.testing.assert_array_equal(cw.numpy(), fw.numpy())
-    np.testing.assert_array_equal(ct.numpy(), ft.numpy())
-    np.testing.assert_array_equal(ft.numpy(), full[2].numpy())
 
 
 @pytest.mark.parametrize("n", [20, 47, 147, 301])

@@ -146,7 +146,8 @@ def test_stats_count_the_scan():
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
     lo, hi = scan._range(len(body), 0, None)
     st = {}
-    found = scan.scan_headers(buf, max_out=1 << 30, stats=st)
+    found = scan._scan_plain(scan._prepare(buf), lo, hi, 1 << 30, st)
+    assert found == scan.scan_headers(buf, max_out=1 << 30)
     assert st["offsets"] == hi - lo
     bits = np.unpackbits(np.frombuffer(body, np.uint8), bitorder="little")
     p = np.arange(lo, hi)
@@ -162,9 +163,33 @@ def test_stats_count_the_scan():
                                    * st["kraft_fields"]
                                    + scan.OPS_PER_PARSED_BIT
                                    * st["parsed_bits"])
+    assert st["found"] == len(found) and st["parsed_bits"] > st["found_bits"]
     st1 = {}
-    first = scan.scan_headers(buf, max_out=1, stats=st1)
+    first = scan._scan_plain(scan._prepare(buf), lo, hi, 1, st1)
     assert first == found[:1] and st1["offsets"] == first[0] - lo + 1
+    assert st1["found"] == 1
+    assert scan.bytes_needed(st1) == -(-(first[0] - lo + 1 + 3
+                                         + st1["found_bits"]) // 8) + 8
+
+
+@pytest.mark.parametrize("chunk", [32768, 5001])
+def test_chunk_stats_count_each_chunk_to_its_first_header(chunk):
+    """_chunk_entries_plain's counts: each chunk k >= 1 is tested up to its
+    first header (or to its end where it holds none), one header found a
+    chunk that has one."""
+    body = CASES["mixed_l6"][0]
+    buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    st = {}
+    got = scan._chunk_entries_plain(scan._prepare(buf), len(body), chunk, st)
+    assert got == scan.chunk_entries(buf, chunk)
+    step = 8 * chunk
+    want = 0
+    for k in range(1, -(-len(body) // chunk)):
+        lo, hi = scan._range(len(body), k * step, (k + 1) * step)
+        heads = [p for p in got[1:] if lo <= p < hi]
+        want += (heads[0] + 1 - lo) if heads else max(hi - lo, 0)
+    assert st["offsets"] == want and st["found"] == len(got) - 1
+    assert scan.bytes_needed(st) >= want // 8 + 8 * st["found"]
 
 
 def test_scan_arguments():
