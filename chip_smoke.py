@@ -109,28 +109,40 @@ Phases, one line each:
      zlib.compress(32 MiB mixed, 6), a stream another encoder wrote:
      chunk_entries at the decode's 512 KiB chunks and scan_headers
      (max_out=64) over the body's first 8 MiB must equal their plain
-     versions on the host; the kernel's time (CUDA events, and replayed
-     from a CUDA graph, and on an all-zero body of the same length where
-     no offset passes the first test), the whole call's host time, the
-     plain version's, and the bound of the list's function, counted by
-     the plain version up to each chunk's first header (or the 64th
-     header): the bytes those offsets span, the headers found and the
-     list written, or the operations (three tests an offset, two a Kraft
-     field, one a header bit parsed), whichever is larger, with the
-     kernel's share of it.  The kernel tests every offset, so the share
-     shows what an early exit could win.  Then api.zlib.decompress of that
-     stream (launch counters reset before, read after) must return the
-     input with flate_scan_headers launched and more than one chain head,
-     beside anyinflate._decompress_member_any(entries=[0]), one chain, and
-     decompress_device_any at 128 KiB chunks (over 64 chains: a round's
-     rows go through in row chunks) on the same stream: seconds, GB/s of
-     output and rounds of each.
+     versions on the host; the offsets the kernel tested (its own count)
+     beside those the list needs, at most a tenth of the body's for
+     chunk_entries; the kernel's time with its state's zero fill (CUDA
+     events, and replayed from a CUDA graph, and on an all-zero body of
+     the same length, where no offset passes the first test and no chunk
+     has a header, so every offset is tested), the whole call's host
+     time, the plain version's, and the bound of the list's function,
+     counted by the plain version up to each chunk's first header (or the
+     64th header): the bytes those offsets span, the headers found and
+     the list written, or the operations (three tests an offset, two a
+     Kraft field, one a header bit parsed), whichever is larger, with the
+     kernel's share of it.  Then api.zlib.decompress of that stream
+     (launch counters reset before, read after) must return the input
+     with flate_scan_headers launched and more than one chain head,
+     beside anyinflate._decompress_member_any(entries=[0]), one chain,
+     and decompress_device_any at 128 KiB chunks (over 64 chains: a
+     round's rows go through in row chunks) on the same stream: seconds,
+     GB/s of output and rounds of each.
+ 14. blocks past the chained route's old caps, through
+     api.zlib/gzip.decompress on the card: zlib's level 6 and memLevel 9
+     on 5 and 9 MiB of zeros (blocks of 4,226,814 and 8,453,886 bytes of
+     output, resolved in rows of at most 4 MiB), text with a 5 MiB zero
+     run, Huffman-only memLevel 9 on 20,000 and 40,000 zero bytes (32,767
+     one-bit literals a block, walked again with more symbol slots) and a
+     gzip member of the 9 MiB run: each must equal its input with a walk
+     kernel launched; GB/s of output, rows cut for the resolve and walks
+     again with more slots (inflate2.STATS).
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 170 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
-and 10 ~30-55 s, the plain versions' host loops ~25 s, phase 13 ~15 s).
+About 165 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
+and 10 ~30-55 s, the plain versions' host loops ~25 s, phases 13 and 14
+~15 s).
 """
 
 from __future__ import annotations
@@ -294,6 +306,34 @@ def chained_chunk(api, inflate2, blob: bytes, **kw):
     if not seen:
         raise AssertionError("the chained decode made no lane walk")
     return seen[0]
+
+
+def big_block_streams(text_corpus):
+    """(name, container, stream, input) of valid zlib/gzip output whose
+    blocks exceed the chained route's old caps: more than 4 MiB of output
+    (zlib's 16,383 or, at memLevel 9, GNU gzip's buffer size, 32,767
+    matches of 258 bytes a block on zero runs) or more symbols than twice
+    their compressed bytes (Huffman-only zeros, a 1-bit literal a byte).
+    The kinds of stream of tests/_torch_corpora.py big_block_streams."""
+    def mem9(data, wbits, strategy=zlib.Z_DEFAULT_STRATEGY):
+        c = zlib.compressobj(6, zlib.DEFLATED, wbits, 9, strategy)
+        return c.compress(data) + c.flush()
+
+    zeros5, zeros9 = b"\0" * (5 << 20), b"\0" * (9 << 20)
+    text = text_corpus(60_000)
+    c = zlib.compressobj(6)              # a block starts at the zero run
+    run = c.compress(text) + c.flush(zlib.Z_FULL_FLUSH) \
+        + c.compress(zeros5 + text) + c.flush()
+    return [
+        ("zeros_5mib_l6", "ZLIB", zlib.compress(zeros5, 6), zeros5),
+        ("zeros_9mib_mem9", "ZLIB", mem9(zeros9, 15), zeros9),
+        ("text_5mib_run", "ZLIB", run, text + zeros5 + text),
+        ("huffman_20000", "ZLIB",
+         mem9(zeros9[:20000], 15, zlib.Z_HUFFMAN_ONLY), zeros9[:20000]),
+        ("huffman_40000", "ZLIB",
+         mem9(zeros9[:40000], 15, zlib.Z_HUFFMAN_ONLY), zeros9[:40000]),
+        ("gzip_zeros_9mib_mem9", "GZIP", mem9(zeros9, 31), zeros9),
+    ]
 
 
 def main() -> int:
@@ -1173,20 +1213,27 @@ def main() -> int:
     zbuf = torch.zeros_like(sbuf)       # no offset passes the first test
     # The function is the list of offsets: the bound counts what this
     # run's data needs for it, the offsets up to each chunk's first header
-    # (or up to the 64th header) with their parses and the list written,
-    # not the bitmap of every offset that the kernel computes.
+    # (or up to the 64th header) with their parses and the list written.
+    # The kernel stops near there too: the offsets it tested are printed
+    # beside those the list needs.
+    step = 8 * chunk
+    c_lo, c_hi = scan._range(len(body), step, nchunks * step)
+    nseg = -(-(c_hi - c_lo) // step)
+    h_lo, h_hi = scan._range(len(body), 0, 8 * (8 << 20))
+    h_cap = 64 + scan.LIST_SLACK
     scans = (
-        ("scan_chunk_entries", 8 * chunk, nchunks * 8 * chunk,
+        ("scan_chunk_entries", c_lo, c_hi,
          lambda b: scan.chunk_entries(b, chunk),
          lambda prep, st: scan._chunk_entries_plain(prep, len(body), chunk,
-                                                    st)),
-        ("scan_headers_8mib", 0, 8 * (8 << 20),
+                                                    st),
+         lambda b: scan._scan_cuda(b, c_lo, step, c_hi, nseg)),
+        ("scan_headers_8mib", h_lo, h_hi,
          lambda b: scan.scan_headers(b, 0, 8 * (8 << 20), 64),
-         lambda prep, st: scan._scan_plain(
-             prep, *scan._range(len(body), 0, 8 * (8 << 20)), 64, st)),
+         lambda prep, st: scan._scan_plain(prep, h_lo, h_hi, 64, st),
+         lambda b: scan._scan_cuda(b, h_lo, h_hi - h_lo, h_hi, 1, 64,
+                                   h_cap)),
     )
-    for label, lo_, hi_, run, run_plain in scans:
-        lo, hi = scan._range(len(body), lo_, hi_)
+    for label, lo, hi, run, run_plain, launch in scans:
         got = run(sbuf)
         st = {}
         t = time.time()
@@ -1195,9 +1242,17 @@ def main() -> int:
         if got != want or want != run(sbuf_cpu):
             raise AssertionError(f"{label}: kernel != plain ({got[:8]} vs "
                                  f"{want[:8]})")
-        ms = cuda_ms(lambda: scan._scan_cuda(sbuf, lo, hi), 20)
-        zero_ms = cuda_ms(lambda: scan._scan_cuda(zbuf, lo, hi), 20)
-        gms = graph_ms(lambda: scan._scan_cuda(sbuf, lo, hi), 20)
+        state = launch(sbuf).cpu()
+        tested = int(state[scan.STATE_TESTED])
+        tiles = int(state[scan.STATE_TILES])
+        if label == "scan_chunk_entries" and tested > (hi - lo) // 10:
+            raise AssertionError(f"{label}: the kernel tested {tested} of "
+                                 f"{hi - lo} offsets, over a tenth")
+        zstate = launch(zbuf).cpu()
+        # the kernel with its state's two fills (one call of _scan_cuda)
+        ms = cuda_ms(lambda: launch(sbuf), 20)
+        zero_ms = cuda_ms(lambda: launch(zbuf), 20)
+        gms = graph_ms(lambda: launch(sbuf), 20)
         call_ms = host_ms(lambda: run(sbuf), 5)
         moved = scan.bytes_needed(st)
         ops = scan.ops_needed(st)
@@ -1205,6 +1260,7 @@ def main() -> int:
         ops_ms = ops / INT_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        needed = st.get("offsets", 0)
         cases.append(dict(
             name=label, entry="flate_scan_headers", path=("decode", "e"),
             route="cuda", source=_build.source_of("flate_scan_headers"),
@@ -1213,16 +1269,19 @@ def main() -> int:
             max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, graph_ms=gms,
             call_ms=call_ms, zero_body_ms=zero_ms, offsets=hi - lo,
-            offsets_needed=st.get("offsets", 0), found=len(got)))
+            offsets_tested=tested, offsets_needed=needed, found=len(got)))
         print(f"[13] {label}: {len(got)} offsets equal to the plain "
-              f"version's ({got[:6]}...); kernel {ms:.4f} ms over all "
-              f"{hi - lo} offsets (on an all-zero body of the same length, "
-              f"where no offset passes the first test, {zero_ms:.4f} ms; "
-              f"from a CUDA graph {gms:.4f} ms; the whole call with its "
-              f"selection and fetch {call_ms:.4f} ms); plain {plain_ms:.1f} "
-              f"ms on the host; bound {bound_ms:.4f} ms by {bound_by} for "
-              f"what the list needs ({moved} bytes {bytes_ms:.4f} ms, {ops} "
-              f"ops {ops_ms:.4f} ms: {st}), {bound_ms / ms:.2%} of it",
+              f"version's ({got[:6]}...); the kernel tested {tested} of "
+              f"the {hi - lo} offsets in {tiles} tiles, "
+              f"{tested / max(needed, 1):.2f}x the {needed} the list needs "
+              f"(all-zero body of the same length: "
+              f"{int(zstate[scan.STATE_TESTED])}); kernel with its state's "
+              f"fills {ms:.4f} ms (all-zero body {zero_ms:.4f} ms; from a "
+              f"CUDA graph {gms:.4f} ms; the whole call with its fetch "
+              f"{call_ms:.4f} ms); plain {plain_ms:.1f} ms on the host; "
+              f"bound {bound_ms:.4f} ms by {bound_by} for what the list "
+              f"needs ({moved} bytes {bytes_ms:.4f} ms, {ops} ops "
+              f"{ops_ms:.4f} ms: {st}), {bound_ms / ms:.2%} of it",
               flush=True)
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
@@ -1270,6 +1329,32 @@ def main() -> int:
           f"heads {stats2['chain_heads']}, rounds "
           f"{stats2.get('chained_rounds')}; all equal the input",
           flush=True)
+
+    # ---- phase 14: blocks past the chained route's old caps ----
+    for name, container, blob, want in big_block_streams(text_corpus):
+        ns = getattr(api, container.lower())
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        inflate2.STATS.clear()
+        t = time.time()
+        got = ns.decompress(blob)
+        secs = time.time() - t
+        counts = dict(_build.LAUNCHES)
+        stats = dict(inflate2.STATS)
+        if got != want:
+            raise AssertionError(f"{name}: output differs from the input")
+        if counts.get("flate_lane_walk", 0) + counts.get("flate_walk",
+                                                         0) <= 0:
+            raise AssertionError(f"{name}: no walk kernel launched: "
+                                 f"{counts}")
+        print(f"[14] {name} ({len(blob)} bytes, api.{container.lower()}."
+              f"decompress on the card): {len(want)} bytes == input in "
+              f"{secs:.4f} s = {len(want) / secs / 1e9:.4f} GB/s of output; "
+              f"rows from blocks cut for the resolve "
+              f"{stats.get('block_pieces', 0)}, walks again with more "
+              f"symbol slots {stats.get('slot_retries', 0)}, rounds "
+              f"{stats.get('chained_rounds')}, launches {counts}",
+              flush=True)
 
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)

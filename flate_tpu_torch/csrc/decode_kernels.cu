@@ -351,62 +351,119 @@ walk_kernel(const int* __restrict__ word, const int* __restrict__ start,
 // S1 chunk-entry scanner — the JAX package's counterpart is host C, not a
 // TPU kernel: flate_tpu/native/fastinflate.c:1046 scan_headers, with
 // validate_dyn_header (:1010), read_code_lens (:344), build_table (:203)
-// and check_lens (:175).  Tests every bit offset p in [lo, hi) for a
-// validated dynamic-block header (the offset is the BFINAL bit) and writes
-// one bit an offset: bit (p - lo0) of bitmap, lo0 = lo & ~31.  The C's
-// semantics, not RFC 1951's: HLIT and HDIST <= 29; the code-length code's
-// Kraft sum over its HCLEN fields exactly 128; the literal/length and
-// distance lengths read as two separate run-length-coded runs (a repeat-16
-// at the first distance length fails); symbol 256 coded; an incomplete
-// literal/length or distance code only as one code of length 1; reads past
-// in_len fail.  The caller keeps hi <= 8 in_len - 96.
+// and check_lens (:175).  An offset p holds a header when the C's parse
+// accepts it at p (the offset is the BFINAL bit).  The C's semantics, not
+// RFC 1951's: HLIT and HDIST <= 29; the code-length code's Kraft sum over
+// its HCLEN fields exactly 128; the literal/length and distance lengths
+// read as two separate run-length-coded runs (a repeat-16 at the first
+// distance length fails); symbol 256 coded; an incomplete literal/length
+// or distance code only as one code of length 1; reads past in_len fail.
+// The caller keeps hi <= 8 in_len - 96.
 //
-// Bound: operations.  The bytes are the body read once and the bitmap
-// written once (8 MiB body: 2.8 us at 3.35 TB/s); every offset takes a
-// few integer tests, a fifth of them the Kraft sum of up to 19 fields, and
-// a few in a thousand the header parse.  A block takes 2,048 consecutive
-// offsets, stages their 256 bytes and a 16-byte halo in shared memory, and
-// a thread tests 8 offsets 256 apart, each from a 128-bit window of four
-// staged words, so a warp tests 32 consecutive offsets at a time and
-// writes their bitmap word from one __ballot_sync.  The survivors of the
-// cheap filter (rare, and divergent within their warp) parse from device
-// memory through a bounds-checked bit reader, with the code-length code
-// decoded canonically from its counts (no 128-entry table) and the two
-// length runs reduced to their counts, the previous length and whether
-// symbol 256 got a code: a thread keeps ~60 bytes of state, not the C's
-// 600-byte arrays.
+// What is computed is a short list, not a map of every offset: in
+// first-each mode the first header of each of nseg segments [seg0 + k
+// seg_len, min(seg0 + (k + 1) seg_len, hi)) (chunk_entries: one segment a
+// chunk), else the headers of [seg0, hi) in ascending tiles until max_out
+// are found (scan_headers).  state, u64, zero-filled by the caller: [0]
+// the next tile (list mode) or segment (first-each), [1] headers found (first-each: segments with
+// a header), [2] offsets tested, [3] tiles tested, [4, 4 + nseg) ~ each
+// segment's first header (0: none), then `cap` words: the headers found,
+// in no order (list mode), or each segment's next tile (first-each, cap =
+// nseg).
+//
+// Bound: operations on what the list needs, the offsets up to each chunk's
+// first header (2.6 M of the 115 M offsets of phase 13's foreign body).
+// The first version (PR 10) tested every offset, one warp on 32 at a time,
+// and parsed the few survivors of the Kraft test alone in their warps from
+// device memory: 2.01 ms, 82 % of it the Kraft sums and parses.  Here:
+// - a persistent grid (the SMs x the blocks one holds) takes tiles of
+//   2,048 offsets from atomic counters.  In first-each mode block b starts
+//   on segment b mod nseg and takes that segment's tiles in order from
+//   its own counter, so every chunk advances from its start at once with
+//   the same number of blocks; a segment keeps its first header by
+//   atomicMax of ~offset, and its tiles at or past it are not taken.  A
+//   block whose segment has no tile left takes a segment no block has had
+//   (only when there are more segments than blocks), else it ends: the
+//   tiles tested past a chunk's first header are at most its blocks'
+//   tiles in flight when it is found (one tile a block, ~2 M offsets in
+//   all).  In list mode one counter hands out the tiles in offset order,
+//   and stops once max_out headers are found: each was found in a tile
+//   taken before, so at a lower offset than any tile not taken, and a
+//   tile taken is tested whole, so the first max_out of the list are the
+//   range's.
+// - a tile's bytes and a halo that holds a whole header from its last
+//   offset are staged in shared memory; the first test (BTYPE, HLIT,
+//   HDIST) runs on every offset, uniformly, and its survivors (~22 %) go
+//   to a shared queue by ballot; the Kraft sum runs on the dense queue, one
+//   survivor a thread, and the few that pass go to a second queue, each
+//   parsed from the staged words by a warp.  The lanes build the
+//   code-length code's 128-entry table (lane = symbol, canonical codes by
+//   ballot), then read the two length runs 32 bits a step: each lane
+//   decodes the symbol that would start at its bit, the true ones follow
+//   from lane 0 by their advances, and scans and ballots give their
+//   positions, the length a repeat copies, the histograms and the C's
+//   checks.  A run whose Kraft sum passes 1 stops there (check_lens would
+//   refuse it): most parses are of offsets that are no header.  (A
+//   parse by one thread, one dependent symbol a step, took most of a
+//   tile's time.)
 // --------------------------------------------------------------------------
 constexpr int kScanThreads = 256;
 constexpr int kScanPerThread = 8;
-constexpr int kScanTile = kScanThreads * kScanPerThread;   // offsets a block
-constexpr int kScanWords = kScanTile / 32 + 4;             // staged words, halo included
+constexpr int kScanTile = kScanThreads * kScanPerThread;   // offsets a tile
+// The most bits a parse reads: BFINAL, BTYPE, HLIT, HDIST, HCLEN, 19
+// 3-bit code-length lengths, 316 lengths of at most 7 bits each, and a
+// repeat (7 + 7 bits) past the end of each of the two runs.
+constexpr int kScanMaxHeaderBits = 3 + 14 + 57 + 316 * 7 + 2 * 14;
+// staged words: a tile from its 32-bit-aligned base (up to 31 bits in), a
+// whole header from its last offset, and the 64-bit reads past it
+constexpr int kScanStageWords =
+    (32 + kScanTile + kScanMaxHeaderBits + 64 + 31) / 32;
+constexpr int kScanCounters = 4;     // state words ahead of the minima
 
 __constant__ uint8_t kCodegenOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
                                           11, 4, 12, 3, 13, 2, 14, 1, 15};
 
-// The C's BitReader at a bit position: peek zero-pads past the data,
-// consume past it fails.  n <= 9.
-struct ScanBits {
-  const uint8_t* in;
-  long long nbits;
-  long long pos;
-  __device__ __forceinline__ uint32_t peek(int n) const {
-    const long long b = pos >> 3;
-    uint32_t v = 0;
-    if ((b << 3) < nbits) v = in[b];
-    if (((b + 1) << 3) < nbits) v |= static_cast<uint32_t>(in[b + 1]) << 8;
-    return (v >> (pos & 7)) & ((1u << n) - 1);
+// The first test at an offset from v, its bits p .. p + 63: BTYPE == 2,
+// HLIT <= 29, HDIST <= 29.
+__device__ __forceinline__ bool scan_first_test(uint64_t v) {
+  return ((v >> 1) & 3) == 2 && ((v >> 3) & 31) <= 29 &&
+         ((v >> 8) & 31) <= 29;
+}
+
+// Bits rel .. rel + 63 of the staged words, and (in f) bits rel + 17 ..
+// rel + 80: the HCLEN code-length lengths.
+__device__ __forceinline__ uint64_t scan_window(const uint32_t* stage,
+                                                int rel, uint64_t* f) {
+  const int wi = rel >> 5, s = rel & 31;
+  const uint64_t a = stage[wi] | static_cast<uint64_t>(stage[wi + 1]) << 32;
+  const uint64_t b =
+      stage[wi + 2] | static_cast<uint64_t>(stage[wi + 3]) << 32;
+  const uint64_t v = s ? (a >> s) | (b << (64 - s)) : a;
+  if (f) *f = (v >> 17) | ((b >> s) << 47);
+  return v;
+}
+
+// Bits q .. q + 31 of the data, zero past its end (as the C's peek reads
+// them): from the staged words, or from device memory past them (no
+// header of at most kScanMaxHeaderBits reaches there).
+__device__ __forceinline__ uint32_t scan_bits32(const uint32_t* stage,
+                                                long long base,
+                                                const uint8_t* in,
+                                                long long in_len,
+                                                long long q) {
+  const long long rel = q - base;
+  const long long wi = rel >> 5;
+  uint64_t x;
+  if (wi + 1 < kScanStageWords) {
+    x = stage[wi] | static_cast<uint64_t>(stage[wi + 1]) << 32;
+  } else {
+    const long long b0 = (base >> 3) + 4 * wi;
+    x = 0;
+    for (int k = 0; k < 8; ++k)
+      if (b0 + k < in_len) x |= static_cast<uint64_t>(in[b0 + k]) << (8 * k);
   }
-  __device__ __forceinline__ bool consume(int n) {
-    if (pos + n > nbits) return false;
-    pos += n;
-    return true;
-  }
-  __device__ __forceinline__ bool read(int n, uint32_t& v) {
-    v = peek(n);
-    return consume(n);
-  }
-};
+  return static_cast<uint32_t>(x >> (rel & 31));
+}
 
 // check_lens on a length histogram: symbol 256 (litlen only), over- and
 // under-subscription with the single length-1 code allowed incomplete.
@@ -426,144 +483,300 @@ __device__ bool scan_check_counts(const int* count, bool has256,
   return left == 0 || maxl == count[1];
 }
 
-// read_code_lens for `hcount` lengths of an arr_len array, reduced to the
-// histogram of the lengths written (count[1..15]) and, for the
-// literal/length run, whether position 256 got a nonzero length.  cnt and
-// sorted are the complete code-length code in canonical form.
-__device__ bool scan_read_lens(ScanBits& br, const int* cnt,
-                               const uint8_t* sorted, int hcount, int arr_len,
-                               int* count, bool& has256) {
-  int pos = 0, prev = 0;
+// A warp's scratch for one parse: the code-length code as a table of the
+// next 7 bits (LSB first) -> symbol | code length << 5, the code-length
+// lengths by symbol, and the histograms of the two length runs.
+struct ScanParse {
+  uint8_t table[128];
+  uint8_t cl[32];
+  int count[2][16];
+};
+
+// read_code_lens for `hcount` lengths of an arr_len array from bit bp, by
+// a warp, 32 bits a step: lane i decodes the code-length symbol that would
+// start at bit bp + i (its code from the table, its extra bits), the true
+// symbols are those reached from lane 0 by their advances (one shuffle a
+// symbol), and their effects combine by scans and ballots: the positions
+// before each (the run takes the true symbols that start below hcount),
+// the previous length a repeat-16 copies, the histogram of the lengths
+// written (count[1..15], shared atomics), whether position 256 got a
+// nonzero length, and the C's checks, any of which fails the header.  A
+// run whose lengths' Kraft sum passes 1 stops there: its code is
+// over-subscribed, which check_lens refuses whatever follows (most offsets
+// that reach the parse are not headers, and stop within a few steps).
+// bp moves past the run; every lane returns the result.
+__device__ bool scan_read_lens(const uint8_t* table, const uint32_t* stage,
+                               long long base, const uint8_t* in,
+                               long long in_len, long long& bp, int hcount,
+                               int arr_len, int* count, bool& has256) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const unsigned below = (1u << lane) - 1;
+  int pos = 0, prev = 0, kraft = 0;
   has256 = false;
+  __syncwarp();                      // the last parse's atomics are done
+  if (lane < 16) count[lane] = 0;
+  __syncwarp();
   while (pos < hcount) {
-    const uint32_t bits = br.peek(7);
-    int code = 0, first = 0, index = 0, sym = -1, len = 0;
-    for (int l = 1; l <= 7; ++l) {          // canonical decode, MSB-first
-      code |= (bits >> (l - 1)) & 1;
-      if (code - first < cnt[l]) {
-        sym = sorted[index + code - first];
-        len = l;
-        break;
+    const long long q = bp + lane;
+    const uint32_t bits = scan_bits32(stage, base, in, in_len, q);
+    const int e = table[bits & 127];
+    const int sym = e & 31, clen = e >> 5;
+    const int xb = sym < 16 ? 0 : sym == 16 ? 2 : sym == 17 ? 3 : 7;
+    const int xv = static_cast<int>(bits >> clen) & ((1 << xb) - 1);
+    const int adv = clen + xb;
+    const int inc = sym < 16 ? 1 : xv + (sym == 18 ? 11 : 3);
+    unsigned chain = 0;
+    for (int cur = 0; cur < 32;) {
+      chain |= 1u << cur;
+      cur = __shfl_sync(kAll, lane + adv, cur);
+    }
+    const bool on = (chain >> lane) & 1;
+    int x = on ? inc : 0;                       // inclusive scan of inc
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, x, d);
+      if (lane >= d) x += y;
+    }
+    const int before = pos + x - (on ? inc : 0);
+    const bool act = on && before < hcount;
+    const unsigned actm = __ballot_sync(kAll, act);
+    // the previous length: the last symbol before this one that is not a
+    // repeat-16 (its length; 0 after a repeat of zeros), or the carry
+    const unsigned setters = __ballot_sync(kAll, act && sym != 16);
+    const unsigned mine = setters & below;
+    const int pv = __shfl_sync(kAll, sym < 16 ? sym : 0,
+                               mine ? 31 - __clz(mine) : lane);
+    const int prev_i = mine ? pv : prev;
+    bool bad = false;
+    int k = 0;
+    bool covers256 = false;
+    int v256 = 0;
+    if (act) {
+      bad = q + adv > 8 * in_len;                // the code or its extra bits
+      if (sym < 16) {
+        bad |= before >= arr_len;
+        covers256 = before == 256;
+        v256 = sym;
+        if (sym) {
+          atomicAdd(&count[sym], 1);
+          k = 1 << (15 - sym);
+        }
+      } else if (sym == 16) {
+        bad |= before == 0 || before + inc > arr_len;
+        covers256 = before <= 256 && 256 < before + inc;
+        v256 = prev_i;
+        if (prev_i) {
+          atomicAdd(&count[prev_i], inc);
+          k = inc << (15 - prev_i);
+        }
       }
-      index += cnt[l];
-      first = (first + cnt[l]) << 1;
-      code <<= 1;
     }
-    if (sym < 0 || !br.consume(len)) return false;
-    if (sym < 16) {
-      if (pos >= arr_len) return false;
-      if (pos == 256) has256 = sym != 0;
-      count[sym] += sym != 0;
-      prev = sym;
-      ++pos;
-    } else if (sym == 16) {
-      uint32_t v;
-      if (!br.read(2, v)) return false;
-      const int rep = static_cast<int>(v) + 3;
-      if (pos == 0 || pos + rep > arr_len) return false;
-      if (pos <= 256 && 256 < pos + rep) has256 = prev != 0;
-      if (prev) count[prev] += rep;
-      pos += rep;
-    } else {
-      uint32_t v;
-      const bool r17 = sym == 17;
-      if (!br.read(r17 ? 3 : 7, v)) return false;
-      pos += static_cast<int>(v) + (r17 ? 3 : 11);
-      prev = 0;
-    }
+    if (__ballot_sync(kAll, bad)) return false;
+    const unsigned c256 = __ballot_sync(kAll, covers256);
+    if (c256) has256 = __shfl_sync(kAll, v256, __ffs(c256) - 1) != 0;
+    kraft += __reduce_add_sync(kAll, k);
+    if (kraft > 1 << 15) return false;
+    const int last = 31 - __clz(actm);           // lane 0 is always in
+    pos = __shfl_sync(kAll, before + (on ? inc : 0), last);
+    bp = __shfl_sync(kAll, q + adv, last);
+    if (setters) prev = __shfl_sync(kAll, sym < 16 ? sym : 0,
+                                    31 - __clz(setters));
   }
+  __syncwarp();
   return pos <= hcount;
 }
 
-// validate_dyn_header at BFINAL bit p (the cheap filter already passed, so
-// the code-length code is complete).
-__device__ bool scan_validate(const uint8_t* in, long long nbits,
-                              long long p) {
-  ScanBits br{in, nbits, p + 3};
-  uint32_t hlit, hdist, hclen;
-  if (!br.read(5, hlit) || !br.read(5, hdist) || !br.read(4, hclen))
-    return false;
-  hlit += 257;
-  hdist += 1;
-  hclen += 4;
-  if (hlit > 286 || hdist > 30) return false;
-  uint8_t cl[19] = {0};
-  for (uint32_t i = 0; i < hclen; ++i) {
-    uint32_t v;
-    if (!br.read(3, v)) return false;
-    cl[kCodegenOrder[i]] = static_cast<uint8_t>(v);
-  }
-  int cnt[8] = {0};
-  for (int s = 0; s < 19; ++s) cnt[cl[s]] += cl[s] != 0;
-  int left = 1;                              // build_table's check_lens
+// validate_dyn_header at BFINAL bit p by one warp (the first test and the
+// Kraft test passed, so HLIT and HDIST are in range and the code-length
+// code is complete; p + 74 < nbits, so the fields before the length runs
+// fit): the lanes build the code-length code's table, then read the two
+// length runs together.  Every lane returns the result.
+__device__ bool scan_validate(ScanParse& sp, const uint32_t* stage,
+                              long long base, const uint8_t* in,
+                              long long in_len, long long p) {
+  const unsigned lane = threadIdx.x & 31;
+  uint64_t f;
+  const uint64_t v = scan_window(stage, static_cast<int>(p - base), &f);
+  const int hlit = static_cast<int>((v >> 3) & 31) + 257;
+  const int hdist = static_cast<int>((v >> 8) & 31) + 1;
+  const int hclen = static_cast<int>((v >> 13) & 15) + 4;
+  if (lane < 19) sp.cl[lane] = 0;
+  __syncwarp();
+  if (static_cast<int>(lane) < hclen)
+    sp.cl[kCodegenOrder[lane]] = static_cast<uint8_t>((f >> (3 * lane)) & 7);
+  __syncwarp();
+  // canonical codes, lane = symbol: the first code of each length, then
+  // the rank among the symbols of the same length
+  const int len = lane < 19 ? sp.cl[lane] : 0;
+  int code = 0, next = 0, prev_count = 0;
   for (int l = 1; l <= 7; ++l) {
-    left <<= 1;
-    if (cnt[l] > left) return false;
-    left -= cnt[l];
+    const unsigned m = __ballot_sync(0xffffffffu, len == l);
+    next = (next + prev_count) << 1;
+    if (len == l) code = next + __popc(m & ((1u << lane) - 1));
+    prev_count = __popc(m);
   }
-  if (left != 0) return false;               // also the all-zero code
-  int offs[8];
-  offs[1] = 0;
-  for (int l = 1; l < 7; ++l) offs[l + 1] = offs[l] + cnt[l];
-  uint8_t sorted[19];
-  for (int s = 0; s < 19; ++s)
-    if (cl[s]) sorted[offs[cl[s]]++] = static_cast<uint8_t>(s);
-  int count[16] = {0};
-  bool has256;
-  if (!scan_read_lens(br, cnt, sorted, static_cast<int>(hlit), 286, count,
-                      has256))
-    return false;
-  int dcount[16] = {0};
-  bool unused;
-  if (!scan_read_lens(br, cnt, sorted, static_cast<int>(hdist), 30, dcount,
-                      unused))
-    return false;
-  return scan_check_counts(count, has256, true) &&
-         scan_check_counts(dcount, true, false);
+  if (len) {
+    const int rev = static_cast<int>(__brev(static_cast<unsigned>(code)) >>
+                                     (32 - len));
+    for (int k = 0; k < 1 << (7 - len); ++k)
+      sp.table[rev | k << len] = static_cast<uint8_t>(lane | len << 5);
+  }
+  __syncwarp();
+  long long bp = p + 17 + 3 * hclen;
+  bool has256, unused;
+  return scan_read_lens(sp.table, stage, base, in, in_len, bp, hlit, 286,
+                        sp.count[0], has256) &&
+         scan_read_lens(sp.table, stage, base, in, in_len, bp, hdist, 30,
+                        sp.count[1], unused) &&
+         scan_check_counts(sp.count[0], has256, true) &&
+         scan_check_counts(sp.count[1], true, false);
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const uint8_t* __restrict__ in, long long in_len, long long lo,
-            long long hi, uint32_t* __restrict__ bitmap, long long nwords) {
-  __shared__ uint32_t tile[kScanWords];
-  const long long lo0 = lo & ~31LL;
-  const long long base = lo0 + static_cast<long long>(blockIdx.x) * kScanTile;
-  const long long byte0 = base >> 3;
-  for (int i = threadIdx.x; i < kScanWords; i += blockDim.x) {
-    const long long b = byte0 + 4 * i;
-    uint32_t w = 0;
-    for (int k = 0; k < 4; ++k)
-      if (b + k < in_len) w |= static_cast<uint32_t>(in[b + k]) << (8 * k);
-    tile[i] = w;
-  }
-  __syncthreads();
-  const long long nbits = 8 * in_len;
-  for (int j = 0; j < kScanPerThread; ++j) {
-    const int rel = j * kScanThreads + threadIdx.x;
-    const long long p = base + rel;
-    bool ok = false;
-    if (p >= lo && p < hi) {
-      const int wi = rel >> 5, s = rel & 31;
-      const uint64_t a = tile[wi] | static_cast<uint64_t>(tile[wi + 1]) << 32;
-      const uint64_t b =
-          tile[wi + 2] | static_cast<uint64_t>(tile[wi + 3]) << 32;
-      const uint64_t v = s ? (a >> s) | (b << (64 - s)) : a;   // bits p .. p+63
-      if (((v >> 1) & 3) == 2 && ((v >> 3) & 31) <= 29 &&
-          ((v >> 8) & 31) <= 29) {
-        const int hclen = static_cast<int>((v >> 13) & 15) + 4;
-        const uint64_t f = (v >> 17) | ((b >> s) << 47);     // 57 bits at p+17
-        int kraft = 0;
-        for (int i = 0; i < 19; ++i) {
-          const int len = static_cast<int>((f >> (3 * i)) & 7);
-          kraft += i < hclen && len ? 128 >> len : 0;
+__global__ void __launch_bounds__(kScanThreads, 6)
+scan_kernel(const uint8_t* __restrict__ in, long long in_len, long long seg0,
+            long long seg_len, long long hi, int nseg, int first_each,
+            unsigned long long max_out, long long cap, long long per_seg,
+            unsigned long long* __restrict__ state) {
+  __shared__ uint32_t stage[kScanStageWords];
+  __shared__ uint16_t queue[kScanTile];      // survivors of the first test
+  __shared__ uint16_t passed[kScanTile];     // and of the Kraft test
+  __shared__ ScanParse parse[kScanThreads / 32];
+  __shared__ int n_queue, n_passed, s_seg;
+  __shared__ long long s_start, s_end;
+  unsigned long long* found = state + 1;
+  unsigned long long* firsts = state + kScanCounters;
+  unsigned long long* tail = firsts + nseg;  // the list, or each next tile
+  volatile unsigned long long* vfound = found;
+  volatile unsigned long long* vfirsts = firsts;
+  const unsigned lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool aligned = (reinterpret_cast<uintptr_t>(in) & 3) == 0;
+  // the block's segment (thread 0's): the blocks start spread evenly
+  int seg = static_cast<int>(blockIdx.x % nseg);
+  for (;;) {
+    if (warp == 0) {
+      long long start = -1, end = -1;
+      if (!first_each) {
+        // list mode: the next tile in offset order, none once max_out
+        // headers are found
+        if (lane == 0 && *vfound < max_out) {
+          const unsigned long long t = atomicAdd(state, 1ULL);
+          if (t < static_cast<unsigned long long>(per_seg)) {
+            start = seg0 + static_cast<long long>(t) * kScanTile;
+            end = min(start + kScanTile, hi);
+          }
         }
-        ok = kraft == 128 && scan_validate(in, nbits, p);
+      } else if (lane == 0) {
+        // first-each mode: the next tile of the block's segment, in
+        // order, while the segment has one below its first header found;
+        // then a segment no block has had (state[0] hands them out after
+        // the first gridDim.x), or none; none once every segment has its
+        // header
+        while (seg >= 0 && *vfound < static_cast<unsigned long long>(nseg)) {
+          const long long lo_k = seg0 + seg * seg_len;
+          const long long e = min(lo_k + seg_len, hi);
+          const long long r =
+              static_cast<long long>(atomicAdd(tail + seg, 1ULL));
+          const long long s = lo_k + r * kScanTile;
+          if (r < per_seg && s < e &&
+              static_cast<unsigned long long>(s) < ~vfirsts[seg]) {
+            start = s;
+            end = min(s + kScanTile, e);
+            break;
+          }
+          const unsigned long long c = gridDim.x + atomicAdd(state, 1ULL);
+          seg = c < static_cast<unsigned long long>(nseg) ? static_cast<int>(c)
+                                                         : -1;
+        }
+      }
+      if (lane == 0) {
+        s_start = start;
+        s_end = end;
+        s_seg = seg < 0 ? 0 : seg;
+        n_queue = 0;
+        n_passed = 0;
       }
     }
-    const uint32_t m = __ballot_sync(0xffffffffu, ok);
-    const long long word =
-        (base + j * kScanThreads + (threadIdx.x & ~31) - lo0) >> 5;
-    if ((threadIdx.x & 31) == 0 && word < nwords) bitmap[word] = m;
+    __syncthreads();
+    const long long start = s_start;
+    if (start < 0) return;
+    const int n = static_cast<int>(s_end - start);
+    const int tseg = s_seg;
+    const long long base = start & ~31LL;
+    const long long byte0 = base >> 3;
+    for (int i = threadIdx.x; i < kScanStageWords; i += kScanThreads) {
+      const long long b = byte0 + 4 * i;    // byte0 is a multiple of 4
+      uint32_t w = 0;
+      if (aligned && b + 4 <= in_len) {
+        w = *reinterpret_cast<const uint32_t*>(in + b);
+      } else {
+        for (int k = 0; k < 4; ++k)
+          if (b + k < in_len)
+            w |= static_cast<uint32_t>(in[b + k]) << (8 * k);
+      }
+      stage[i] = w;
+    }
+    __syncthreads();
+    // the first test on every offset; survivors to the queue by ballot
+    const int sh = static_cast<int>(start - base);
+    for (int j = 0; j < kScanPerThread; ++j) {
+      const int i = j * kScanThreads + threadIdx.x;
+      const bool ok = i < n && scan_first_test(scan_window(stage, sh + i,
+                                                           nullptr));
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&n_queue, __popc(m));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (ok)
+        queue[at + __popc(m & ((1u << lane) - 1))] =
+            static_cast<uint16_t>(sh + i);
+    }
+    __syncthreads();
+    // the Kraft sum of the code-length code, one survivor a thread
+    const int nq = n_queue;
+    for (int q = threadIdx.x; q < nq; q += kScanThreads) {
+      const int rel = queue[q];
+      uint64_t f;
+      const uint64_t v = scan_window(stage, rel, &f);
+      const int hclen = static_cast<int>((v >> 13) & 15) + 4;
+      int kraft = 0;
+#pragma unroll
+      for (int i = 0; i < 19; ++i) {
+        const int len = static_cast<int>((f >> (3 * i)) & 7);
+        kraft += i < hclen && len ? 128 >> len : 0;
+      }
+      if (kraft == 128)
+        passed[atomicAdd(&n_passed, 1)] = static_cast<uint16_t>(rel);
+    }
+    __syncthreads();
+    // the full parse, one offset a warp
+    const int np = n_passed;
+    for (int q = warp; q < np; q += kScanThreads / 32) {
+      const long long p = base + passed[q];
+      if (first_each) {
+        unsigned long long first = 0;
+        if (lane == 0) first = ~vfirsts[tseg];
+        first = __shfl_sync(0xffffffffu, first, 0);
+        if (static_cast<unsigned long long>(p) >= first) continue;
+      }
+      if (!scan_validate(parse[warp], stage, base, in, in_len, p)) continue;
+      if (lane == 0) {
+        if (first_each) {
+          if (atomicMax(firsts + tseg, ~static_cast<unsigned long long>(p)) ==
+              0)
+            atomicAdd(found, 1ULL);
+        } else {
+          const unsigned long long k = atomicAdd(found, 1ULL);
+          if (k < static_cast<unsigned long long>(cap))
+            tail[k] = static_cast<unsigned long long>(p);
+        }
+      }
+    }
+    if (threadIdx.x == 0) {
+      atomicAdd(state + 2, static_cast<unsigned long long>(n));
+      atomicAdd(state + 3, 1ULL);
+    }
+    __syncthreads();
   }
 }
 
@@ -624,17 +837,38 @@ int flate_walk(const void* word, const void* start, const void* nbits,
   return static_cast<int>(cudaGetLastError());
 }
 
-int flate_scan_headers(const void* in, void* bitmap, long long in_len,
-                       long long lo, long long hi, void* stream) {
-  if (hi <= lo) return static_cast<int>(cudaGetLastError());
-  if (lo < 0 || hi > 8 * in_len) return static_cast<int>(cudaErrorInvalidValue);
-  const long long lo0 = lo & ~31LL;
-  const long long blocks = (hi - lo0 + kScanTile - 1) / kScanTile;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  scan_kernel<<<static_cast<unsigned>(blocks), kScanThreads, 0,
+int flate_scan_headers(const void* in, void* state, long long in_len,
+                       long long seg0, long long seg_len, long long hi,
+                       int nseg, int first_each, long long max_out,
+                       long long cap, void* stream) {
+  if (nseg <= 0 || seg_len <= 0 || hi <= seg0 || max_out <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (seg0 < 0 || hi > 8 * in_len || cap < (first_each ? nseg : 0) ||
+      (!first_each && (nseg != 1 || seg0 + seg_len < hi)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int sms = 0, per_sm = 0;    // the grid that stays resident
+  if (sms == 0) {
+    int dev = 0;
+    int rc = static_cast<int>(cudaGetDevice(&dev));
+    if (rc == 0)
+      rc = static_cast<int>(cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev));
+    if (rc == 0)
+      rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, scan_kernel, kScanThreads, 0));
+    if (rc != 0 || per_sm <= 0) {
+      sms = 0;
+      return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+  }
+  const long long per_seg = (seg_len + kScanTile - 1) / kScanTile;
+  const long long grid =
+      min(per_seg * nseg, static_cast<long long>(sms) * per_sm);
+  scan_kernel<<<static_cast<unsigned>(grid), kScanThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), in_len, lo, hi,
-      static_cast<uint32_t*>(bitmap), (hi - lo0 + 31) / 32);
+      static_cast<const uint8_t*>(in), in_len, seg0, seg_len, hi, nseg,
+      first_each, static_cast<unsigned long long>(max_out), cap, per_seg,
+      static_cast<unsigned long long*>(state));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,7 +54,7 @@ CHUNK_BYTES = 1 << 19            # chain spacing of the chunk-entry scanner
 SPAN0 = 1 << 16                  # initial block span (64 KiB comp)
 MAX_SPAN = 1 << 21               # escalation cap (2 MiB comp)
 RES_B = 8                        # resolve batch rows
-MAX_S = 1 << 22                  # per-block output cap
+MAX_S = 1 << 22                  # output bytes of a resolve row
 # bit positions one symbol_batch call may hold: pass 1 makes a few dozen
 # int32 temporaries of this many elements, so a round's rows go through
 # in chunks
@@ -121,6 +121,17 @@ def symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
     Returns (words (B, NS), counts, spec_fail, has_eob, out_len,
     end_bit).  serial=True uses the exact one-symbol-per-step walk
     (retry path for join failures)."""
+    return _symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
+                         lims_d, kbase_d, syms_d, NS=NS, G=G,
+                         serial=serial)[:6]
+
+
+def _symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
+                  lims_d, kbase_d, syms_d, *, NS: int, G: int,
+                  serial: bool):
+    """symbol_batch's six results and a seventh, `full` (B,): the row's
+    chain filled its NS slots before an end-of-block, so it needs more
+    slots, not a failure."""
     word = i2._pass1(comp, lims_ll, kbase_ll, syms_ll,
                      lims_d, kbase_d, syms_d)
     if serial:
@@ -143,9 +154,13 @@ def symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
         # start plus the advances of the walked symbols
         adv = torch.where(slots < counts[:, None], words & 63, 0)
         end_bit = start.to(torch.int32) + adv.sum(dim=1).to(torch.int32)
-        return words, counts, ~has_eob, has_eob, out_len, end_bit
+        full = (counts >= NS) & ~has_eob
+        return words, counts, ~has_eob, has_eob, out_len, end_bit, full
     mask, joined = i2._lane_walk(word, start, 8 * clen, G=G)
-    return i2._extract(word, mask, joined, start, NS, G)
+    out = i2._extract(word, mask, joined, start, NS, G)
+    # ranks at or past NS went to _extract's sink column
+    full = (mask.sum(dim=1) > NS) & ~out[3]
+    return (*out, full)
 
 
 def resolve_compact(words, counts, out_lens, ctx0, *, S: int):
@@ -192,17 +207,48 @@ def resolve_compact(words, counts, out_lens, ctx0, *, S: int):
     return out.to(torch.uint8), err
 
 
+def _pieces(words: torch.Tensor, out_len: int) -> list:
+    """One block's symbols (words (counts,), the end-of-block last) as
+    resolve rows (words, counts, out_len) of at most MAX_S output bytes
+    each, cut at symbol boundaries: the symbols that start in each
+    MAX_S - 257 bytes of the block's output, so a row holds at most
+    MAX_S - 258 + 258 bytes.  A row that does not end at the block's end
+    gets an end-of-block word of its own (symbol_fields wants one at
+    counts - 1).  A match of a later row reaches back into the earlier
+    rows of its batch or into the context carried from the batch
+    before, like a match across blocks."""
+    n = words.shape[0]
+    if out_len <= MAX_S:
+        return [(words, n, out_len)]
+    kind = (words >> 6) & 3
+    olen = torch.where(kind == i2.K_MATCH, ((words >> 8) & 0xFF) + 3,
+                       (kind == i2.K_LIT).to(torch.int32))
+    starts = torch.cumsum(olen, dim=0) - olen
+    targets = torch.arange(MAX_S - 257, out_len, MAX_S - 257,
+                           dtype=starts.dtype, device=words.device)
+    cuts = torch.searchsorted(starts, targets)
+    cut_np, at_np = torch.stack([cuts, starts[cuts]]).cpu().numpy()
+    eob = torch.full((1,), i2.K_EOB << 6, dtype=words.dtype,
+                     device=words.device)
+    bounds = [0, *cut_np.tolist(), n]
+    offs = [0, *at_np.tolist(), out_len]
+    rows = []
+    for j in range(len(bounds) - 1):
+        a, b = bounds[j], bounds[j + 1]
+        w = words[a:b] if b == n else torch.cat([words[a:b], eob])
+        rows.append((w, w.shape[0], offs[j + 1] - offs[j]))
+    i2.STATS["block_pieces"] += len(rows)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Orchestration
 # ---------------------------------------------------------------------------
 
-def _pack_meta(counts, fail, has_eob, out_len, end_bit):
-    """One fetched tensor for the five per-row results of a group;
-    end_bit is span-relative (<= 2 MiB * 8 bits), so int32 is safe."""
-    return torch.stack([
-        counts.to(torch.int32), fail.to(torch.int32),
-        has_eob.to(torch.int32), out_len.to(torch.int32),
-        end_bit.to(torch.int32)])
+def _pack_meta(*rows):
+    """One fetched tensor for the per-row results of a group; end_bit is
+    span-relative (<= 2 MiB * 8 bits), so int32 is safe."""
+    return torch.stack([r.to(torch.int32) for r in rows])
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -212,20 +258,27 @@ def _bucket(n: int, lo: int) -> int:
     return b
 
 
-def _decode_round(body: bytes, plans: list, span: dict,
+def _slots(C: int, asked: int) -> int:
+    """Symbol slots of a row of a C-byte span: 2 C (at most 2^20) at
+    first, or what an earlier round of the block asked for.  A symbol
+    takes at least one bit and the chain visits distinct bit positions of
+    the span, so 8 C slots always hold it: never more."""
+    return min(max(asked, min(2 * C, 1 << 20)), 8 * C)
+
+
+def _decode_round(body: bytes, plans: list, span: dict, slots: dict,
                   serial_set: set, dev: torch.device) -> dict:
     """Decode one block per plan on device; returns pos -> result dict
-    with (words ref, row, counts, out_len, end_bit, ok)."""
+    with (words ref, row, counts, out_len, end_bit, ok, full)."""
     groups: dict = {}
     for p in plans:
         byte0 = p.pos >> 3
         cap = span.get(p.pos, SPAN0)
         C = _bucket(min(len(body) - byte0, cap), 8192)
-        key = (C, p.pos in serial_set)
+        key = (C, _slots(C, slots.get(p.pos, 0)), p.pos in serial_set)
         groups.setdefault(key, []).append((p, byte0))
     results = {}
-    for (C, serial), grp in groups.items():
-        NS = min(2 * C, 1 << 20)
+    for (C, NS, serial), grp in groups.items():
         rows = max(1, MAX_POSITIONS // (8 * C))
         for lo in range(0, len(grp), rows):
             part = grp[lo:lo + rows]
@@ -246,13 +299,12 @@ def _decode_round(body: bytes, plans: list, span: dict,
                 start[bi] = p.body_bit - 8 * byte0
                 sc_ll[bi], kb_ll[bi], sy_ll[bi] = p.ll
                 sc_d[bi], kb_d[bi], sy_d[bi] = p.d
-            words, counts, fail, has_eob, out_len, end_bit = symbol_batch(
+            words, *meta = _symbol_batch(
                 *i2.args_from_numpy((comp, clen, start, sc_ll, kb_ll, sy_ll,
                                      sc_d, kb_d, sy_d), dev),
-                NS=NS, serial=serial)
-            meta_np = _pack_meta(counts, fail, has_eob, out_len,
-                                 end_bit).cpu().numpy()
-            cn_np, fail_np, eob_np, ol_np, eb_np = meta_np
+                NS=NS, G=i2.LANE_G, serial=serial)
+            cn_np, fail_np, eob_np, ol_np, eb_np, full_np = \
+                _pack_meta(*meta).cpu().numpy()
             for bi, (p, byte0) in enumerate(part):
                 results[p.pos] = {
                     "words": words, "row": bi, "plan": p,
@@ -263,6 +315,8 @@ def _decode_round(body: bytes, plans: list, span: dict,
                     "ok": not bool(fail_np[bi]),
                     "serial": serial,
                     "span": C,
+                    "slots": NS,
+                    "full": bool(full_np[bi]),
                 }
     return results
 
@@ -313,6 +367,7 @@ def _decompress_member_any(data: bytes, offset: int,
     failed: dict = {}            # header bit pos -> its FlateError
     frontier = set(entries)
     span: dict = {}
+    slots: dict = {}
     serial_set: set = set()
     final_pos = None             # header pos of the BFINAL block
     chain_head = 0
@@ -344,8 +399,15 @@ def _decompress_member_any(data: bytes, offset: int,
                 plans.append(p)
         if plans:
             i2.STATS["chained_rounds"] += 1
-            res = _decode_round(body, plans, span, serial_set, dev)
+            res = _decode_round(body, plans, span, slots, serial_set, dev)
             for pos, r in res.items():
+                if r["full"] and r["slots"] < 8 * r["span"]:
+                    # the chain filled its symbol slots: more slots, the
+                    # same span and walk
+                    slots[pos] = 2 * r["slots"]
+                    i2.STATS["slot_retries"] += 1
+                    frontier.add(pos)
+                    continue
                 if not r["has_eob"] and r["span"] < MAX_SPAN \
                         and (pos >> 3) + r["span"] < len(body):
                     # EOB not in span: escalate the span and retry
@@ -369,8 +431,9 @@ def _decompress_member_any(data: bytes, offset: int,
                     final_pos = pos
         # chain-complete check: walk from 0 through decoded.  The chain
         # head's block is always in the frontier, so every round either
-        # finishes it or retries it (span escalation / serial rewalk,
-        # both bounded) — a persistent stall is a logic error, not data.
+        # finishes it or retries it (at most 5 span doublings, 7 slot
+        # doublings and the serial rewalk) — a persistent stall is a
+        # logic error, not data.
         pos = chain_head
         while pos in decoded and not decoded[pos]["plan"].bfinal:
             pos = decoded[pos]["end_bit"]
@@ -381,7 +444,7 @@ def _decompress_member_any(data: bytes, offset: int,
         stall = stall + 1 if pos == chain_head else 0
         chain_head = pos
         frontier.add(pos)
-        if stall > 12:
+        if stall > 24:
             raise InvalidCode("block chain did not converge")
 
     # ---- confirmed chain in stream order ------------------------------
@@ -402,17 +465,14 @@ def _decompress_member_any(data: bytes, offset: int,
     hasher = Hasher(container)
 
     def flush(rows):
-        S = _bucket(max(max(r["out_len"] for r in rows), 1024), 1024)
-        if S > MAX_S:
-            raise InvalidCode("block output exceeds device cap")
-        NSr = max(r["words"].shape[1] for r in rows)
-        w = torch.stack([
-            torch.nn.functional.pad(r["words"][r["row"]],
-                                    (0, NSr - r["words"].shape[1]))
-            for r in rows])
-        counts = torch.tensor([r["counts"] for r in rows],
+        """Resolve rows (words, counts, out_len) of consecutive output."""
+        S = _bucket(max(max(ol for _, _, ol in rows), 1024), 1024)
+        NSr = max(c for _, c, _ in rows)
+        w = torch.stack([torch.nn.functional.pad(wr, (0, NSr - c))
+                         for wr, c, _ in rows])
+        counts = torch.tensor([c for _, c, _ in rows],
                               dtype=torch.int32, device=dev)
-        out_lens = torch.tensor([r["out_len"] for r in rows],
+        out_lens = torch.tensor([ol for _, _, ol in rows],
                                 dtype=torch.int32, device=dev)
         ctx0 = np.zeros(CTX, np.uint8)
         hist = bytes(out[-CTX:])
@@ -422,7 +482,7 @@ def _decompress_member_any(data: bytes, offset: int,
                                     torch.from_numpy(ctx0).to(dev), S=S)
         if bool(err.any()):
             raise InvalidCode("device resolve failed")
-        total = sum(r["out_len"] for r in rows)
+        total = sum(ol for _, _, ol in rows)
         r = flat[:total].cpu().numpy().tobytes()
         out.extend(r)
         hasher.update(r)
@@ -437,8 +497,10 @@ def _decompress_member_any(data: bytes, offset: int,
             s = body[p.stored_off:p.stored_off + p.stored_len]
             out.extend(s)
             hasher.update(s)
-        else:
-            batch.append(r)
+            continue
+        for piece in _pieces(r["words"][r["row"], :r["counts"]],
+                             r["out_len"]):
+            batch.append(piece)
             if len(batch) >= RES_B:
                 flush(batch)
                 batch = []

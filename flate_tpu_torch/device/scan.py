@@ -27,13 +27,17 @@ kept, not RFC 1951's, so the port finds exactly the C's offsets:
 - no offset at or above nbits - 96 is tested;
 - the offset reported is the BFINAL bit, whose value is not checked.
 
-On CUDA data the test of every offset is one launch of `scan_kernel`
-(csrc/decode_kernels.cu, `flate_scan_headers`), which writes a validity
-bitmap, one bit an offset; the first set bits are taken from it with torch
-ops on the card.  On CPU data the plain version runs: the cheap filter
-vectorised over offsets, then the full parse of the survivors in offset
-order with the port's host header parser (inflate.py, the C's rules),
-stopping once `max_out` are found.
+On CUDA data the scan is one launch of `scan_kernel`
+(csrc/decode_kernels.cu, `flate_scan_headers`), which stops at what the
+list needs: a persistent grid takes tiles of SCAN_TILE offsets in offset
+order (for chunk_entries every chunk from its start at once), a chunk keeps
+its first header and skips its tiles past it, and scan_headers stops taking
+tiles once max_out headers are found.  The kernel writes the list itself
+(each chunk's first header, or the headers of the tiles it tested) into a
+small int64 state that is fetched once.  On CPU data the plain version
+runs: the cheap filter vectorised over offsets, then the full parse of the
+survivors in offset order with the port's host header parser (inflate.py,
+the C's rules), stopping once `max_out` are found.
 """
 
 from __future__ import annotations
@@ -55,6 +59,20 @@ FILTER_WINDOW0 = 1 << 16
 FILTER_WINDOW = 1 << 22
 # Kraft weight 2^(7 - len) of a code-length code length (0: no code).
 KRAFT = (0, 64, 32, 16, 8, 4, 2, 1)
+# Offsets a tile of scan_kernel (csrc kScanTile).
+SCAN_TILE = 2048
+# The kernel's state, int64, zero-filled: the next tile, the headers found
+# (chunk mode: chunks with one), the offsets and tiles tested; then ~ each
+# chunk's first header (0: none, so ~ gives -1); then the list of headers
+# found (scan_headers) or each chunk's next tile (chunk_entries).
+STATE_NEXT, STATE_FOUND, STATE_TESTED, STATE_TILES = range(4)
+STATE_HEAD = 4
+# The list holds max_out (at most LIST_MAX) and LIST_SLACK more headers:
+# those of the tiles in flight when the max_out-th is found.  A scan that
+# finds more tests the same tiles again into a list of their size.
+LIST_MAX = 1 << 16
+LIST_SLACK = 1024
+NO_STOP = 1 << 62
 
 # Integer operations a scan needs at the least, for a bound: the three
 # field tests of every offset; a lookup and an add for each Kraft field
@@ -82,7 +100,7 @@ def scan_headers(data, start_bit: int = 0, end_bit: int | None = None,
         return []
     if _build.use_plain(buf):
         return _scan_plain(_prepare(buf), lo, hi, max_out)
-    return _positions(_scan_cuda(buf, lo, hi), lo)[:max_out].tolist()
+    return _positions(_scan_list(buf, lo, hi, max_out))[:max_out]
 
 
 def chunk_entries(body, chunk_bytes: int, *,
@@ -101,22 +119,23 @@ def chunk_entries(body, chunk_bytes: int, *,
     lo, hi = _range(buf.numel(), step, nchunks * step)
     if hi <= lo:
         return [0]
-    return _first_per_chunk(_positions(_scan_cuda(buf, lo, hi), lo),
-                            nchunks, step)
+    nseg = -(-(hi - lo) // step)
+    return _first_per_chunk(_scan_cuda(buf, lo, step, hi, nseg).cpu(), nseg)
 
 
-def _first_per_chunk(pos: torch.Tensor, nchunks: int, step: int
-                     ) -> list[int]:
-    """[0] and, for each chunk k in 1 .. nchunks - 1 of `step` bits, the
-    first of the ascending offsets `pos` in [k step, (k + 1) step)."""
-    if pos.numel() == 0:
-        return [0]
-    starts = torch.arange(1, nchunks, dtype=torch.int64,
-                          device=pos.device) * step
-    idx = torch.searchsorted(pos, starts)
-    first = pos[torch.clamp(idx, max=pos.numel() - 1)]
-    keep = (idx < pos.numel()) & (first < starts + step)
-    return [0] + first[keep].tolist()
+def _first_per_chunk(state: torch.Tensor, nseg: int) -> list[int]:
+    """[0] and the first header of each chunk that has one, from a chunk
+    mode state of _scan_cuda (on the host)."""
+    firsts = ~state[STATE_HEAD:STATE_HEAD + nseg]
+    return [0] + firsts[firsts >= 0].tolist()
+
+
+def _positions(state: torch.Tensor) -> list[int]:
+    """The headers of a list mode state of _scan_cuda (on the host, one
+    segment), ascending: those of the tiles it tested, the first max_out
+    of the range among them."""
+    lst = state[STATE_HEAD + 1:]
+    return sorted(lst[:min(int(state[STATE_FOUND]), lst.numel())].tolist())
 
 
 def _buffer(data, device) -> torch.Tensor:
@@ -144,26 +163,38 @@ def _range(in_len: int, start_bit: int, end_bit: int | None):
 # The kernel (CUDA data)
 # ---------------------------------------------------------------------------
 
-def _scan_cuda(buf: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """One launch of scan_kernel over [lo, hi): the validity bitmap, bit
-    (p - (lo & ~31)) of the int32 words for offset p."""
+def _scan_cuda(buf: torch.Tensor, seg0: int, seg_len: int, hi: int,
+               nseg: int, max_out: int = 0, cap: int = 0) -> torch.Tensor:
+    """One launch of scan_kernel; returns its state (int64, on the card).
+    max_out 0: chunk mode, ~ the first header of each of the nseg segments
+    [seg0 + k seg_len, min(seg0 + (k + 1) seg_len, hi)).  Else list mode
+    over [seg0, hi) (one segment): the headers of the tiles tested, in no
+    order, until max_out are found, into a list of `cap`."""
     _build.check_cuda("scan data", buf, torch.uint8, (buf.numel(),))
-    lo0 = lo & ~31
-    bitmap = torch.empty(-(-(hi - lo0) // 32), dtype=torch.int32,
-                         device=buf.device)
-    _build.launch("flate_scan_headers", buf.data_ptr(), bitmap.data_ptr(),
-                  buf.numel(), lo, hi)
-    return bitmap
+    first_each = max_out == 0
+    if first_each:
+        cap = nseg                       # each chunk's next tile
+    state = torch.zeros(STATE_HEAD + nseg + cap, dtype=torch.int64,
+                        device=buf.device)
+    _build.launch("flate_scan_headers", buf.data_ptr(), state.data_ptr(),
+                  buf.numel(), seg0, seg_len, hi, nseg, int(first_each),
+                  1 if first_each else max_out, cap)
+    return state
 
 
-def _positions(bitmap: torch.Tensor, lo: int) -> torch.Tensor:
-    """The set bits of a bitmap from _scan_cuda as ascending int64 bit
-    offsets (on the bitmap's device)."""
-    words = torch.nonzero(bitmap).flatten()
-    bit = torch.arange(32, dtype=torch.int32, device=bitmap.device)
-    hit = ((bitmap[words][:, None] >> bit) & 1).bool()
-    pos = ((lo & ~31) + 32 * words)[:, None] + bit.to(torch.int64)
-    return pos[hit]
+def _scan_list(buf: torch.Tensor, lo: int, hi: int, max_out: int
+               ) -> torch.Tensor:
+    """The list mode state of [lo, hi) on the host, its list whole: where
+    the tiles tested hold more headers than the list, those tiles are
+    tested again into a list of their size."""
+    cap = min(max_out, LIST_MAX) + LIST_SLACK
+    state = _scan_cuda(buf, lo, hi - lo, hi, 1, max_out, cap).cpu()
+    found = int(state[STATE_FOUND])
+    if found > cap:
+        tiles = min(int(state[STATE_NEXT]), -(-(hi - lo) // SCAN_TILE))
+        end = min(hi, lo + tiles * SCAN_TILE)
+        state = _scan_cuda(buf, lo, end - lo, end, 1, NO_STOP, found).cpu()
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -499,3 +499,95 @@ def trap_stream() -> bytes:
     return b"".join(c.compress(payload[i:i + 4096])
                     + c.flush(zlib.Z_FULL_FLUSH)
                     for i in range(0, len(payload), 4096)) + c.flush()
+
+
+def _ml9(data: bytes, wbits: int, strategy: int = zlib.Z_DEFAULT_STRATEGY
+         ) -> bytes:
+    """zlib's level 6 at memLevel 9 (GNU gzip's buffer size): blocks of up
+    to 32,767 symbols."""
+    c = zlib.compressobj(6, zlib.DEFLATED, wbits, 9, strategy)
+    return c.compress(data) + c.flush()
+
+
+def long_run_text(n: int = 1_500_000, seed: int = 0) -> bytes:
+    """Text with runs of zeros and of short periods, 60-300 KB each,
+    between its paragraphs: blocks of several hundred KB of output whose
+    matches are long."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    while len(out) < n:
+        out += corpus("text", int(rng.integers(2000, 40000)),
+                      seed=int(rng.integers(1 << 30)))
+        unit = bytes(rng.integers(0, 256, int(rng.choice([1, 1, 3, 8])),
+                                  dtype=np.uint8))
+        out += unit * (int(rng.integers(60_000, 300_000)) // len(unit))
+    return bytes(out[:n])
+
+
+def big_block_streams() -> dict:
+    """name -> (container name, stream) of valid zlib/gzip output whose
+    blocks hold more than 4 MiB of output (zlib writes blocks of 16,383
+    matches of 258 bytes on zero runs, 32,767 at memLevel 9) or more
+    symbols than twice their compressed bytes (Huffman-only zeros: one
+    1-bit literal a byte)."""
+    zeros9 = b"\0" * (9 << 20)
+    # a full flush after the first text starts a block at the zero run
+    c = zlib.compressobj(6)
+    text_run = c.compress(corpus("text", 60_000)) \
+        + c.flush(zlib.Z_FULL_FLUSH) \
+        + c.compress(b"\0" * (5 << 20) + corpus("text", 60_000, seed=1)) \
+        + c.flush()
+    return {
+        "zeros_5mib_l6": ("ZLIB", zlib.compress(b"\0" * (5 << 20), 6)),
+        "zeros_9mib_mem9": ("ZLIB", _ml9(zeros9, 15)),
+        "text_5mib_run": ("ZLIB", text_run),
+        "huffman_20000": ("ZLIB", _ml9(b"\0" * 20000, 15,
+                                      zlib.Z_HUFFMAN_ONLY)),
+        "huffman_40000": ("ZLIB", _ml9(b"\0" * 40000, 15,
+                                      zlib.Z_HUFFMAN_ONLY)),
+        "gzip_zeros_9mib_mem9": ("GZIP", _ml9(zeros9, 31)),
+    }
+
+
+def placed_headers(nbytes: int, offsets, name: str = "accepted") -> bytes:
+    """nbytes of zero bytes (no offset passes the first test) with header
+    case `name` and its end-of-block code at each bit offset."""
+    (ll, d, kw), _ = header_cases()[name]
+    bits = np.asarray(with_eob(dyn_header(ll, d, **kw), ll), np.uint8)
+    allb = np.zeros(8 * nbytes, np.uint8)
+    for p in offsets:
+        allb[p:p + len(bits)] = bits
+    return np.packbits(allb, bitorder="little").tobytes()
+
+
+SCAN_TILE = 2048     # offsets a tile of the chunk-entry scanner takes
+
+
+def scan_edge_cases() -> dict:
+    """name -> (data, start_bit, end_bit, max_out, chunk sizes) for the
+    chunk-entry scanner's tiles and early stops: headers at a tile's last
+    offset, at a chunk's last offset (its parse reads into the next
+    chunk), a chunk with none, max_out reached inside a tile, an end not a
+    multiple of 32, an all-zero and a random body."""
+    T, c = SCAN_TILE, 1024               # 1 KiB chunks: 4 tiles a chunk
+    step = 8 * c
+    chunked = placed_headers(6 * c + 200, [
+        step + T - 1,                    # chunk 1: its first tile's last
+        3 * step - 1,                    # chunk 2: its last offset
+        3 * step + 600,                  # chunk 3: past the one above
+        5 * step + 2 * T - 1])           # chunk 4 none; chunk 5: tile 1
+    tiles = placed_headers(4096, [T - 1, 2 * T - 1, 3 * T + 7])
+    dense = placed_headers(1024, [100, 600, 1100, 1600, 2100, 4000])
+    body = scan_cases()["mixed_l1"][0]
+    rng = np.random.default_rng(23)
+    return {
+        "chunk_edges": (chunked, 0, None, 64, (c, 2 * c)),
+        "tile_last": (tiles, 0, None, 64, (512, 1024)),
+        "tile_last_from_1": (tiles, 1, None, 64, (512,)),
+        "max_out_mid_tile_2": (dense, 0, None, 2, (256,)),
+        "max_out_mid_tile_5": (dense, 3, None, 5, (256,)),
+        "hi_not_32": (body, 5, 8 * 100_000 + 13, 1000, (32768,)),
+        "all_zero": (bytes(1 << 20), 0, None, 64, (32768, 131072)),
+        "random": (rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(),
+                   0, None, 1000, (32768, 131072)),
+    }

@@ -20,10 +20,10 @@ from flate_tpu_torch.device import checksum, graphs, match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, scan
 from flate_tpu_torch.device import squeeze
 
-from _torch_corpora import (CTX, KINDS, S, corpus, lane_edge_rows,
-                            pack_edge_rows, parse_edge_rows, scan_cases,
-                            small_run_edge_rows, trap_stream, walk_edge_rows,
-                            windows)
+from _torch_corpora import (CTX, KINDS, S, big_block_streams, corpus,
+                            lane_edge_rows, pack_edge_rows, parse_edge_rows,
+                            scan_cases, small_run_edge_rows, trap_stream,
+                            walk_edge_rows, windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -833,14 +833,15 @@ def test_scan_kernel_equal_plain(cuda, name):
 
 
 def test_scan_kernel_every_offset(cuda):
-    """The whole bitmap of a body with many headers (level 1, 2 MiB of
-    mixed data) against the plain scan of every offset."""
+    """Every header of a body with many headers (level 1, 2 MiB of mixed
+    data; max_out never reached, so every tile is tested) against the
+    plain scan of every offset."""
     body = zlib.compress(corpus("mixed", 2 << 20, seed=9), 1)[2:-4]
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
     lo, hi = scan._range(len(body), 5, None)
     want = scan._scan_plain(scan._prepare(buf), lo, hi, 1 << 30)
-    got = scan._positions(scan._scan_cuda(buf.to(cuda), lo, hi), lo)
-    assert got.cpu().tolist() == want and len(want) > 10
+    got = scan.scan_headers(buf.to(cuda), 5, None, 1 << 30)
+    assert got == want and len(want) > 10
 
 
 def test_scan_kernel_chunk_entries_full_width(cuda):
@@ -885,4 +886,23 @@ def test_scan_wrapper_rejects_bad_tensors(cuda):
         scan.scan_headers(torch.zeros(400, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         scan._scan_cuda(torch.zeros((400, 2), dtype=torch.uint8,
-                                    device=cuda)[:, 0], 0, 100)
+                                    device=cuda)[:, 0], 0, 100, 100, 1)
+
+
+BIG_BLOCKS = big_block_streams()
+
+
+@pytest.mark.parametrize("name", list(BIG_BLOCKS))
+def test_big_blocks_cuda_equal_cpu(cuda, name):
+    """Blocks of more than 4 MiB of output (resolved in rows cut at symbol
+    boundaries) and of more symbols than their first slots (walked again
+    with more): the card's bytes equal the CPU's and zlib's, through a
+    walk kernel."""
+    container, blob = BIG_BLOCKS[name]
+    ns = getattr(api, container.lower())
+    _build.LAUNCHES.clear()
+    got = ns.decompress(blob)
+    walks = _build.LAUNCHES["flate_lane_walk"] + _build.LAUNCHES["flate_walk"]
+    want = zlib.decompress(blob, 31 if container == "GZIP" else 15)
+    assert got == want == ns.decompress(blob, device="cpu")
+    assert walks > 0

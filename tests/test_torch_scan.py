@@ -7,8 +7,10 @@ Z_FIXED, random bytes, unaligned starts, ranges that end at a header or in
 the last 96 bits, short streams, hand-built headers that hit each rejection
 of the C's parse), and chunk_entries the list the JAX member loop builds
 (flate_tpu/jx/anyinflate.py:365-373).  The steps the card path adds after
-its kernel (_positions, _first_per_chunk) run here on CPU tensors.
-Tolerance: exact (bit offsets).
+its kernel (_positions, _first_per_chunk, and _scan_list's second launch
+when the list overflows) run here on CPU tensors.  The card tests at the
+end hold scan_kernel to the plain version on the card (marked cuda; they
+skip here).  Tolerance: exact (bit offsets).
 """
 
 import zlib
@@ -22,9 +24,9 @@ from flate_tpu import native
 from flate_tpu_torch import errors
 from flate_tpu_torch.device import scan
 
-from _torch_corpora import (deflate_raw, dyn_header, header_cases,
-                            header_case_stream, scan_cases, trap_stream,
-                            with_eob)
+from _torch_corpora import (corpus, deflate_raw, dyn_header, header_cases,
+                            header_case_stream, scan_cases, scan_edge_cases,
+                            trap_stream, with_eob)
 
 CASES = scan_cases()
 
@@ -112,30 +114,90 @@ def test_chunk_entries_equal_member_loop(c_scanner, name, chunk):
 @pytest.mark.parametrize("chunk", [32768, 5001])
 @pytest.mark.parametrize("name", ["mixed_l1", "trap", "random_64k"])
 def test_card_path_selection_equal_plain(name, chunk):
-    """The card path's steps after its kernel, on the CPU: the bitmap of
-    every valid offset -> _positions -> _first_per_chunk gives the plain
-    chunk_entries."""
+    """The card path's steps after its kernel, on the CPU: a state as the
+    kernel writes it (~ each chunk's first header, 0 for none; the headers
+    of the tiles tested, in no order) -> _first_per_chunk / _positions give
+    the plain chunk_entries and scan_headers."""
     body = CHUNK_BODIES[name]()
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
-    lo, hi = scan._range(len(body), 8 * chunk, None)
+    step = 8 * chunk
+    lo, hi = scan._range(len(body), step, None)
     allpos = scan._scan_plain(scan._prepare(buf), lo, hi, 1 << 30)
-    lo0 = lo & ~31
-    bitmap = np.zeros(-(-(hi - lo0) // 32), np.uint32)
-    for p in allpos:
-        bitmap[(p - lo0) >> 5] |= np.uint32(1 << ((p - lo0) & 31))
-    pos = scan._positions(torch.from_numpy(bitmap.view(np.int32)), lo)
-    assert pos.tolist() == allpos
-    nchunks = -(-len(body) // chunk)
-    assert scan._first_per_chunk(pos, nchunks, 8 * chunk) == \
+    state = torch.tensor([9, len(allpos), hi - lo, 9, -1, *allpos[::-1]],
+                         dtype=torch.int64)
+    assert scan._positions(state) == allpos == \
+        scan.scan_headers(buf, step, None, 1 << 30)
+    nseg = -(-(hi - lo) // step)
+    firsts = [min((p for p in allpos if lo + k * step <= p
+                   < lo + (k + 1) * step), default=-1) for k in range(nseg)]
+    state = torch.tensor([0, sum(f >= 0 for f in firsts), 0, 0,
+                          *(~f for f in firsts), *[9] * nseg],
+                         dtype=torch.int64)
+    assert scan._first_per_chunk(state, nseg) == \
         scan.chunk_entries(buf, chunk)
 
 
 def test_positions_sign_bit_and_empty():
-    bitmap = torch.tensor([0, -(1 << 31) | 5, 0, 1], dtype=torch.int32)
-    assert scan._positions(bitmap, 70).tolist() == [96, 98, 127, 160]
-    assert scan._positions(torch.zeros(3, dtype=torch.int32), 0).numel() == 0
-    assert scan._first_per_chunk(torch.zeros(0, dtype=torch.int64), 5,
-                                 64) == [0]
+    """A chunk's first header is kept as its complement (u64 ~p, a negative
+    int64), 0 for none; a list longer than its slots is read up to its
+    slots; empty states."""
+    state = torch.tensor([9, 5, 0, 0, 0, 96, 5, 127], dtype=torch.int64)
+    assert scan._positions(state) == [5, 96, 127]
+    assert scan._first_per_chunk(torch.tensor([0, 2, 0, 0, 0, ~70, ~(1 << 40),
+                                               0, 3, 3]), 3) == [0, 70,
+                                                                 1 << 40]
+    assert scan._first_per_chunk(torch.zeros(4, dtype=torch.int64),
+                                 0) == [0]
+    assert scan._positions(torch.tensor([0, 0, 0, 0, 0, 7, 7])) == []
+
+
+def _tile_kernel(prep, in_flight: int):
+    """scan_kernel's list mode as whole tiles taken in order, until
+    max_out headers are found, and `in_flight` tiles more (those other
+    blocks took before the stop): the state on the host."""
+    def run(buf, seg0, seg_len, hi, nseg, max_out=0, cap=0):
+        assert nseg == 1 and max_out > 0 and seg0 + seg_len >= hi
+        allpos = scan._scan_plain(prep, seg0, hi, 1 << 30)
+        ntiles = -(-(hi - seg0) // scan.SCAN_TILE)
+        tiles, found = 0, []
+        while tiles < ntiles and len(found) < max_out:
+            t0 = seg0 + tiles * scan.SCAN_TILE
+            found += [p for p in allpos if t0 <= p < t0 + scan.SCAN_TILE]
+            tiles += 1
+        tiles = min(ntiles, tiles + in_flight)
+        found = [p for p in allpos if p < seg0 + tiles * scan.SCAN_TILE]
+        lst = (found[::-1] + [0] * cap)[:cap]
+        return torch.tensor([tiles + 3, len(found), 0, tiles, 0, *lst],
+                            dtype=torch.int64)
+    return run
+
+
+@pytest.mark.parametrize("in_flight", [0, 3])
+@pytest.mark.parametrize("max_out", [1, 4, 1000])
+def test_scan_list_overflow_tests_the_tiles_again(monkeypatch, max_out,
+                                                  in_flight):
+    """_scan_list with a list shorter than the headers its tiles hold (the
+    tiles in flight at the stop found more): the same tiles are tested
+    again into a list of their size, and scan_headers' list is the plain
+    one."""
+    body = CASES["mixed_l1"][0]
+    buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    lo, hi = scan._range(len(body), 0, None)
+    states = []
+    kernel = _tile_kernel(scan._prepare(buf), in_flight)
+
+    def fake(*args, **kw):
+        states.append(kernel(*args, **kw))
+        return states[-1]
+
+    monkeypatch.setattr(scan, "_scan_cuda", fake)
+    monkeypatch.setattr(scan, "LIST_MAX", 1)
+    monkeypatch.setattr(scan, "LIST_SLACK", 0)
+    got = scan._positions(scan._scan_list(buf, lo, hi, max_out))[:max_out]
+    assert got == scan._scan_plain(scan._prepare(buf), lo, hi, max_out)
+    # a second launch exactly when the first found more than its one slot
+    assert len(states) == 1 + (int(states[0][scan.STATE_FOUND]) > 1)
+    assert len(states) == 2 or max_out == 1
 
 
 def test_stats_count_the_scan():
@@ -210,3 +272,75 @@ def test_scan_without_card_raises():
         scan.scan_headers(deflate_raw(b"abc" * 100, 6))
     with pytest.raises(errors.DeviceUnavailable):
         scan.chunk_entries(b"abc", 32768)
+
+
+# ---------------------------------------------------------------------------
+# On the card: scan_kernel against the plain version (run without the JAX
+# conftest: python -m pytest --noconftest tests/test_torch_scan.py -m cuda)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+EDGES = scan_edge_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EDGES))
+def test_scan_kernel_edges_equal_plain(cuda, name):
+    """Headers at a tile's and a chunk's last offset, a parse that reads
+    into the next chunk, a chunk without a header, max_out inside a tile,
+    an end not a multiple of 32, all-zero and random bodies."""
+    data, start, end, max_out, chunks = EDGES[name]
+    buf = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    assert scan.scan_headers(buf.to(cuda), start, end, max_out) == \
+        scan.scan_headers(buf, start, end, max_out)
+    for chunk in chunks:
+        assert scan.chunk_entries(buf.to(cuda), chunk) == \
+            scan.chunk_entries(buf, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32768, 131072, 524288])
+@pytest.mark.parametrize("name", [*CASES, "trap"])
+def test_scan_kernel_cases_equal_plain(cuda, name, chunk):
+    """Every scan case (hand-built headers and the trap stream among them)
+    through scan_headers and chunk_entries at three chunk sizes."""
+    if name == "trap":
+        data, start, end, max_out = trap_stream()[2:], 0, None, 64
+    else:
+        data, start, end, max_out = CASES[name]
+    buf = torch.frombuffer(bytearray(data), dtype=torch.uint8) if data \
+        else torch.zeros(0, dtype=torch.uint8)
+    assert scan.scan_headers(buf.to(cuda), start, end, max_out) == \
+        scan.scan_headers(buf, start, end, max_out)
+    assert scan.chunk_entries(buf.to(cuda), chunk) == \
+        scan.chunk_entries(buf, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32768, 131072, 524288])
+def test_scan_kernel_stops_at_each_chunks_first_header(cuda, chunk):
+    """chunk_entries on a 7 MB level-6 body at the decode's chunk sizes
+    equals the plain version; the kernel tests every offset the list needs
+    (those up to each chunk's first header) and at most a tenth of the
+    body's offsets more (the tiles in flight when a chunk's first header
+    is found)."""
+    body = zlib.compress(corpus("mixed", 16 << 20, seed=4), 6)[2:]
+    buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    got = scan.chunk_entries(buf.to(cuda), chunk)
+    st = {}
+    assert got == scan._chunk_entries_plain(scan._prepare(buf), len(body),
+                                            chunk, st)
+    assert len(got) > 2
+    step = 8 * chunk
+    lo, hi = scan._range(len(body), step, None)
+    nseg = -(-(hi - lo) // step)
+    state = scan._scan_cuda(buf.to(cuda), lo, step, hi, nseg).cpu()
+    assert scan._first_per_chunk(state, nseg) == got
+    tested = int(state[scan.STATE_TESTED])
+    assert st["offsets"] <= tested <= st["offsets"] + (hi - lo) // 10

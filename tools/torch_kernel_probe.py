@@ -81,6 +81,18 @@ the indexed decode of the text corpus from levels 1 and 3, the chained
 decode of the 8 MiB level-1 mixed member), so that a parent and a change
 compare in one call.
 
+S1 (the chunk-entry scanner), `--part scan` (not in the default parts):
+on the body of zlib.compress(32 MiB mixed, 6), as chip_smoke.py phase 13,
+the public calls scan.chunk_entries at 512 KiB chunks and
+scan.scan_headers over the first 8 MiB (max_out 64): each call by CUDA
+events over --reps calls (the call fetches its list, so this is the whole
+call), the scanner kernel's device time a call by torch.profiler, and the
+unindexed decode of that stream through api.zlib.decompress, best of 3 on
+the host clock.  The public calls are the same in every tree since PR 10,
+so a parent and a change compare in one call.
+
+    python3 tools/torch_kernel_probe.py --part scan [--tree DIR]
+
 The fused path, `--part fused` (not in the default parts): the level-1,
 -6 and -9 batch (64 x 128 KiB of the mixed corpus, as above) through
 pipeline2.encode_batch, one CUDA graph a batch: its capture and
@@ -567,6 +579,42 @@ def e2e(reps: int) -> dict:
     return out
 
 
+def scan_part(reps: int) -> dict:
+    """S1 on phase 13's foreign body: the whole public calls, the kernel's
+    device time inside them, and the foreign decode (best of 3)."""
+    import zlib
+    from flate_tpu_torch.device import scan
+    data32 = mixed_corpus(4 * B * S)
+    foreign = zlib.compress(data32, 6)
+    sbuf = torch.frombuffer(bytearray(foreign[2:]), dtype=torch.uint8
+                            ).to("cuda")
+    calls = {"scan_chunk_entries": lambda: scan.chunk_entries(sbuf, 1 << 19),
+             "scan_headers_8mib": lambda: scan.scan_headers(
+                 sbuf, 0, 8 * (8 << 20), 64)}
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_call"] = timed(fn, reps)
+        prof = replay_profile(lambda: [fn() for _ in range(reps)])
+        kernel = sum(t for k, t in prof.items() if "scan_kernel" in k)
+        out[f"{name}_kernel"] = kernel / reps
+        print(f"{name}: whole call {out[f'{name}_call']:.4f} ms (events "
+              f"over {reps}), scan_kernel {out[f'{name}_kernel']:.4f} ms a "
+              f"call (torch.profiler); {len(fn())} offsets", flush=True)
+    api.zlib.decompress(foreign)
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = api.zlib.decompress(foreign)
+        best = min(best, time.perf_counter() - t)
+    if got != data32:
+        raise AssertionError("foreign decode differs from its input")
+    out["decode_foreign_gbps"] = len(data32) / best / 1e9
+    print(f"decode_foreign: best of 3 {best:.4f} s = "
+          f"{out['decode_foreign_gbps']:.4f} GB/s", flush=True)
+    return out
+
+
 PORT_KERNELS = ("prep_kernel", "matcher_kernel", "small_runs_kernel",
                 "extend_kernel", "parse_rows_kernel", "parse_ring_kernel",
                 "pack_kernel")
@@ -660,7 +708,7 @@ def main() -> int:
     ap.add_argument("--part",
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
-                         "lanes, prep, pack, e2e, fused")
+                         "lanes, prep, pack, e2e, fused, scan")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -677,7 +725,8 @@ def main() -> int:
     res = {"card": card, "tree": os.path.abspath(args.tree)}
     parts = {"matcher": matcher, "network": network, "walks": walks,
              "runs": small_runs, "lanes": lanes, "prep": prep,
-             "pack": pack_part, "e2e": e2e, "fused": fused}
+             "pack": pack_part, "e2e": e2e, "fused": fused,
+             "scan": scan_part}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
