@@ -323,13 +323,14 @@ def test_scan_kernel_cases_equal_plain(cuda, name, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [32768, 131072, 524288])
+@pytest.mark.parametrize("chunk", [4096, 32768, 131072, 524288])
 def test_scan_kernel_stops_at_each_chunks_first_header(cuda, chunk):
     """chunk_entries on a 7 MB level-6 body at the decode's chunk sizes
-    equals the plain version; the kernel tests every offset the list needs
-    (those up to each chunk's first header) and at most a tenth of the
-    body's offsets more (the tiles in flight when a chunk's first header
-    is found)."""
+    (and at 4 KiB: more chunks than the grid has blocks, so blocks take
+    further chunks from a counter) equals the plain version; the kernel
+    tests every offset the list needs (those up to each chunk's first
+    header) and at most a tenth of the body's offsets more (the tiles in
+    flight when a chunk's first header is found)."""
     body = zlib.compress(corpus("mixed", 16 << 20, seed=4), 6)[2:]
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
     got = scan.chunk_entries(buf.to(cuda), chunk)
