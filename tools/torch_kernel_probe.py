@@ -88,7 +88,7 @@ scan.scan_headers over the first 8 MiB (max_out 64): each call by CUDA
 events over --reps calls (the call fetches its list, so this is the whole
 call), the scanner kernel's device time a call by torch.profiler, and the
 unindexed decode of that stream through api.zlib.decompress, best of 3 on
-the host clock.  The public calls are the same in every tree since PR 10,
+the host clock.  The public calls are the same in every tree that has them,
 so a parent and a change compare in one call.
 
     python3 tools/torch_kernel_probe.py --part scan [--tree DIR]
