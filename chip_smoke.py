@@ -107,35 +107,37 @@ Phases, one line each:
      the CPU by tests/test_torch_mesh2.py.
  13. the chunk-entry scanner (S1, scan_kernel) on the body of
      zlib.compress(32 MiB mixed, 6), a stream another encoder wrote:
-     chunk_entries at the decode's 512 KiB chunks and scan_headers
-     (max_out=64) over the body's first 8 MiB must equal their plain
-     versions on the host; the offsets the kernel tested (its own count)
-     beside those the list needs, at most a tenth of the body's for
-     chunk_entries; the kernel's time with its state's zero fill (CUDA
-     events, and replayed from a CUDA graph, and on an all-zero body of
-     the same length, where no offset passes the first test and no chunk
-     has a header, so every offset is tested), the whole call's host
-     time, the plain version's, and the bound of the list's function,
-     counted by the plain version up to each chunk's first header (or the
-     64th header): the bytes those offsets span, the headers found and
-     the list written, or the operations (three tests an offset, two a
-     Kraft field, one a header bit parsed), whichever is larger, with the
-     kernel's share of it.  Then api.zlib.decompress of that stream
-     (launch counters reset before, read after) must return the input
-     with flate_scan_headers launched and more than one chain head,
-     beside anyinflate._decompress_member_any(entries=[0]), one chain,
-     and decompress_device_any at 128 KiB chunks (over 64 chains: a
-     round's rows go through in row chunks) on the same stream: seconds,
-     GB/s of output and rounds of each.
+     chunk_entries at the decode's 512 KiB chunks must equal its plain
+     version on the host; the offsets the kernel tested (its own count)
+     beside those the list needs, at most a tenth of the body's; the
+     kernel's time with its state's zero fill (CUDA events, and replayed
+     from a CUDA graph, and on an all-zero body of the same length, where
+     no offset passes the first test and no chunk has a header, so every
+     offset is tested), the whole call's host time, the plain version's,
+     and the bound of the list's function, counted by the plain version up
+     to each chunk's first header: the bytes those offsets span, the
+     headers found and the list written, or the operations (three tests
+     an offset, two a Kraft field, one a header bit parsed up to where its
+     answer is settled), whichever is larger, with the kernel's share of
+     it.  scan_headers (max_out=64) over the body's first 8 MiB, a launch
+     a header, must equal its plain version too (its call time and bound
+     are printed; no path calls it, so it has no row in the kernel JSON).
+     Then api.zlib.decompress of that stream (launch counters reset
+     before, read after) must return the input with flate_scan_headers
+     launched and more than one chain head, beside
+     anyinflate._decompress_member_any(entries=[0]), one chain, and
+     decompress_device_any at 128 KiB chunks (over 64 chains: a round's
+     rows go through in row chunks) on the same stream: seconds, GB/s of
+     output and rounds of each.
  14. blocks past the chained route's old caps, through
      api.zlib/gzip.decompress on the card: zlib's level 6 and memLevel 9
      on 5 and 9 MiB of zeros (blocks of 4,226,814 and 8,453,886 bytes of
      output, resolved in rows of at most 4 MiB), text with a 5 MiB zero
      run, Huffman-only memLevel 9 on 20,000 and 40,000 zero bytes (32,767
-     one-bit literals a block, walked again with more symbol slots) and a
-     gzip member of the 9 MiB run: each must equal its input with a walk
-     kernel launched; GB/s of output, rows cut for the resolve and walks
-     again with more slots (inflate2.STATS).
+     one-bit literals a block, in rows of a symbol slot a bit of the span)
+     and a gzip member of the 9 MiB run: each must equal its input with a
+     walk kernel launched; GB/s of output, rows cut for the resolve and
+     rounds (inflate2.STATS).
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
@@ -308,13 +310,13 @@ def chained_chunk(api, inflate2, blob: bytes, **kw):
     return seen[0]
 
 
-def big_block_streams(text_corpus):
+def big_block_streams():
     """(name, container, stream, input) of valid zlib/gzip output whose
     blocks exceed the chained route's old caps: more than 4 MiB of output
     (zlib's 16,383 or, at memLevel 9, GNU gzip's buffer size, 32,767
     matches of 258 bytes a block on zero runs) or more symbols than twice
     their compressed bytes (Huffman-only zeros, a 1-bit literal a byte).
-    The kinds of stream of tests/_torch_corpora.py big_block_streams."""
+    The tests decode the same streams on the CPU."""
     def mem9(data, wbits, strategy=zlib.Z_DEFAULT_STRATEGY):
         c = zlib.compressobj(6, zlib.DEFLATED, wbits, 9, strategy)
         return c.compress(data) + c.flush()
@@ -1213,76 +1215,83 @@ def main() -> int:
     zbuf = torch.zeros_like(sbuf)       # no offset passes the first test
     # The function is the list of offsets: the bound counts what this
     # run's data needs for it, the offsets up to each chunk's first header
-    # (or up to the 64th header) with their parses and the list written.
-    # The kernel stops near there too: the offsets it tested are printed
-    # beside those the list needs.
+    # with their parses (each to where its answer is settled) and the list
+    # written.  The kernel stops near there too: the offsets it tested are
+    # printed beside those the list needs.
     step = 8 * chunk
-    c_lo, c_hi = scan._range(len(body), step, nchunks * step)
-    nseg = -(-(c_hi - c_lo) // step)
+    lo, hi = scan._range(len(body), step, nchunks * step)
+    nseg = -(-(hi - lo) // step)
+    label = "scan_chunk_entries"
+
+    def launch(b):
+        return scan._scan_cuda(b, lo, step, hi, nseg)
+
+    got = scan.chunk_entries(sbuf, chunk)
+    st = {}
+    t = time.time()
+    want = scan._chunk_entries_plain(scan._prepare(sbuf_cpu), len(body),
+                                     chunk, st)
+    plain_ms = (time.time() - t) * 1e3
+    if got != want or want != scan.chunk_entries(sbuf_cpu, chunk):
+        raise AssertionError(f"{label}: kernel != plain ({got[:8]} vs "
+                             f"{want[:8]})")
+    state = launch(sbuf).cpu()
+    tested = int(state[scan.STATE_TESTED])
+    tiles = int(state[scan.STATE_TILES])
+    if tested > (hi - lo) // 10:
+        raise AssertionError(f"{label}: the kernel tested {tested} of "
+                             f"{hi - lo} offsets, over a tenth")
+    zstate = launch(zbuf).cpu()
+    # the kernel with its state's fill (one call of _scan_cuda)
+    ms = cuda_ms(lambda: launch(sbuf), 20)
+    zero_ms = cuda_ms(lambda: launch(zbuf), 20)
+    gms = graph_ms(lambda: launch(sbuf), 20)
+    call_ms = host_ms(lambda: scan.chunk_entries(sbuf, chunk), 5)
+    moved = scan.bytes_needed(st)
+    ops = scan.ops_needed(st)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    needed = st.get("offsets", 0)
+    cases.append(dict(
+        name=label, entry="flate_scan_headers", path=("decode", "e"),
+        route="cuda", source=_build.source_of("flate_scan_headers"),
+        replaces="flate_tpu/native/fastinflate.c:1046 (host C; no "
+                 "pallas_call)",
+        max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, graph_ms=gms,
+        call_ms=call_ms, zero_body_ms=zero_ms, offsets=hi - lo,
+        offsets_tested=tested, offsets_needed=needed, found=len(got)))
+    print(f"[13] {label}: {len(got)} offsets equal to the plain "
+          f"version's ({got[:6]}...); the kernel tested {tested} of "
+          f"the {hi - lo} offsets in {tiles} tiles, "
+          f"{tested / max(needed, 1):.2f}x the {needed} the list needs "
+          f"(all-zero body of the same length: "
+          f"{int(zstate[scan.STATE_TESTED])}); kernel with its state's "
+          f"fill {ms:.4f} ms (all-zero body {zero_ms:.4f} ms; from a "
+          f"CUDA graph {gms:.4f} ms; the whole call with its fetch "
+          f"{call_ms:.4f} ms); plain {plain_ms:.1f} ms on the host; "
+          f"bound {bound_ms:.4f} ms by {bound_by} for what the list "
+          f"needs ({moved} bytes {bytes_ms:.4f} ms, {ops} ops "
+          f"{ops_ms:.4f} ms: {st}), {bound_ms / ms:.2%} of it",
+          flush=True)
+    # scan_headers, which no path calls: a launch a header
     h_lo, h_hi = scan._range(len(body), 0, 8 * (8 << 20))
-    h_cap = 64 + scan.LIST_SLACK
-    scans = (
-        ("scan_chunk_entries", c_lo, c_hi,
-         lambda b: scan.chunk_entries(b, chunk),
-         lambda prep, st: scan._chunk_entries_plain(prep, len(body), chunk,
-                                                    st),
-         lambda b: scan._scan_cuda(b, c_lo, step, c_hi, nseg)),
-        ("scan_headers_8mib", h_lo, h_hi,
-         lambda b: scan.scan_headers(b, 0, 8 * (8 << 20), 64),
-         lambda prep, st: scan._scan_plain(prep, h_lo, h_hi, 64, st),
-         lambda b: scan._scan_cuda(b, h_lo, h_hi - h_lo, h_hi, 1, 64,
-                                   h_cap)),
-    )
-    for label, lo, hi, run, run_plain, launch in scans:
-        got = run(sbuf)
-        st = {}
-        t = time.time()
-        want = run_plain(scan._prepare(sbuf_cpu), st)
-        plain_ms = (time.time() - t) * 1e3
-        if got != want or want != run(sbuf_cpu):
-            raise AssertionError(f"{label}: kernel != plain ({got[:8]} vs "
-                                 f"{want[:8]})")
-        state = launch(sbuf).cpu()
-        tested = int(state[scan.STATE_TESTED])
-        tiles = int(state[scan.STATE_TILES])
-        if label == "scan_chunk_entries" and tested > (hi - lo) // 10:
-            raise AssertionError(f"{label}: the kernel tested {tested} of "
-                                 f"{hi - lo} offsets, over a tenth")
-        zstate = launch(zbuf).cpu()
-        # the kernel with its state's two fills (one call of _scan_cuda)
-        ms = cuda_ms(lambda: launch(sbuf), 20)
-        zero_ms = cuda_ms(lambda: launch(zbuf), 20)
-        gms = graph_ms(lambda: launch(sbuf), 20)
-        call_ms = host_ms(lambda: run(sbuf), 5)
-        moved = scan.bytes_needed(st)
-        ops = scan.ops_needed(st)
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        needed = st.get("offsets", 0)
-        cases.append(dict(
-            name=label, entry="flate_scan_headers", path=("decode", "e"),
-            route="cuda", source=_build.source_of("flate_scan_headers"),
-            replaces="flate_tpu/native/fastinflate.c:1046 (host C; no "
-                     "pallas_call)",
-            max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, graph_ms=gms,
-            call_ms=call_ms, zero_body_ms=zero_ms, offsets=hi - lo,
-            offsets_tested=tested, offsets_needed=needed, found=len(got)))
-        print(f"[13] {label}: {len(got)} offsets equal to the plain "
-              f"version's ({got[:6]}...); the kernel tested {tested} of "
-              f"the {hi - lo} offsets in {tiles} tiles, "
-              f"{tested / max(needed, 1):.2f}x the {needed} the list needs "
-              f"(all-zero body of the same length: "
-              f"{int(zstate[scan.STATE_TESTED])}); kernel with its state's "
-              f"fills {ms:.4f} ms (all-zero body {zero_ms:.4f} ms; from a "
-              f"CUDA graph {gms:.4f} ms; the whole call with its fetch "
-              f"{call_ms:.4f} ms); plain {plain_ms:.1f} ms on the host; "
-              f"bound {bound_ms:.4f} ms by {bound_by} for what the list "
-              f"needs ({moved} bytes {bytes_ms:.4f} ms, {ops} ops "
-              f"{ops_ms:.4f} ms: {st}), {bound_ms / ms:.2%} of it",
-              flush=True)
+    got = scan.scan_headers(sbuf, 0, 8 * (8 << 20), 64)
+    st = {}
+    want = scan._scan_plain(scan._prepare(sbuf_cpu), h_lo, h_hi, 64, st)
+    if got != want:
+        raise AssertionError(f"scan_headers: card != plain ({got[:8]} vs "
+                             f"{want[:8]})")
+    h_ms = host_ms(lambda: scan.scan_headers(sbuf, 0, 8 * (8 << 20), 64), 5)
+    h_bound = max(scan.bytes_needed(st) / HBM_BYTES_PER_S,
+                  scan.ops_needed(st) / INT_OPS_PER_S) * 1e3
+    print(f"[13] scan_headers over the first 8 MiB, max_out 64: {len(got)} "
+          f"offsets equal to the plain version's in {len(got) + 1} "
+          f"launches at most; the whole call {h_ms:.4f} ms on the host "
+          f"clock (bound {h_bound:.4f} ms for the {st.get('offsets', 0)} "
+          f"offsets the list needs)", flush=True)
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     inflate2.STATS.clear()
@@ -1331,7 +1340,7 @@ def main() -> int:
           flush=True)
 
     # ---- phase 14: blocks past the chained route's old caps ----
-    for name, container, blob, want in big_block_streams(text_corpus):
+    for name, container, blob, want in big_block_streams():
         ns = getattr(api, container.lower())
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
@@ -1351,8 +1360,7 @@ def main() -> int:
               f"decompress on the card): {len(want)} bytes == input in "
               f"{secs:.4f} s = {len(want) / secs / 1e9:.4f} GB/s of output; "
               f"rows from blocks cut for the resolve "
-              f"{stats.get('block_pieces', 0)}, walks again with more "
-              f"symbol slots {stats.get('slot_retries', 0)}, rounds "
+              f"{stats.get('block_pieces', 0)}, rounds "
               f"{stats.get('chained_rounds')}, launches {counts}",
               flush=True)
 

@@ -52,7 +52,7 @@ DECODE_KERNELS = {
     "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     "flate_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "flate_scan_headers": [_P, _P, _L, _L, _L, _L, _I, _I, _L, _L, _P],
+    "flate_scan_headers": [_P, _P, _L, _L, _L, _L, _I, _P],
 }
 SORT_KERNELS = {
     "flate_bitonic": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,

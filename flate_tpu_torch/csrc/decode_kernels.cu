@@ -15,8 +15,8 @@
 // indexed loads, so each walker simply follows its chain.
 //
 // S1, the chunk-entry scanner, finds where chains may start in a stream
-// that carries no index: every bit offset that holds a valid dynamic-block
-// header (see its section below).
+// that carries no index: the first bit offset of each chunk that holds a
+// valid dynamic-block header (see its section below).
 //
 // Interface: plain C (ctypes), every entry point launches on the caller's
 // stream and returns cudaGetLastError().  Buffers are allocated by the
@@ -360,16 +360,14 @@ walk_kernel(const int* __restrict__ word, const int* __restrict__ start,
 // or distance code only as one code of length 1; reads past in_len fail.
 // The caller keeps hi <= 8 in_len - 96.
 //
-// What is computed is a short list, not a map of every offset: in
-// first-each mode the first header of each of nseg segments [seg0 + k
-// seg_len, min(seg0 + (k + 1) seg_len, hi)) (chunk_entries: one segment a
-// chunk), else the headers of [seg0, hi) in ascending tiles until max_out
-// are found (scan_headers).  state, u64, zero-filled by the caller: [0]
-// the next tile (list mode) or segment (first-each), [1] headers found (first-each: segments with
-// a header), [2] offsets tested, [3] tiles tested, [4, 4 + nseg) ~ each
-// segment's first header (0: none), then `cap` words: the headers found,
-// in no order (list mode), or each segment's next tile (first-each, cap =
-// nseg).
+// What is computed is a short list, not a map of every offset: the first
+// header of each of nseg segments [seg0 + k seg_len, min(seg0 + (k + 1)
+// seg_len, hi)) (chunk_entries: one segment a chunk; scan_headers: one
+// segment, launched again past each header found).  state, u64,
+// zero-filled by the caller: [0] the segments handed out past the first
+// gridDim.x, [1] segments with a header, [2] offsets tested, [3] tiles
+// tested, [4, 4 + nseg) ~ each segment's first header (0: none), [4 +
+// nseg, 4 + 2 nseg) each segment's next tile.
 //
 // Bound: operations on what the list needs, the offsets up to each chunk's
 // first header (2.6 M of the 115 M offsets of phase 13's foreign body).
@@ -378,20 +376,15 @@ walk_kernel(const int* __restrict__ word, const int* __restrict__ start,
 // device memory: 2.01 ms on an H100 80GB HBM3, 82 % of it the Kraft
 // sums and parses.  Here:
 // - a persistent grid (the SMs x the blocks one holds) takes tiles of
-//   2,048 offsets from atomic counters.  In first-each mode block b starts
-//   on segment b mod nseg and takes that segment's tiles in order from
-//   its own counter, so every chunk advances from its start at once with
-//   the same number of blocks; a segment keeps its first header by
-//   atomicMax of ~offset, and its tiles at or past it are not taken.  A
-//   block whose segment has no tile left takes a segment no block has had
-//   (only when there are more segments than blocks), else it ends: the
-//   tiles tested past a chunk's first header are at most its blocks'
-//   tiles in flight when it is found (one tile a block, ~2 M offsets in
-//   all).  In list mode one counter hands out the tiles in offset order,
-//   and stops once max_out headers are found: each was found in a tile
-//   taken before, so at a lower offset than any tile not taken, and a
-//   tile taken is tested whole, so the first max_out of the list are the
-//   range's.
+//   2,048 offsets from atomic counters: block b starts on segment b mod
+//   nseg and takes that segment's tiles in order from its own counter, so
+//   every chunk advances from its start at once with the same number of
+//   blocks; a segment keeps its first header by atomicMax of ~offset, and
+//   its tiles at or past it are not taken.  A block whose segment has no
+//   tile left takes a segment no block has had (only when there are more
+//   segments than blocks), else it ends: the tiles tested past a chunk's
+//   first header are at most its blocks' tiles in flight when it is found
+//   (one tile a block, ~2 M offsets in all).
 // - a tile's bytes and a halo that holds a whole header from its last
 //   offset are staged in shared memory; the first test (BTYPE, HLIT,
 //   HDIST) runs on every offset, uniformly, and its survivors (~22 %) go
@@ -635,8 +628,7 @@ __device__ bool scan_validate(ScanParse& sp, const uint32_t* stage,
 
 __global__ void __launch_bounds__(kScanThreads, 6)
 scan_kernel(const uint8_t* __restrict__ in, long long in_len, long long seg0,
-            long long seg_len, long long hi, int nseg, int first_each,
-            unsigned long long max_out, long long cap, long long per_seg,
+            long long seg_len, long long hi, int nseg, long long per_seg,
             unsigned long long* __restrict__ state) {
   __shared__ uint32_t stage[kScanStageWords];
   __shared__ uint16_t queue[kScanTile];      // survivors of the first test
@@ -646,7 +638,7 @@ scan_kernel(const uint8_t* __restrict__ in, long long in_len, long long seg0,
   __shared__ long long s_start, s_end;
   unsigned long long* found = state + 1;
   unsigned long long* firsts = state + kScanCounters;
-  unsigned long long* tail = firsts + nseg;  // the list, or each next tile
+  unsigned long long* next = firsts + nseg;  // each segment's next tile
   volatile unsigned long long* vfound = found;
   volatile unsigned long long* vfirsts = firsts;
   const unsigned lane = threadIdx.x & 31;
@@ -655,48 +647,33 @@ scan_kernel(const uint8_t* __restrict__ in, long long in_len, long long seg0,
   // the block's segment (thread 0's): the blocks start spread evenly
   int seg = static_cast<int>(blockIdx.x % nseg);
   for (;;) {
-    if (warp == 0) {
+    if (threadIdx.x == 0) {
+      // the next tile of the block's segment, in order, while the segment
+      // has one below its first header found; then a segment no block has
+      // had (state[0] hands them out after the first gridDim.x), or none;
+      // none once every segment has its header
       long long start = -1, end = -1;
-      if (!first_each) {
-        // list mode: the next tile in offset order, none once max_out
-        // headers are found
-        if (lane == 0 && *vfound < max_out) {
-          const unsigned long long t = atomicAdd(state, 1ULL);
-          if (t < static_cast<unsigned long long>(per_seg)) {
-            start = seg0 + static_cast<long long>(t) * kScanTile;
-            end = min(start + kScanTile, hi);
-          }
+      while (seg >= 0 && *vfound < static_cast<unsigned long long>(nseg)) {
+        const long long lo_k = seg0 + seg * seg_len;
+        const long long e = min(lo_k + seg_len, hi);
+        const long long r =
+            static_cast<long long>(atomicAdd(next + seg, 1ULL));
+        const long long s = lo_k + r * kScanTile;
+        if (r < per_seg && s < e &&
+            static_cast<unsigned long long>(s) < ~vfirsts[seg]) {
+          start = s;
+          end = min(s + kScanTile, e);
+          break;
         }
-      } else if (lane == 0) {
-        // first-each mode: the next tile of the block's segment, in
-        // order, while the segment has one below its first header found;
-        // then a segment no block has had (state[0] hands them out after
-        // the first gridDim.x), or none; none once every segment has its
-        // header
-        while (seg >= 0 && *vfound < static_cast<unsigned long long>(nseg)) {
-          const long long lo_k = seg0 + seg * seg_len;
-          const long long e = min(lo_k + seg_len, hi);
-          const long long r =
-              static_cast<long long>(atomicAdd(tail + seg, 1ULL));
-          const long long s = lo_k + r * kScanTile;
-          if (r < per_seg && s < e &&
-              static_cast<unsigned long long>(s) < ~vfirsts[seg]) {
-            start = s;
-            end = min(s + kScanTile, e);
-            break;
-          }
-          const unsigned long long c = gridDim.x + atomicAdd(state, 1ULL);
-          seg = c < static_cast<unsigned long long>(nseg) ? static_cast<int>(c)
-                                                         : -1;
-        }
+        const unsigned long long c = gridDim.x + atomicAdd(state, 1ULL);
+        seg = c < static_cast<unsigned long long>(nseg) ? static_cast<int>(c)
+                                                       : -1;
       }
-      if (lane == 0) {
-        s_start = start;
-        s_end = end;
-        s_seg = seg < 0 ? 0 : seg;
-        n_queue = 0;
-        n_passed = 0;
-      }
+      s_start = start;
+      s_end = end;
+      s_seg = seg < 0 ? 0 : seg;
+      n_queue = 0;
+      n_passed = 0;
     }
     __syncthreads();
     const long long start = s_start;
@@ -754,24 +731,14 @@ scan_kernel(const uint8_t* __restrict__ in, long long in_len, long long seg0,
     const int np = n_passed;
     for (int q = warp; q < np; q += kScanThreads / 32) {
       const long long p = base + passed[q];
-      if (first_each) {
-        unsigned long long first = 0;
-        if (lane == 0) first = ~vfirsts[tseg];
-        first = __shfl_sync(0xffffffffu, first, 0);
-        if (static_cast<unsigned long long>(p) >= first) continue;
-      }
+      unsigned long long first = 0;
+      if (lane == 0) first = ~vfirsts[tseg];
+      first = __shfl_sync(0xffffffffu, first, 0);
+      if (static_cast<unsigned long long>(p) >= first) continue;
       if (!scan_validate(parse[warp], stage, base, in, in_len, p)) continue;
-      if (lane == 0) {
-        if (first_each) {
-          if (atomicMax(firsts + tseg, ~static_cast<unsigned long long>(p)) ==
-              0)
-            atomicAdd(found, 1ULL);
-        } else {
-          const unsigned long long k = atomicAdd(found, 1ULL);
-          if (k < static_cast<unsigned long long>(cap))
-            tail[k] = static_cast<unsigned long long>(p);
-        }
-      }
+      if (lane == 0 &&
+          atomicMax(firsts + tseg, ~static_cast<unsigned long long>(p)) == 0)
+        atomicAdd(found, 1ULL);
     }
     if (threadIdx.x == 0) {
       atomicAdd(state + 2, static_cast<unsigned long long>(n));
@@ -840,12 +807,10 @@ int flate_walk(const void* word, const void* start, const void* nbits,
 
 int flate_scan_headers(const void* in, void* state, long long in_len,
                        long long seg0, long long seg_len, long long hi,
-                       int nseg, int first_each, long long max_out,
-                       long long cap, void* stream) {
-  if (nseg <= 0 || seg_len <= 0 || hi <= seg0 || max_out <= 0)
+                       int nseg, void* stream) {
+  if (nseg <= 0 || seg_len <= 0 || hi <= seg0)
     return static_cast<int>(cudaGetLastError());
-  if (seg0 < 0 || hi > 8 * in_len || cap < (first_each ? nseg : 0) ||
-      (!first_each && (nseg != 1 || seg0 + seg_len < hi)))
+  if (seg0 < 0 || hi > 8 * in_len)
     return static_cast<int>(cudaErrorInvalidValue);
   static int sms = 0, per_sm = 0;    // the grid that stays resident
   if (sms == 0) {
@@ -868,8 +833,7 @@ int flate_scan_headers(const void* in, void* state, long long in_len,
   scan_kernel<<<static_cast<unsigned>(grid), kScanThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), in_len, seg0, seg_len, hi, nseg,
-      first_each, static_cast<unsigned long long>(max_out), cap, per_seg,
-      static_cast<unsigned long long*>(state));
+      per_seg, static_cast<unsigned long long*>(state));
   return static_cast<int>(cudaGetLastError());
 }
 

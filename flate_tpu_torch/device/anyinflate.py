@@ -121,17 +121,6 @@ def symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
     Returns (words (B, NS), counts, spec_fail, has_eob, out_len,
     end_bit).  serial=True uses the exact one-symbol-per-step walk
     (retry path for join failures)."""
-    return _symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
-                         lims_d, kbase_d, syms_d, NS=NS, G=G,
-                         serial=serial)[:6]
-
-
-def _symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
-                  lims_d, kbase_d, syms_d, *, NS: int, G: int,
-                  serial: bool):
-    """symbol_batch's six results and a seventh, `full` (B,): the row's
-    chain filled its NS slots before an end-of-block, so it needs more
-    slots, not a failure."""
     word = i2._pass1(comp, lims_ll, kbase_ll, syms_ll,
                      lims_d, kbase_d, syms_d)
     if serial:
@@ -154,13 +143,9 @@ def _symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
         # start plus the advances of the walked symbols
         adv = torch.where(slots < counts[:, None], words & 63, 0)
         end_bit = start.to(torch.int32) + adv.sum(dim=1).to(torch.int32)
-        full = (counts >= NS) & ~has_eob
-        return words, counts, ~has_eob, has_eob, out_len, end_bit, full
+        return words, counts, ~has_eob, has_eob, out_len, end_bit
     mask, joined = i2._lane_walk(word, start, 8 * clen, G=G)
-    out = i2._extract(word, mask, joined, start, NS, G)
-    # ranks at or past NS went to _extract's sink column
-    full = (mask.sum(dim=1) > NS) & ~out[3]
-    return (*out, full)
+    return i2._extract(word, mask, joined, start, NS, G)
 
 
 def resolve_compact(words, counts, out_lens, ctx0, *, S: int):
@@ -245,10 +230,13 @@ def _pieces(words: torch.Tensor, out_len: int) -> list:
 # Orchestration
 # ---------------------------------------------------------------------------
 
-def _pack_meta(*rows):
-    """One fetched tensor for the per-row results of a group; end_bit is
-    span-relative (<= 2 MiB * 8 bits), so int32 is safe."""
-    return torch.stack([r.to(torch.int32) for r in rows])
+def _pack_meta(counts, fail, has_eob, out_len, end_bit):
+    """One fetched tensor for the five per-row results of a group;
+    end_bit is span-relative (<= 2 MiB * 8 bits), so int32 is safe."""
+    return torch.stack([
+        counts.to(torch.int32), fail.to(torch.int32),
+        has_eob.to(torch.int32), out_len.to(torch.int32),
+        end_bit.to(torch.int32)])
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -258,27 +246,21 @@ def _bucket(n: int, lo: int) -> int:
     return b
 
 
-def _slots(C: int, asked: int) -> int:
-    """Symbol slots of a row of a C-byte span: 2 C (at most 2^20) at
-    first, or what an earlier round of the block asked for.  A symbol
-    takes at least one bit and the chain visits distinct bit positions of
-    the span, so 8 C slots always hold it: never more."""
-    return min(max(asked, min(2 * C, 1 << 20)), 8 * C)
-
-
-def _decode_round(body: bytes, plans: list, span: dict, slots: dict,
+def _decode_round(body: bytes, plans: list, span: dict,
                   serial_set: set, dev: torch.device) -> dict:
     """Decode one block per plan on device; returns pos -> result dict
-    with (words ref, row, counts, out_len, end_bit, ok, full)."""
+    with (words ref, row, counts, out_len, end_bit, ok).  A row of a C-byte
+    span has 8 C symbol slots: a symbol takes at least one bit, so the
+    chain always fits, however short its symbols."""
     groups: dict = {}
     for p in plans:
         byte0 = p.pos >> 3
         cap = span.get(p.pos, SPAN0)
         C = _bucket(min(len(body) - byte0, cap), 8192)
-        key = (C, _slots(C, slots.get(p.pos, 0)), p.pos in serial_set)
+        key = (C, p.pos in serial_set)
         groups.setdefault(key, []).append((p, byte0))
     results = {}
-    for (C, NS, serial), grp in groups.items():
+    for (C, serial), grp in groups.items():
         rows = max(1, MAX_POSITIONS // (8 * C))
         for lo in range(0, len(grp), rows):
             part = grp[lo:lo + rows]
@@ -299,12 +281,13 @@ def _decode_round(body: bytes, plans: list, span: dict, slots: dict,
                 start[bi] = p.body_bit - 8 * byte0
                 sc_ll[bi], kb_ll[bi], sy_ll[bi] = p.ll
                 sc_d[bi], kb_d[bi], sy_d[bi] = p.d
-            words, *meta = _symbol_batch(
+            words, counts, fail, has_eob, out_len, end_bit = symbol_batch(
                 *i2.args_from_numpy((comp, clen, start, sc_ll, kb_ll, sy_ll,
                                      sc_d, kb_d, sy_d), dev),
-                NS=NS, G=i2.LANE_G, serial=serial)
-            cn_np, fail_np, eob_np, ol_np, eb_np, full_np = \
-                _pack_meta(*meta).cpu().numpy()
+                NS=8 * C, serial=serial)
+            meta_np = _pack_meta(counts, fail, has_eob, out_len,
+                                 end_bit).cpu().numpy()
+            cn_np, fail_np, eob_np, ol_np, eb_np = meta_np
             for bi, (p, byte0) in enumerate(part):
                 results[p.pos] = {
                     "words": words, "row": bi, "plan": p,
@@ -315,8 +298,6 @@ def _decode_round(body: bytes, plans: list, span: dict, slots: dict,
                     "ok": not bool(fail_np[bi]),
                     "serial": serial,
                     "span": C,
-                    "slots": NS,
-                    "full": bool(full_np[bi]),
                 }
     return results
 
@@ -367,7 +348,6 @@ def _decompress_member_any(data: bytes, offset: int,
     failed: dict = {}            # header bit pos -> its FlateError
     frontier = set(entries)
     span: dict = {}
-    slots: dict = {}
     serial_set: set = set()
     final_pos = None             # header pos of the BFINAL block
     chain_head = 0
@@ -399,15 +379,8 @@ def _decompress_member_any(data: bytes, offset: int,
                 plans.append(p)
         if plans:
             i2.STATS["chained_rounds"] += 1
-            res = _decode_round(body, plans, span, slots, serial_set, dev)
+            res = _decode_round(body, plans, span, serial_set, dev)
             for pos, r in res.items():
-                if r["full"] and r["slots"] < 8 * r["span"]:
-                    # the chain filled its symbol slots: more slots, the
-                    # same span and walk
-                    slots[pos] = 2 * r["slots"]
-                    i2.STATS["slot_retries"] += 1
-                    frontier.add(pos)
-                    continue
                 if not r["has_eob"] and r["span"] < MAX_SPAN \
                         and (pos >> 3) + r["span"] < len(body):
                     # EOB not in span: escalate the span and retry
@@ -431,9 +404,8 @@ def _decompress_member_any(data: bytes, offset: int,
                     final_pos = pos
         # chain-complete check: walk from 0 through decoded.  The chain
         # head's block is always in the frontier, so every round either
-        # finishes it or retries it (at most 5 span doublings, 7 slot
-        # doublings and the serial rewalk) — a persistent stall is a
-        # logic error, not data.
+        # finishes it or retries it (span escalation / serial rewalk,
+        # both bounded) — a persistent stall is a logic error, not data.
         pos = chain_head
         while pos in decoded and not decoded[pos]["plan"].bfinal:
             pos = decoded[pos]["end_bit"]
@@ -444,7 +416,7 @@ def _decompress_member_any(data: bytes, offset: int,
         stall = stall + 1 if pos == chain_head else 0
         chain_head = pos
         frontier.add(pos)
-        if stall > 24:
+        if stall > 12:
             raise InvalidCode("block chain did not converge")
 
     # ---- confirmed chain in stream order ------------------------------

@@ -27,14 +27,15 @@ kept, not RFC 1951's, so the port finds exactly the C's offsets:
 - no offset at or above nbits - 96 is tested;
 - the offset reported is the BFINAL bit, whose value is not checked.
 
-On CUDA data the scan is one launch of `scan_kernel`
-(csrc/decode_kernels.cu, `flate_scan_headers`), which stops at what the
-list needs: a persistent grid takes tiles of SCAN_TILE offsets in offset
-order (for chunk_entries every chunk from its start at once), a chunk keeps
-its first header and skips its tiles past it, and scan_headers stops taking
-tiles once max_out headers are found.  The kernel writes the list itself
-(each chunk's first header, or the headers of the tiles it tested) into a
-small int64 state that is fetched once.  On CPU data the plain version
+On CUDA data a launch of `scan_kernel` (csrc/decode_kernels.cu,
+`flate_scan_headers`) finds the first header of each of its segments and
+stops at what that list needs: a persistent grid takes tiles of SCAN_TILE
+offsets in offset order, every segment from its start at once, and a
+segment keeps its first header and skips its tiles past it.  The kernel
+writes the list itself into a small int64 state that is fetched once.
+chunk_entries is one launch, a segment a chunk; scan_headers is one launch
+a header, over one segment from past the header before.  On CPU data the
+plain version
 runs: the cheap filter vectorised over offsets, then the full parse of the
 survivors in offset order with the port's host header parser (inflate.py,
 the C's rules), stopping once `max_out` are found.
@@ -42,6 +43,7 @@ the C's rules), stopping once `max_out` are found.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build, consts
@@ -61,18 +63,12 @@ FILTER_WINDOW = 1 << 22
 KRAFT = (0, 64, 32, 16, 8, 4, 2, 1)
 # Offsets a tile of scan_kernel (csrc kScanTile).
 SCAN_TILE = 2048
-# The kernel's state, int64, zero-filled: the next tile, the headers found
-# (chunk mode: chunks with one), the offsets and tiles tested; then ~ each
-# chunk's first header (0: none, so ~ gives -1); then the list of headers
-# found (scan_headers) or each chunk's next tile (chunk_entries).
+# The kernel's state, int64, zero-filled: the segments handed out past the
+# grid's first, the segments with a header, the offsets and tiles tested;
+# then ~ each segment's first header (0: none, so ~ gives -1), then each
+# segment's next tile.
 STATE_NEXT, STATE_FOUND, STATE_TESTED, STATE_TILES = range(4)
 STATE_HEAD = 4
-# The list holds max_out (at most LIST_MAX) and LIST_SLACK more headers:
-# those of the tiles in flight when the max_out-th is found.  A scan that
-# finds more tests the same tiles again into a list of their size.
-LIST_MAX = 1 << 16
-LIST_SLACK = 1024
-NO_STOP = 1 << 62
 
 # Integer operations a scan needs at the least, for a bound: the three
 # field tests of every offset; a lookup and an add for each Kraft field
@@ -100,7 +96,7 @@ def scan_headers(data, start_bit: int = 0, end_bit: int | None = None,
         return []
     if _build.use_plain(buf):
         return _scan_plain(_prepare(buf), lo, hi, max_out)
-    return _positions(_scan_list(buf, lo, hi, max_out))[:max_out]
+    return _scan_from_each(buf, lo, hi, max_out)
 
 
 def chunk_entries(body, chunk_bytes: int, *,
@@ -124,18 +120,10 @@ def chunk_entries(body, chunk_bytes: int, *,
 
 
 def _first_per_chunk(state: torch.Tensor, nseg: int) -> list[int]:
-    """[0] and the first header of each chunk that has one, from a chunk
-    mode state of _scan_cuda (on the host)."""
+    """[0] and the first header of each segment that has one, from a
+    state of _scan_cuda (on the host)."""
     firsts = ~state[STATE_HEAD:STATE_HEAD + nseg]
     return [0] + firsts[firsts >= 0].tolist()
-
-
-def _positions(state: torch.Tensor) -> list[int]:
-    """The headers of a list mode state of _scan_cuda (on the host, one
-    segment), ascending: those of the tiles it tested, the first max_out
-    of the range among them."""
-    lst = state[STATE_HEAD + 1:]
-    return sorted(lst[:min(int(state[STATE_FOUND]), lst.numel())].tolist())
 
 
 def _buffer(data, device) -> torch.Tensor:
@@ -164,37 +152,32 @@ def _range(in_len: int, start_bit: int, end_bit: int | None):
 # ---------------------------------------------------------------------------
 
 def _scan_cuda(buf: torch.Tensor, seg0: int, seg_len: int, hi: int,
-               nseg: int, max_out: int = 0, cap: int = 0) -> torch.Tensor:
-    """One launch of scan_kernel; returns its state (int64, on the card).
-    max_out 0: chunk mode, ~ the first header of each of the nseg segments
-    [seg0 + k seg_len, min(seg0 + (k + 1) seg_len, hi)).  Else list mode
-    over [seg0, hi) (one segment): the headers of the tiles tested, in no
-    order, until max_out are found, into a list of `cap`."""
+               nseg: int) -> torch.Tensor:
+    """One launch of scan_kernel; returns its state (int64, on the card):
+    ~ the first header of each of the nseg segments [seg0 + k seg_len,
+    min(seg0 + (k + 1) seg_len, hi))."""
     _build.check_cuda("scan data", buf, torch.uint8, (buf.numel(),))
-    first_each = max_out == 0
-    if first_each:
-        cap = nseg                       # each chunk's next tile
-    state = torch.zeros(STATE_HEAD + nseg + cap, dtype=torch.int64,
+    state = torch.zeros(STATE_HEAD + 2 * nseg, dtype=torch.int64,
                         device=buf.device)
     _build.launch("flate_scan_headers", buf.data_ptr(), state.data_ptr(),
-                  buf.numel(), seg0, seg_len, hi, nseg, int(first_each),
-                  1 if first_each else max_out, cap)
+                  buf.numel(), seg0, seg_len, hi, nseg)
     return state
 
 
-def _scan_list(buf: torch.Tensor, lo: int, hi: int, max_out: int
-               ) -> torch.Tensor:
-    """The list mode state of [lo, hi) on the host, its list whole: where
-    the tiles tested hold more headers than the list, those tiles are
-    tested again into a list of their size."""
-    cap = min(max_out, LIST_MAX) + LIST_SLACK
-    state = _scan_cuda(buf, lo, hi - lo, hi, 1, max_out, cap).cpu()
-    found = int(state[STATE_FOUND])
-    if found > cap:
-        tiles = min(int(state[STATE_NEXT]), -(-(hi - lo) // SCAN_TILE))
-        end = min(hi, lo + tiles * SCAN_TILE)
-        state = _scan_cuda(buf, lo, end - lo, end, 1, NO_STOP, found).cpu()
-    return state
+def _scan_from_each(buf: torch.Tensor, lo: int, hi: int, max_out: int
+                    ) -> list[int]:
+    """scan_headers on the card: the first header of [lo, hi), then the
+    first past it, and so on, a launch of one segment each, until max_out
+    are found or none is left."""
+    out: list[int] = []
+    while len(out) < max_out and lo < hi:
+        first = _first_per_chunk(_scan_cuda(buf, lo, hi - lo, hi, 1).cpu(),
+                                 1)[1:]
+        if not first:
+            break
+        out += first
+        lo = first[0] + 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +210,9 @@ def _scan_plain(prep, lo: int, hi: int, max_out: int,
     then the full parse of its survivors in offset order until `max_out`
     pass.  prep: _prepare's pair.  stats, when given, counts what the scan
     needed: the offsets up to its stop, the Kraft fields of those that
-    reach the Kraft test, the headers parsed and the bits they read, and
-    the headers found and their bits (for the bound, ops_needed and
-    bytes_needed)."""
+    reach the Kraft test, the headers parsed and the bits each needed read
+    before its answer was settled (_settled_bits), and the headers found
+    and their bits (for the bound, ops_needed and bytes_needed)."""
     padded, data = prep
     out: list[int] = []
     w0, width = lo, FILTER_WINDOW0
@@ -243,7 +226,8 @@ def _scan_plain(prep, lo: int, hi: int, max_out: int,
         for p in cand.tolist():
             ok, nb = _validate(data, p)
             parsed += 1
-            parsed_bits += nb
+            if stats is not None:
+                parsed_bits += nb if ok else _settled_bits(data, p)
             if ok:
                 out.append(p)
                 found_bits += nb
@@ -302,6 +286,57 @@ def _validate(data: bytes, p: int) -> tuple[bool, int]:
     except FlateError:
         return False, bits.pos - p - 3
     return True, bits.pos - p - 3
+
+
+def _settled_bits(data: bytes, p: int) -> int:
+    """The header bits after BTYPE that the parse at BFINAL bit p must read
+    before its answer is settled: _validate's, but a length run stops at
+    the symbol whose lengths take its Kraft sum past 1 (an over-subscribed
+    code fails check_lens whatever follows; the sum only grows).  The
+    reads and errors are decode_dynamic_header_lens', for the count
+    alone."""
+    bits = hinf._BitCursor(data, p + 3)
+    try:
+        hlit = bits.read(5) + 257
+        hdist = bits.read(5) + 1
+        hclen = bits.read(4) + 4
+        if hlit > 286 or hdist > 30:
+            raise FlateError()
+        cl = np.zeros(consts.NUM_CODEGEN, dtype=np.int32)
+        for i in range(hclen):
+            cl[consts.CODEGEN_ORDER[i]] = bits.read(3)
+        sym, nbits = hinf.build_decode_table(cl, consts.MAX_CODEGEN_BITS,
+                                             is_litlen=False)
+        for count, arr_len in ((hlit, 286), (hdist, 30)):
+            pos = prev = kraft = 0
+            while pos < count:
+                code = bits.peek(consts.MAX_CODEGEN_BITS)
+                s = int(sym[code])
+                if s < 0:
+                    raise FlateError()
+                bits.consume(int(nbits[code]))
+                if s < 16:
+                    if pos >= arr_len:
+                        raise FlateError()
+                    n, prev = 1, s
+                elif s == 16:
+                    n = bits.read(2) + 3
+                    if pos == 0 or pos + n > arr_len:
+                        raise FlateError()
+                elif s == 17:
+                    n, prev = bits.read(3) + 3, 0
+                else:
+                    n, prev = bits.read(7) + 11, 0
+                pos += n
+                if prev:
+                    kraft += n << (consts.MAX_CODE_BITS - prev)
+                    if kraft > 1 << consts.MAX_CODE_BITS:
+                        return bits.pos - p - 3
+            if pos > count:
+                break
+    except FlateError:
+        pass
+    return bits.pos - p - 3
 
 
 def ops_needed(stats: dict) -> int:

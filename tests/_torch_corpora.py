@@ -501,14 +501,6 @@ def trap_stream() -> bytes:
                     for i in range(0, len(payload), 4096)) + c.flush()
 
 
-def _ml9(data: bytes, wbits: int, strategy: int = zlib.Z_DEFAULT_STRATEGY
-         ) -> bytes:
-    """zlib's level 6 at memLevel 9 (GNU gzip's buffer size): blocks of up
-    to 32,767 symbols."""
-    c = zlib.compressobj(6, zlib.DEFLATED, wbits, 9, strategy)
-    return c.compress(data) + c.flush()
-
-
 def long_run_text(n: int = 1_500_000, seed: int = 0) -> bytes:
     """Text with runs of zeros and of short periods, 60-300 KB each,
     between its paragraphs: blocks of several hundred KB of output whose
@@ -525,28 +517,12 @@ def long_run_text(n: int = 1_500_000, seed: int = 0) -> bytes:
 
 
 def big_block_streams() -> dict:
-    """name -> (container name, stream) of valid zlib/gzip output whose
-    blocks hold more than 4 MiB of output (zlib writes blocks of 16,383
-    matches of 258 bytes on zero runs, 32,767 at memLevel 9) or more
-    symbols than twice their compressed bytes (Huffman-only zeros: one
-    1-bit literal a byte)."""
-    zeros9 = b"\0" * (9 << 20)
-    # a full flush after the first text starts a block at the zero run
-    c = zlib.compressobj(6)
-    text_run = c.compress(corpus("text", 60_000)) \
-        + c.flush(zlib.Z_FULL_FLUSH) \
-        + c.compress(b"\0" * (5 << 20) + corpus("text", 60_000, seed=1)) \
-        + c.flush()
-    return {
-        "zeros_5mib_l6": ("ZLIB", zlib.compress(b"\0" * (5 << 20), 6)),
-        "zeros_9mib_mem9": ("ZLIB", _ml9(zeros9, 15)),
-        "text_5mib_run": ("ZLIB", text_run),
-        "huffman_20000": ("ZLIB", _ml9(b"\0" * 20000, 15,
-                                      zlib.Z_HUFFMAN_ONLY)),
-        "huffman_40000": ("ZLIB", _ml9(b"\0" * 40000, 15,
-                                      zlib.Z_HUFFMAN_ONLY)),
-        "gzip_zeros_9mib_mem9": ("GZIP", _ml9(zeros9, 31)),
-    }
+    """name -> (container name, stream): chip_smoke.py's streams whose
+    blocks hold more than 4 MiB of output or more symbols than twice
+    their compressed bytes, which phase 14 decodes on the card."""
+    from chip_smoke import big_block_streams as streams
+    return {name: (container, blob)
+            for name, container, blob, _ in streams()}
 
 
 def placed_headers(nbytes: int, offsets, name: str = "accepted") -> bytes:

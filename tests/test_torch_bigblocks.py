@@ -7,9 +7,9 @@ engine).
   at memLevel 9, 32,767 matches of 258 bytes on zero runs) resolve in rows
   of at most MAX_S bytes cut at symbol boundaries
   (device/anyinflate.py `_pieces`).
-- Blocks with more symbols than the first symbol slots of their row
-  (Huffman-only zeros: a 1-bit literal a byte, 32,767 a block) walk again
-  with more slots (`_slots`, `STATS["slot_retries"]`).
+- Blocks with more symbols than twice their compressed bytes (Huffman-only
+  zeros: a 1-bit literal a byte, 32,767 a block) fit their rows: a row of
+  a C-byte span has 8 C symbol slots, a slot a bit.
 
 The JAX device function `flate_tpu.jx.anyinflate.decompress_device_any`
 raises on these streams; the JAX package is left as it is.  The card tests
@@ -60,7 +60,7 @@ def test_big_blocks_decode_equal_zlib_and_jax(name):
     assert getattr(ft, container.lower()).decompress(blob, device=True) \
         == want
     if name.startswith("huffman"):
-        assert i2.STATS["slot_retries"] >= 1
+        assert len(want) > 2 * len(blob)
     else:
         assert i2.STATS["block_pieces"] >= 2
 
@@ -104,14 +104,19 @@ def test_pieces_cut_at_symbol_boundaries(monkeypatch):
     assert ai._pieces(words, 4096)[0][0] is words
 
 
-def test_slots_grow_to_the_span_bits():
-    """Symbol slots start at 2 C (at most 2^20) and double up to 8 C, the
-    span's bits: never a constant cap."""
-    assert ai._slots(8192, 0) == 16384
-    assert ai._slots(8192, 32768) == 32768
-    assert ai._slots(8192, 1 << 20) == 65536
-    assert ai._slots(1 << 21, 0) == 1 << 20
-    assert ai._slots(1 << 21, 1 << 25) == 1 << 24
+@pytest.mark.parametrize("serial", [False, True])
+def test_rows_hold_a_symbol_a_bit(serial):
+    """The first block of Huffman-only zeros (32,767 1-bit literals and the
+    end-of-block in its first 8 KiB span) decodes in one round, by the
+    lane walk and by the serial walk: its row's slots are the span's
+    bits, not twice its bytes."""
+    body = STREAMS["huffman_40000"][1][2:]
+    plan = ai.plan_block_at(body, 0)
+    res = ai._decode_round(body, [plan], {}, {0} if serial else set(),
+                           torch.device("cpu"))[0]
+    assert res["ok"] and res["has_eob"] and res["serial"] == serial
+    assert res["counts"] == 32768 > 2 * res["span"]
+    assert res["out_len"] == 32767
 
 
 def _corruptions(blob: bytes) -> dict:

@@ -817,7 +817,8 @@ SCAN_CASES = scan_cases()
 @pytest.mark.parametrize("name", list(SCAN_CASES))
 def test_scan_kernel_equal_plain(cuda, name):
     """scan_kernel (S1) against the plain scanner on the CPU cases, and
-    chunk_entries at 32 KiB and 5,001-byte chunks."""
+    chunk_entries at 32 KiB and 5,001-byte chunks.  scan_headers launches
+    once a header, and once more where fewer than max_out are left."""
     data, start, end, max_out = SCAN_CASES[name]
     buf = torch.frombuffer(bytearray(data), dtype=torch.uint8) if data \
         else torch.zeros(0, dtype=torch.uint8)
@@ -825,8 +826,8 @@ def test_scan_kernel_equal_plain(cuda, name):
     got = scan.scan_headers(buf.to(cuda), start, end, max_out)
     assert got == scan.scan_headers(buf, start, end, max_out)
     lo, hi = scan._range(len(data), start, end)
-    assert _build.LAUNCHES["flate_scan_headers"] == (
-        1 if hi > lo and max_out > 0 else 0)
+    rest = (got[-1] + 1 if got else lo) < hi and len(got) < max_out
+    assert _build.LAUNCHES["flate_scan_headers"] == len(got) + rest
     for chunk in (32768, 5001):
         assert scan.chunk_entries(buf.to(cuda), chunk) == \
             scan.chunk_entries(buf, chunk)
@@ -834,7 +835,7 @@ def test_scan_kernel_equal_plain(cuda, name):
 
 def test_scan_kernel_every_offset(cuda):
     """Every header of a body with many headers (level 1, 2 MiB of mixed
-    data; max_out never reached, so every tile is tested) against the
+    data; max_out never reached, so launches run to the end) against the
     plain scan of every offset."""
     body = zlib.compress(corpus("mixed", 2 << 20, seed=9), 1)[2:-4]
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
@@ -895,9 +896,9 @@ BIG_BLOCKS = big_block_streams()
 @pytest.mark.parametrize("name", list(BIG_BLOCKS))
 def test_big_blocks_cuda_equal_cpu(cuda, name):
     """Blocks of more than 4 MiB of output (resolved in rows cut at symbol
-    boundaries) and of more symbols than their first slots (walked again
-    with more): the card's bytes equal the CPU's and zlib's, through a
-    walk kernel."""
+    boundaries) and of more symbols than twice their compressed bytes (a
+    symbol slot a bit of the span): the card's bytes equal the CPU's and
+    zlib's, through a walk kernel."""
     container, blob = BIG_BLOCKS[name]
     ns = getattr(api, container.lower())
     _build.LAUNCHES.clear()

@@ -6,11 +6,12 @@ tests/_torch_corpora.py:scan_cases (zlib bodies at levels 0, 1, 6, 9 and
 Z_FIXED, random bytes, unaligned starts, ranges that end at a header or in
 the last 96 bits, short streams, hand-built headers that hit each rejection
 of the C's parse), and chunk_entries the list the JAX member loop builds
-(flate_tpu/jx/anyinflate.py:365-373).  The steps the card path adds after
-its kernel (_positions, _first_per_chunk, and _scan_list's second launch
-when the list overflows) run here on CPU tensors.  The card tests at the
-end hold scan_kernel to the plain version on the card (marked cuda; they
-skip here).  Tolerance: exact (bit offsets).
+(flate_tpu/jx/anyinflate.py:365-373), also on the inputs that put headers
+at the kernel's tile and chunk edges.  The steps the card path adds around
+its kernel (_first_per_chunk, and scan_headers' launch past each header
+found) run here on CPU tensors with the kernel's state made by the plain
+scan.  The card tests at the end hold scan_kernel to the plain version on
+the card (marked cuda; they skip here).  Tolerance: exact (bit offsets).
 """
 
 import zlib
@@ -24,9 +25,9 @@ from flate_tpu import native
 from flate_tpu_torch import errors
 from flate_tpu_torch.device import scan
 
-from _torch_corpora import (corpus, deflate_raw, dyn_header, header_cases,
-                            header_case_stream, scan_cases, scan_edge_cases,
-                            trap_stream, with_eob)
+from _torch_corpora import (HDR_D, corpus, deflate_raw, dyn_header,
+                            header_cases, header_case_stream, scan_cases,
+                            scan_edge_cases, trap_stream, with_eob)
 
 CASES = scan_cases()
 
@@ -111,99 +112,109 @@ def test_chunk_entries_equal_member_loop(c_scanner, name, chunk):
         assert len(want) > 1
 
 
+def _plain_kernel(prep, launches: list | None = None):
+    """scan_kernel's state as the plain scan gives it (on the host): ~ the
+    first header of each segment, 0 for none, and the segments with one."""
+    def run(buf, seg0, seg_len, hi, nseg):
+        if launches is not None:
+            launches.append((seg0, hi))
+        firsts = []
+        for k in range(nseg):
+            lo = seg0 + k * seg_len
+            firsts += [~f for f in scan._scan_plain(
+                prep, lo, min(lo + seg_len, hi), 1)] or [0]
+        return torch.tensor([0, sum(f != 0 for f in firsts), 0, 0, *firsts,
+                             *[0] * nseg], dtype=torch.int64)
+    return run
+
+
 @pytest.mark.parametrize("chunk", [32768, 5001])
 @pytest.mark.parametrize("name", ["mixed_l1", "trap", "random_64k"])
-def test_card_path_selection_equal_plain(name, chunk):
-    """The card path's steps after its kernel, on the CPU: a state as the
-    kernel writes it (~ each chunk's first header, 0 for none; the headers
-    of the tiles tested, in no order) -> _first_per_chunk / _positions give
-    the plain chunk_entries and scan_headers."""
+def test_card_path_selection_equal_plain(monkeypatch, name, chunk):
+    """The card path's steps around its kernel, on the CPU, with a state as
+    the kernel writes it: _first_per_chunk gives the plain chunk_entries,
+    and scan_headers' launches past each header found give the plain
+    scan_headers."""
     body = CHUNK_BODIES[name]()
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    prep = scan._prepare(buf)
+    monkeypatch.setattr(scan, "_scan_cuda", _plain_kernel(prep))
     step = 8 * chunk
     lo, hi = scan._range(len(body), step, None)
-    allpos = scan._scan_plain(scan._prepare(buf), lo, hi, 1 << 30)
-    state = torch.tensor([9, len(allpos), hi - lo, 9, -1, *allpos[::-1]],
-                         dtype=torch.int64)
-    assert scan._positions(state) == allpos == \
+    assert scan._scan_from_each(buf, lo, hi, 1 << 30) == \
+        scan._scan_plain(prep, lo, hi, 1 << 30) == \
         scan.scan_headers(buf, step, None, 1 << 30)
     nseg = -(-(hi - lo) // step)
-    firsts = [min((p for p in allpos if lo + k * step <= p
-                   < lo + (k + 1) * step), default=-1) for k in range(nseg)]
-    state = torch.tensor([0, sum(f >= 0 for f in firsts), 0, 0,
-                          *(~f for f in firsts), *[9] * nseg],
-                         dtype=torch.int64)
-    assert scan._first_per_chunk(state, nseg) == \
-        scan.chunk_entries(buf, chunk)
+    assert scan._first_per_chunk(scan._scan_cuda(buf, lo, step, hi, nseg),
+                                 nseg) == scan.chunk_entries(buf, chunk)
 
 
 def test_positions_sign_bit_and_empty():
-    """A chunk's first header is kept as its complement (u64 ~p, a negative
-    int64), 0 for none; a list longer than its slots is read up to its
-    slots; empty states."""
-    state = torch.tensor([9, 5, 0, 0, 0, 96, 5, 127], dtype=torch.int64)
-    assert scan._positions(state) == [5, 96, 127]
+    """A segment's first header is kept as its complement (u64 ~p, a
+    negative int64), 0 for none; empty states."""
     assert scan._first_per_chunk(torch.tensor([0, 2, 0, 0, 0, ~70, ~(1 << 40),
                                                0, 3, 3]), 3) == [0, 70,
                                                                  1 << 40]
     assert scan._first_per_chunk(torch.zeros(4, dtype=torch.int64),
                                  0) == [0]
-    assert scan._positions(torch.tensor([0, 0, 0, 0, 0, 7, 7])) == []
+    assert scan._first_per_chunk(torch.zeros(6, dtype=torch.int64),
+                                 1) == [0]
 
 
-def _tile_kernel(prep, in_flight: int):
-    """scan_kernel's list mode as whole tiles taken in order, until
-    max_out headers are found, and `in_flight` tiles more (those other
-    blocks took before the stop): the state on the host."""
-    def run(buf, seg0, seg_len, hi, nseg, max_out=0, cap=0):
-        assert nseg == 1 and max_out > 0 and seg0 + seg_len >= hi
-        allpos = scan._scan_plain(prep, seg0, hi, 1 << 30)
-        ntiles = -(-(hi - seg0) // scan.SCAN_TILE)
-        tiles, found = 0, []
-        while tiles < ntiles and len(found) < max_out:
-            t0 = seg0 + tiles * scan.SCAN_TILE
-            found += [p for p in allpos if t0 <= p < t0 + scan.SCAN_TILE]
-            tiles += 1
-        tiles = min(ntiles, tiles + in_flight)
-        found = [p for p in allpos if p < seg0 + tiles * scan.SCAN_TILE]
-        lst = (found[::-1] + [0] * cap)[:cap]
-        return torch.tensor([tiles + 3, len(found), 0, tiles, 0, *lst],
-                            dtype=torch.int64)
-    return run
-
-
-@pytest.mark.parametrize("in_flight", [0, 3])
 @pytest.mark.parametrize("max_out", [1, 4, 1000])
-def test_scan_list_overflow_tests_the_tiles_again(monkeypatch, max_out,
-                                                  in_flight):
-    """_scan_list with a list shorter than the headers its tiles hold (the
-    tiles in flight at the stop found more): the same tiles are tested
-    again into a list of their size, and scan_headers' list is the plain
-    one."""
+def test_scan_headers_card_launch_a_header(monkeypatch, max_out):
+    """scan_headers on the card launches over one segment from past each
+    header found: a launch a header, and one more that finds none where
+    fewer than max_out are left."""
     body = CASES["mixed_l1"][0]
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+    prep = scan._prepare(buf)
+    launches = []
+    monkeypatch.setattr(scan, "_scan_cuda", _plain_kernel(prep, launches))
     lo, hi = scan._range(len(body), 0, None)
-    states = []
-    kernel = _tile_kernel(scan._prepare(buf), in_flight)
+    want = scan._scan_plain(prep, lo, hi, max_out)
+    assert scan._scan_from_each(buf, lo, hi, max_out) == want
+    assert launches == [(lo, hi)] + [(p + 1, hi) for p in want][
+        :len(want) - (len(want) == max_out)]
+    assert (len(want) == max_out) == (max_out < 1000)
 
-    def fake(*args, **kw):
-        states.append(kernel(*args, **kw))
-        return states[-1]
 
-    monkeypatch.setattr(scan, "_scan_cuda", fake)
-    monkeypatch.setattr(scan, "LIST_MAX", 1)
-    monkeypatch.setattr(scan, "LIST_SLACK", 0)
-    got = scan._positions(scan._scan_list(buf, lo, hi, max_out))[:max_out]
-    assert got == scan._scan_plain(scan._prepare(buf), lo, hi, max_out)
-    # a second launch exactly when the first found more than its one slot
-    assert len(states) == 1 + (int(states[0][scan.STATE_FOUND]) > 1)
-    assert len(states) == 2 or max_out == 1
+@pytest.mark.parametrize("name", list(scan_edge_cases()))
+def test_scan_edges_equal_c(c_scanner, name):
+    """The inputs that put headers at the kernel's tile and chunk edges:
+    scan_headers equals the C scanner, chunk_entries the member loop."""
+    data, start, end, max_out, chunks = scan_edge_cases()[name]
+    assert scan.scan_headers(data, start, end, max_out, device="cpu") == \
+        c_scanner.scan_headers(data, start, end, max_out)
+    for chunk in chunks:
+        assert scan.chunk_entries(data, chunk, device="cpu") == \
+            _member_loop_entries(data, chunk)
+
+
+def test_settled_bits_stop_at_an_oversubscribed_run():
+    """A header whose literal/length lengths are over-subscribed by their
+    third length is settled there: _settled_bits counts its fields, its
+    code-length code and three code-length symbols, where the parse reads
+    on to the end of its runs; a header that passes is settled at its
+    end."""
+    over = [1, 1, 1] + [0] * 253 + [1]
+    bits = dyn_header(over, HDR_D)
+    raw = np.packbits(np.asarray(bits + [0] * 64, np.uint8),
+                      bitorder="little").tobytes()
+    ok, nb = scan._validate(raw, 0)
+    settled = scan._settled_bits(raw, 0)
+    hclen = int(np.dot(bits[13:17], [1, 2, 4, 8])) + 4
+    assert not ok and 14 + 3 * hclen < settled <= 14 + 3 * hclen + 3 * 7
+    assert settled < nb
+    data = header_case_stream("accepted")
+    assert scan._validate(data, 13) == (True, scan._settled_bits(data, 13))
 
 
 def test_stats_count_the_scan():
     """The plain version's counts: every offset up to the stop, the HCLEN
     fields of the offsets that reach the Kraft test, the headers parsed and
-    the bits they read; ops_needed weighs them."""
+    the bits each read before its answer was settled (_settled_bits: all of
+    a header found); ops_needed weighs them."""
     body = CASES["mixed_l6"][0]
     buf = torch.frombuffer(bytearray(body), dtype=torch.uint8)
     lo, hi = scan._range(len(body), 0, None)
@@ -226,6 +237,8 @@ def test_stats_count_the_scan():
                                    + scan.OPS_PER_PARSED_BIT
                                    * st["parsed_bits"])
     assert st["found"] == len(found) and st["parsed_bits"] > st["found_bits"]
+    data = bytes(body)
+    assert st["found_bits"] == sum(scan._validate(data, p)[1] for p in found)
     st1 = {}
     first = scan._scan_plain(scan._prepare(buf), lo, hi, 1, st1)
     assert first == found[:1] and st1["offsets"] == first[0] - lo + 1

@@ -93,6 +93,19 @@ so a parent and a change compare in one call.
 
     python3 tools/torch_kernel_probe.py --part scan [--tree DIR]
 
+The chained route's rounds, `--part rounds` (not in the default parts):
+on the same foreign stream, the first round of its chained decode (the
+first block of every chain head: one _decode_round call, by the lane walk
+and again by the serial walk, each row with the symbol slots the measured
+tree gives it), mean of --reps calls on the host clock (the call fetches
+its rows' results, so this is the whole round), then the decode of each
+of chip_smoke.py's big-block streams through api.zlib/gzip.decompress,
+best of 3 on the host clock.  A tree whose rows start with fewer slots and
+walk again with more, and one whose rows hold a slot a bit of their span,
+compare in one call.
+
+    python3 tools/torch_kernel_probe.py --part scan,rounds [--tree DIR]
+
 The fused path, `--part fused` (not in the default parts): the level-1,
 -6 and -9 batch (64 x 128 KiB of the mixed corpus, as above) through
 pipeline2.encode_batch, one CUDA graph a batch: its capture and
@@ -615,6 +628,55 @@ def scan_part(reps: int) -> dict:
     return out
 
 
+def rounds_part(reps: int) -> dict:
+    """The chained route's first round on the foreign stream, by the lane
+    walk and by the serial walk, and the big-block streams' decodes."""
+    import inspect
+    import zlib
+
+    from chip_smoke import big_block_streams
+    from flate_tpu_torch.device import anyinflate, scan
+    dev = torch.device("cuda")
+    body = zlib.compress(mixed_corpus(4 * B * S), 6)[2:]
+    heads = scan.chunk_entries(body, anyinflate.CHUNK_BYTES, device=dev)
+    plans = [anyinflate.plan_block_at(body, e) for e in heads]
+    # a tree with per-block symbol slots takes them as a fourth argument
+    slots = ({},) if "slots" in inspect.signature(
+        anyinflate._decode_round).parameters else ()
+    out = {}
+    for walk, serial_set in (("lane", set()), ("serial", set(heads))):
+        def once():
+            return anyinflate._decode_round(body, plans, {}, *slots,
+                                            serial_set, dev)
+        # rows whose lanes did not join: the decode walks them again
+        unjoined = sum(not r["ok"] for r in once().values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            once()
+        key = f"round1_{walk}_ms"
+        out[key] = (time.perf_counter() - t) / reps * 1e3
+        print(f"first round of the foreign decode, {walk} walk: "
+              f"{len(plans)} blocks ({unjoined} not joined), "
+              f"{out[key]:.4f} ms a round (mean of {reps}, host clock)",
+              flush=True)
+    for name, container, blob, want in big_block_streams():
+        ns = getattr(api, container.lower())
+        ns.decompress(blob)
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = ns.decompress(blob)
+            best = min(best, time.perf_counter() - t)
+        if got != want:
+            raise AssertionError(f"{name}: output differs from its input")
+        out[f"decode_{name}_s"] = best
+        print(f"decode {name}: best of 3 {best:.4f} s = "
+              f"{len(want) / best / 1e9:.4f} GB/s", flush=True)
+    return out
+
+
 PORT_KERNELS = ("prep_kernel", "matcher_kernel", "small_runs_kernel",
                 "extend_kernel", "parse_rows_kernel", "parse_ring_kernel",
                 "pack_kernel")
@@ -708,7 +770,7 @@ def main() -> int:
     ap.add_argument("--part",
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
-                         "lanes, prep, pack, e2e, fused, scan")
+                         "lanes, prep, pack, e2e, fused, scan, rounds")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -726,7 +788,7 @@ def main() -> int:
     parts = {"matcher": matcher, "network": network, "walks": walks,
              "runs": small_runs, "lanes": lanes, "prep": prep,
              "pack": pack_part, "e2e": e2e, "fused": fused,
-             "scan": scan_part}
+             "scan": scan_part, "rounds": rounds_part}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
