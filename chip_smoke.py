@@ -138,13 +138,33 @@ Phases, one line each:
      and a gzip member of the 9 MiB run: each must equal its input with a
      walk kernel launched; GB/s of output, rows cut for the resolve and
      rounds (inflate2.STATS).
+ 15. the round-1 encoder (device/pipeline.compress_device, the JAX
+     package's jx/pipeline) at its defaults (shard_len 128 KiB, ctx 32
+     KiB, batch 8) at levels 1, 6 and 9 on 8 MiB + 12,345 bytes of the
+     mixed corpus (the tail through the host tail encoder), launch counts
+     reset before each run and read after it: B3 (flate_small_runs), B4
+     (flate_extend), B9 (flate_parse_walk) and B5 (flate_pack) must each
+     have launched;
+     each member decodes with zlib and with the port's api.gzip.decompress
+     on the card; the CUDA bytes equal the port's device="cpu" bytes
+     (batch 2) on 2 shards + 12,345 bytes; rows 0-1 of batch 1 (row 0
+     primed with 32 KiB of context) through find_matches_device,
+     parse_walk, the token stages and pack_tokens on the card and on the
+     CPU, equal integer for integer; seconds, GB/s, seconds a batch
+     (the host tail encoder's seconds, timed alone, left out) and size
+     against zlib.compress at the level (printed, not gated);
+     the device time of batch 0's phase1 and of its main-table candidate
+     loop (CUDA events), and the loop's share of a batch.  Then
+     parallel.pigz.compress_mesh on a one-rank NCCL group (FileStore
+     under build/) on 2 MiB + 12,345 bytes at level 6 must equal
+     compress_device (batch 1).
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
 About 165 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
 and 10 ~30-55 s, the plain versions' host loops ~25 s, phases 13 and 14
-~15 s).
+~15 s, phase 15 ~15 s with its CPU twins).
 """
 
 from __future__ import annotations
@@ -1364,6 +1384,8 @@ def main() -> int:
               f"{stats.get('chained_rounds')}, launches {counts}",
               flush=True)
 
+    phase15(dev, api, _build)
+
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)
         if c["launches"] <= 0:
@@ -1374,6 +1396,154 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def round1_stages_equal(r1, r1match, data: bytes, level: int) -> str:
+    """Rows 0-1 of the round-1 pipeline's batch 1 (row 0 primed with 32
+    KiB of context, min_src 0) through its stages on the card and on the
+    CPU: find_matches_device (B3, B4), parse_walk (B9), the token arrays
+    and histograms, and pack_tokens (B5) with the plans' code tables, each
+    held to the plain run integer for integer."""
+    from flate_tpu_torch.device import encode as r1enc
+    from flate_tpu_torch.device import parse as r1parse
+
+    knobs = r1.level_knobs(level)
+    arr = np.frombuffer(data, np.uint8)
+    shards = torch.from_numpy(arr[8 * S:10 * S].copy()).reshape(2, S)
+    ctx0 = torch.from_numpy(arr[8 * S - CTX:8 * S].copy())
+    win = r1.build_windows(shards, ctx0, ctx=CTX)
+    ctx_lens = torch.full((2,), CTX, dtype=torch.int32)
+
+    def stages(w, cl):
+        mlen, mdist = r1match.find_matches_device(
+            w, cl, K=knobs["K"], K3=knobs["K3"], min_len=3, ctx=CTX,
+            nwords=knobs["nwords"])
+        starts = r1parse.parse_walk(mlen, mdist, start=CTX,
+                                    lazy=knobs["lazy"],
+                                    max_lazy=knobs["max_lazy"])
+        take, _ = r1parse.decide(mlen, mdist, knobs["lazy"],
+                                 knobs["max_lazy"])
+        tok = r1enc.compact_tokens(w[:, CTX:], mlen[:, CTX:],
+                                   mdist[:, CTX:], starts[:, CTX:],
+                                   take[:, CTX:])
+        ll, dd = r1enc.histograms(tok)
+        return {"mlen": mlen, "mdist": mdist, "starts": starts, "ll": ll,
+                "dd": dd, **tok}, tok
+
+    got, gtok = stages(win.cuda(), ctx_lens.cuda())
+    want, wtok = stages(win, ctx_lens)
+    for k in want:
+        if not torch.equal(got[k].cpu(), want[k]):
+            raise AssertionError(f"round-1 level {level}: {k} on the card "
+                                 f"!= plain, batch 1 rows 0-1")
+    hll, hdd = want["ll"].numpy(), want["dd"].numpy()
+    plans = r1.plan_shards(hll, hdd, [arr[8 * S:9 * S], arr[9 * S:10 * S]])
+    llp, dp = r1.code_tables(plans, 2)
+    maxt = int(want["ntokens"].max())
+    gw, gb = r1.phase2_bucketed(gtok, llp, dp, maxt)
+    ww, wb = r1.phase2_bucketed(wtok, llp, dp, maxt)
+    if not (torch.equal(gw.cpu(), ww) and torch.equal(gb.cpu(), wb)):
+        raise AssertionError(f"round-1 level {level}: pack_tokens on the "
+                             f"card != plain, batch 1 rows 0-1")
+    matched = int((want["mlen"][:, CTX:] >= 3).sum())
+    return (f"batch 1 rows 0-1 (row 0 with context): matches, starts, "
+            f"tokens and packed words (B3, B4, B9, B5) == plain exactly "
+            f"({matched} match positions, {int(wb.sum())} bits, kinds "
+            f"{[p.kind for p in plans]})")
+
+
+def phase15(dev, api, _build) -> None:
+    """The round-1 encoder and its mesh on the card (docstring, 15)."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from flate_tpu_torch.bitpack import BitSink
+    from flate_tpu_torch.device import match as r1match
+    from flate_tpu_torch.device import pipeline as r1
+    from flate_tpu_torch.parallel import pigz
+
+    need = ("flate_small_runs", "flate_extend", "flate_parse_walk",
+            "flate_pack")
+    data = mixed_corpus((8 << 20) + 12345)
+    small = data[:2 * S + 12345]
+    nbatch = -(-(len(data) // S) // 8)
+    for level in (1, 6, 9):
+        r1.compress_device(small, level=level)       # warm-up (allocator)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t = time.time()
+        blob = r1.compress_device(data, level=level)
+        secs = time.time() - t
+        counts = dict(_build.LAUNCHES)
+        for name in need:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"round-1 level {level}: {name} never "
+                                     f"launched: {counts}")
+        if zlib.decompress(blob, 31) != data:
+            raise AssertionError(f"round-1 level {level}: zlib round trip")
+        if api.gzip.decompress(blob) != data:
+            raise AssertionError(f"round-1 level {level}: port decode")
+        ratio = len(blob) / len(zlib.compress(data, level))
+        # the host tail encoder's share of the call, alone
+        t = time.time()
+        r1.write_tail(BitSink(), np.frombuffer(data, np.uint8),
+                      len(data) // S, S, level)
+        tail_s = time.time() - t
+        t = time.time()
+        cpu = r1.compress_device(small, level=level, batch=2, device="cpu")
+        cpu_s = time.time() - t
+        if r1.compress_device(small, level=level) != cpu:
+            raise AssertionError(f"round-1 level {level}: cuda != cpu bytes")
+        # batch 0 as the pipeline builds it, its phase1 and its main
+        # table's candidate loop by CUDA events
+        knobs = r1.level_knobs(level)
+        shards = torch.frombuffer(bytearray(data[:8 * S]), dtype=torch.uint8
+                                  ).reshape(8, S).to(dev)
+        win = r1.build_windows(shards, torch.zeros(CTX, dtype=torch.uint8,
+                                                   device=dev), ctx=CTX)
+        ctx_lens = torch.full((8,), CTX, dtype=torch.int32, device=dev)
+        ctx_lens[0] = 0
+        h = r1match._hashes(win, 4)
+        words = r1match._pack_words(win, knobs["nwords"])
+        min_src = (CTX - ctx_lens).to(torch.int32)
+        loop_ms = cuda_ms(lambda: r1match._candidate_best(
+            h, words, knobs["K"], min_src, 3), 1)
+        p1_ms = cuda_ms(lambda: r1.phase1(win, ctx_lens, ctx=CTX, **knobs), 1)
+        held = round1_stages_equal(r1, r1match, data, level)
+        per_batch = (secs - tail_s) / nbatch
+        print(f"[15] round-1 compress_device level {level}, 8 MiB + 12345 "
+              f"mixed, batch 8: {secs:.4f} s = "
+              f"{len(data) / secs / 1e9:.4f} GB/s ({per_batch:.4f} s a batch "
+              f"of 1 MiB over {nbatch} batches, besides the host tail's "
+              f"{tail_s:.4f} s), {len(blob)} "
+              f"bytes = {ratio:.4f} x zlib level {level}; launches {counts} "
+              f"({counts['flate_parse_walk'] / nbatch:.0f} B9 a batch); "
+              f"zlib and api.gzip.decompress round trips ok; batch 0 phase1 "
+              f"{p1_ms:.3f} ms of device time, its candidate loop (K="
+              f"{knobs['K']}, nw={knobs['nwords']}) {loop_ms:.3f} ms = "
+              f"{loop_ms / 1e3 / per_batch:.2%} of a batch; cuda == cpu "
+              f"bytes on 2 shards + 12345 (cpu {cpu_s:.1f} s); {held}",
+              flush=True)
+
+    mesh_data = data[:(2 << 20) + 12345]
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as td:
+        torch.cuda.set_device(0)
+        tdist.init_process_group(
+            "nccl", store=tdist.FileStore(os.path.join(td, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+            pigz.compress_mesh(small, mesh, level=6)      # warm-up
+            torch.cuda.synchronize()
+            t = time.time()
+            blob = pigz.compress_mesh(mesh_data, mesh, level=6)
+            secs = time.time() - t
+        finally:
+            tdist.destroy_process_group()
+    if blob != r1.compress_device(mesh_data, level=6, batch=1):
+        raise AssertionError("round-1 mesh: bytes != compress_device's")
+    print(f"[15] pigz.compress_mesh on a one-rank NCCL mesh, 2 MiB + 12345 "
+          f"at level 6: bytes == compress_device(batch=1) ({len(blob)}); "
+          f"{secs:.4f} s = {len(mesh_data) / secs / 1e9:.4f} GB/s", flush=True)
 
 
 if __name__ == "__main__":

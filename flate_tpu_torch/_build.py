@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C.
 
 Each source under `csrc/` (`SOURCES`) is compiled with nvcc at first use
 into `build/` beside the package (one shared library per source, with a
 plain C interface), named by the hash of its source and of the headers
 beside it so an edited source or header is rebuilt, and loaded with
 ctypes.  The compilers of all sources run at the
-same time.  Nothing here runs at import: the CPU tests import every module
+same time.  The host C of the round-1 encoder (`HOST_SOURCE`: Huffman
+code lengths and the squeeze's parse DP) is built the same way with the
+host C compiler (`cc`, else `gcc`) by host_library(); a failed build
+raises.  Nothing here runs at import: the CPU tests import every module
 on a machine without nvcc or a card.
 
 `LAUNCHES` counts kernel launches by name.  Each wrapper adds one where
@@ -63,6 +66,14 @@ KERNELS_BY_SOURCE = {PKG / "csrc" / "encode_kernels.cu": ENCODE_KERNELS,
                      PKG / "csrc" / "sort_kernels.cu": SORT_KERNELS}
 SOURCES = tuple(KERNELS_BY_SOURCE)
 KERNELS = {**ENCODE_KERNELS, **DECODE_KERNELS, **SORT_KERNELS}
+
+
+HOST_SOURCE = PKG / "csrc" / "host_encode.c"
+# C entry point -> argument types (pointers as void*); each returns int
+HOST_FUNCTIONS = {
+    "huff_lengths": [_P, _I, _I, _P],
+    "optimal_parse": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
+}
 
 
 def source_of(name: str) -> str:
@@ -142,6 +153,40 @@ def library() -> dict:
             fn.restype = ctypes.c_int
             fns[name] = fn
     return fns
+
+
+def _host_cc() -> str:
+    for cc in ("cc", "gcc"):
+        found = shutil.which(cc)
+        if found is not None:
+            return found
+    raise RuntimeError("no host C compiler: put cc or gcc on PATH")
+
+
+@functools.lru_cache(maxsize=1)
+def host_library() -> ctypes.CDLL:
+    """The host C library (HOST_SOURCE), built with the host C compiler
+    on first call; raises if it cannot be built.  No -ffast-math: the
+    parse DP's float32 sums must round as IEEE single adds."""
+    lib = _library_path(HOST_SOURCE)
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([_host_cc(), "-O3", "-fPIC", "-shared", "-o",
+                               tmp, str(HOST_SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"cc failed on {HOST_SOURCE.name} "
+                               f"({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)             # atomic: no half-written library
+    handle = ctypes.CDLL(str(lib))
+    for name, argtypes in HOST_FUNCTIONS.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def launch(name: str, *args) -> None:

@@ -35,7 +35,26 @@ MAX_CODEGEN_BITS = 7             # codegen code length limit
 CODEGEN_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15)
 
 # --- hashing ---
+LOOKUP_BITS = 15                 # hash width of the round-1 matcher
 HASH_MUL = 0x9E3779B1            # Fibonacci hashing multiplier
 
 # --- levels ---
+# level: (candidates, nice, lazy_enabled, max_lazy) of the round-1 encoder
+# (device/pipeline.py) and the host tail encoder (deflate.py): candidates
+# = the most recent same-hash positions scored a position, max_lazy = the
+# length at and above which a match is taken without deferral
+LEVEL_PARAMS = {
+    1: (2, 16, False, 0),
+    2: (4, 24, False, 0),
+    3: (8, 32, False, 0),
+    4: (8, 16, True, 4),
+    5: (32, 32, True, 16),
+    6: (64, 128, True, 32),
+    7: (96, 144, True, 64),
+    8: (128, 258, True, 128),
+    9: (192, 258, True, 258),
+}
+
+LEVEL_FAST = 4
 LEVEL_DEFAULT = 6
+LEVEL_BEST = 9

@@ -27,7 +27,11 @@ Counterpart of flate_tpu/jx/anyinflate.py:
 
 Correctness never depends on speculation: join failures re-decode the
 block with the exact serial walk; spans too short to contain the EOB
-escalate; what still fails raises.
+escalate; what still fails raises.  A block that runs off the end of the
+body (no EOB up to the last bit, and no invalid code wholly before it), an
+EOB past the last bit, or a chain that reaches the end of the body before
+its final block raises EndOfStream, as the JAX package's public decode
+does for a truncated stream; other failures raise InvalidCode.
 """
 
 from __future__ import annotations
@@ -59,6 +63,9 @@ MAX_S = 1 << 22                  # output bytes of a resolve row
 # int32 temporaries of this many elements, so a round's rows go through
 # in chunks
 MAX_POSITIONS = 1 << 25
+# the longest symbol: a 15-bit length code, 5 extra bits, a 15-bit
+# distance code and 13 extra bits
+MAX_SYMBOL_BITS = 48
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +309,20 @@ def _decode_round(body: bytes, plans: list, span: dict,
     return results
 
 
+def _runs_off_the_end(r: dict, nbits: int) -> bool:
+    """Whether a coded block whose serial walk found no EOB ran off the
+    end of the body's `nbits` bits: its span reaches the end and no
+    invalid code (K_BAD) of the walk lies wholly before it."""
+    if (r["plan"].pos >> 3) + r["span"] < nbits >> 3:
+        return False
+    w = r["words"][r["row"], :r["counts"]].cpu().numpy()
+    bad = np.flatnonzero(((w >> 6) & 3) == i2.K_BAD)
+    if bad.size == 0:
+        return True
+    at = r["plan"].body_bit + int((w[:bad[0]] & 63).sum())
+    return at + MAX_SYMBOL_BITS > nbits
+
+
 def decompress_device_any(data: bytes,
                           container: Container = Container.GZIP,
                           verify: bool = True, *,
@@ -360,6 +381,8 @@ def _decompress_member_any(data: bytes, offset: int,
         for pos in todo:
             frontier.discard(pos)
             if pos >= nbits:
+                failed[pos] = EndOfStream(
+                    f"stream ends at bit {nbits} before its final block")
                 continue
             try:
                 p = plan_block_at(body, pos)
@@ -393,8 +416,18 @@ def _decompress_member_any(data: bytes, offset: int,
                     frontier.add(pos)
                     continue
                 if not r["ok"]:
-                    failed[pos] = InvalidCode(
-                        f"block at bit {pos} undecodable")
+                    if _runs_off_the_end(r, nbits):
+                        failed[pos] = EndOfStream(
+                            f"block at bit {pos} runs past the end of "
+                            f"the stream")
+                    else:
+                        failed[pos] = InvalidCode(
+                            f"block at bit {pos} undecodable")
+                    continue
+                if r["end_bit"] > nbits:
+                    failed[pos] = EndOfStream(
+                        f"block at bit {pos} ends past the end of the "
+                        f"stream")
                     continue
                 r["stored"] = False
                 decoded[pos] = r

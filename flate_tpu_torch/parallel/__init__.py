@@ -12,8 +12,9 @@ Counterpart of flate_tpu/parallel/: the input splits into independent
       CRC32 / Adler32 combined across shards on the host.
 
 mesh2.compress_mesh2 is the single-program encode laid over the mesh;
-distributed.py joins the processes (torchrun) and splits the stream into
-per-rank regions.  pigz.compress_mesh (the round-1 pipeline) is not ported.
+pigz.compress_mesh is the round-1 pipeline (device/pipeline.py) laid over
+it, one shard a rank a step; distributed.py joins the processes
+(torchrun) and splits the stream into per-rank regions.
 """
 
-from .pigz import combined_crc32, make_mesh  # noqa: F401
+from .pigz import combined_crc32, compress_mesh, make_mesh  # noqa: F401

@@ -32,7 +32,8 @@ from .. import _build, consts
 from ..containers import Container, Hasher
 from ..device import graphs, pipeline2
 from ..device import squeeze as sq
-from .pigz import combined_crc32, make_mesh  # noqa: F401 (re-export)
+from .pigz import (_exchange_tail, _mesh_device, combined_crc32,  # noqa: F401
+                   make_mesh)
 
 CTX = consts.MAX_DISTANCE
 
@@ -47,12 +48,6 @@ def _body(shards, first, ctx_lens, valid, finals, nb, *, hash_kind: int,
                                             finals, **kn)
     return pipeline2._compact_stage(words, tbits, shards, valid, nb,
                                     hash_kind=hash_kind)
-
-
-def _mesh_device(mesh: DeviceMesh) -> torch.device:
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
 
 
 def compress_mesh2(data: bytes, mesh: DeviceMesh | None = None,
@@ -158,26 +153,6 @@ def compress_mesh2(data: bytes, mesh: DeviceMesh | None = None,
     if return_lens:
         return blob, comp_lens, len(header), len(footer)
     return blob
-
-
-def _exchange_tail(shards: torch.Tensor, ctx0: torch.Tensor, ctx: int,
-                   rank: int, world: int, group) -> torch.Tensor:
-    """The context of this rank's first row: the host carry ctx0 on rank
-    0, the last ctx bytes of rank r-1's last row on rank r > 0 (sent
-    and received on the rank's device)."""
-    reqs = []
-    if rank + 1 < world:
-        tail = shards[-1, shards.shape[1] - ctx:].contiguous()
-        reqs.append(dist.isend(tail, dist.get_global_rank(group, rank + 1),
-                               group=group))
-    first = ctx0
-    if rank > 0:
-        first = torch.empty_like(ctx0)
-        reqs.append(dist.irecv(first, dist.get_global_rank(group, rank - 1),
-                               group=group))
-    for req in reqs:
-        req.wait()
-    return first
 
 
 def _gather(buf: torch.Tensor, meta_out: torch.Tensor, world: int, group):

@@ -1,7 +1,8 @@
 """RFC 1951 code tables as numpy arrays (RFC 1951 §3.2.5-3.2.6).
 
-The port's copy of the tables the device encoder needs; tests hold them
-equal to `flate_tpu.tables` value for value.
+The port's copy of the tables the device encoders and the host block
+writer (block.py) need; tests hold them equal to `flate_tpu.tables` value
+for value.
 """
 
 import numpy as np
@@ -21,6 +22,13 @@ _LENGTH_CODE_DEFS = [
 
 LENGTH_EXTRA_BITS = np.array([e for e, _ in _LENGTH_CODE_DEFS], dtype=np.int32)
 LENGTH_BASE = np.array([b for _, b in _LENGTH_CODE_DEFS], dtype=np.int32)
+
+# length (3..258) -> length code index (0..28); index by length - 3
+LENGTH_TO_CODE = np.zeros(256, dtype=np.int32)
+for _i, (_e, _b) in enumerate(_LENGTH_CODE_DEFS):
+    _hi = 259 if _i == 28 else _LENGTH_CODE_DEFS[_i + 1][1]
+    LENGTH_TO_CODE[_b - 3:_hi - 3] = _i
+LENGTH_TO_CODE[258 - 3] = 28  # length 258 uses code 285 (0 extra bits)
 
 # (extra_bits, base_distance) per distance code 0..29
 _DIST_CODE_DEFS = [
@@ -42,6 +50,18 @@ _DIST_CODE_DEFS = [
 
 DIST_EXTRA_BITS = np.array([e for e, _ in _DIST_CODE_DEFS], dtype=np.int32)
 DIST_BASE = np.array([b for _, b in _DIST_CODE_DEFS], dtype=np.int32)
+
+
+def _dist_to_code_table() -> np.ndarray:
+    """distance (1..32768) -> distance code, as a dense table indexed d-1."""
+    t = np.zeros(consts.MAX_DISTANCE, dtype=np.int32)
+    for i, (e, b) in enumerate(_DIST_CODE_DEFS):
+        hi = consts.MAX_DISTANCE + 1 if i == 29 else _DIST_CODE_DEFS[i + 1][1]
+        t[b - 1:hi - 1] = i
+    return t
+
+
+DIST_TO_CODE = _dist_to_code_table()
 
 # Fixed Huffman code lengths (RFC 1951 §3.2.6).
 FIXED_LITLEN_LENS = np.concatenate([

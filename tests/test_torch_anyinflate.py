@@ -18,6 +18,7 @@ from flate_tpu import errors as j_errors
 from flate_tpu.containers import Container as JContainer
 from flate_tpu.jx import anyinflate as j_ai
 
+import flate_tpu as ft
 import flate_tpu_torch as ftt
 from flate_tpu_torch import errors
 from flate_tpu_torch.containers import Container
@@ -250,6 +251,104 @@ def test_corruption_raises():
         ftt.gzip.decompress(b"\x1f\x8c" + bytes(blob[2:]), device="cpu")
     with pytest.raises(errors.EndOfStream):
         ftt.gzip.decompress(bytes(blob[:7]), device="cpu")
+
+
+def _cut_streams():
+    """name -> (namespace, stream, body start): a zlib level-6 member, a
+    gzip member, and a zlib member with a full flush in its middle (a cut
+    there leaves whole blocks and no final one)."""
+    data = text(60000)
+    c = zlib.compressobj(6)
+    flushed = c.compress(data[:30000]) + c.flush(zlib.Z_FULL_FLUSH)
+    return {"zlib": ("zlib", zlib.compress(data, 6), 2),
+            "gzip": ("gzip", gz(data, 6), 10),
+            "flushed": ("zlib", flushed + c.compress(data[30000:])
+                        + c.flush(), 2), "flush_at": len(flushed)}
+
+
+CUTS = _cut_streams()
+
+
+@pytest.mark.parametrize("where", ["body_1_7", "body_1_2", "body_end",
+                                   "footer"])
+@pytest.mark.parametrize("name", ["zlib", "gzip"])
+def test_truncated_stream_raises_as_jax(name, where):
+    """A member cut in its body or its footer raises EndOfStream, the
+    JAX public decode's class, on the chained route (ROADMAP C.8)."""
+    ns, blob, _ = CUTS[name]
+    foot = {"zlib": 4, "gzip": 8}[name]
+    n = len(blob)
+    cut = {"body_1_7": n // 7, "body_1_2": n // 2,
+           "body_end": n - foot - 2, "footer": n - foot // 2}[where]
+    with pytest.raises(j_errors.FlateError) as jexc:
+        getattr(ft, ns).decompress(blob[:cut], device=True)
+    with pytest.raises(errors.FlateError) as texc:
+        getattr(ftt, ns).decompress(blob[:cut], device="cpu")
+    assert type(jexc.value).__name__ == "EndOfStream"
+    assert type(texc.value).__name__ == "EndOfStream"
+
+
+def test_stream_cut_between_blocks_raises_end_of_stream():
+    """Cut right after a full flush: every block decodes, and the chain
+    reaches the end of the body before a final block."""
+    ns, blob, _ = CUTS["flushed"]
+    cut = CUTS["flush_at"] + 2
+    with pytest.raises(j_errors.EndOfStream):
+        ft.zlib.decompress(blob[:cut], device=True)
+    with pytest.raises(errors.EndOfStream):
+        ftt.zlib.decompress(blob[:cut], device="cpu")
+    assert ftt.zlib.decompress(blob, device="cpu") == text(60000)
+
+
+@pytest.mark.parametrize("where,fill", [("middle", 0xFF), ("head", 0xFF),
+                                        ("head", 0x00)])
+def test_corrupt_stream_raises_as_jax(where, fill):
+    """Eight bytes overwritten in a Huffman-only member: the chained route
+    raises the JAX public decode's class (a garbage block type, an
+    over-subscribed code), not EndOfStream."""
+    rng = np.random.default_rng(12)
+    data = rng.integers(0, 64, 50000, dtype=np.uint8).tobytes()
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_HUFFMAN_ONLY)
+    raw = bytearray(c.compress(data) + c.flush())
+    at = len(raw) // 2 if where == "middle" else 100
+    raw[at:at + 8] = bytes([fill]) * 8
+    with pytest.raises(j_errors.FlateError) as jexc:
+        ft.flate.decompress(bytes(raw), device=True)
+    with pytest.raises(errors.FlateError) as texc:
+        ftt.flate.decompress(bytes(raw), device="cpu")
+    assert type(texc.value).__name__ == type(jexc.value).__name__
+    assert type(texc.value).__name__ != "EndOfStream"
+
+
+def _tail_member(ns: str, kind: str) -> bytes:
+    rng = np.random.default_rng(12)
+    data = rng.integers(0, 64, 50000, dtype=np.uint8).tobytes()
+    wbits = {"zlib": 15, "gzip": 31}[ns]
+    if kind == "huff":
+        c = zlib.compressobj(6, zlib.DEFLATED, wbits, 9, zlib.Z_HUFFMAN_ONLY)
+    else:
+        c = zlib.compressobj(6, zlib.DEFLATED, wbits)
+        data = bytes(range(256)) * 300 + data
+    return c.compress(data) + c.flush()
+
+
+@pytest.mark.parametrize("ns,kind,k,fill", [
+    ("zlib", "huff", 6, 0x00), ("zlib", "huff", 3, 0xFF),
+    ("gzip", "huff", 6, 0xA7), ("gzip", "huff", 8, 0xFF),
+    ("zlib", "l6", 6, 0xFF), ("gzip", "l6", 3, 0x55)])
+def test_corrupt_body_tail_raises_as_jax(ns, kind, k, fill):
+    """The last k bytes of a complete member's body overwritten, inside the
+    48 bits the end-of-body test allows a bad code: the port raises the
+    JAX public decode's class (EndOfStream where the walk runs off the
+    body, the checksum's where the body still decodes)."""
+    blob = bytearray(_tail_member(ns, kind))
+    end = len(blob) - {"zlib": 4, "gzip": 8}[ns]
+    blob[end - k:end] = bytes([fill]) * k
+    with pytest.raises(j_errors.FlateError) as jexc:
+        getattr(ft, ns).decompress(bytes(blob), device=True)
+    with pytest.raises(errors.FlateError) as texc:
+        getattr(ftt, ns).decompress(bytes(blob), device="cpu")
+    assert type(texc.value).__name__ == type(jexc.value).__name__
 
 
 def test_any_without_card_raises():

@@ -907,3 +907,32 @@ def test_big_blocks_cuda_equal_cpu(cuda, name):
     want = zlib.decompress(blob, 31 if container == "GZIP" else 15)
     assert got == want == ns.decompress(blob, device="cpu")
     assert walks > 0
+
+
+@pytest.mark.parametrize("level", [1, 4, 6, 9])
+def test_round1_cuda_bytes_equal_cpu(cuda, level):
+    """The round-1 encoder (device/pipeline.compress_device) on the card:
+    the CPU's bytes, with B3, B4, B9 and B5 launched once a batch; and its
+    matcher's outputs equal on both devices."""
+    from flate_tpu_torch.device import match as r1match
+    from flate_tpu_torch.device import pipeline as r1
+    data = corpus("mixed", 5 * S + 777, seed=level)
+    kw = dict(level=level, shard_len=S, ctx=S, batch=2)
+    cpu = r1.compress_device(data, device="cpu", **kw)
+    _build.LAUNCHES.clear()
+    got = r1.compress_device(data, **kw)
+    assert got == cpu
+    assert zlib.decompress(got, 31) == data
+    for name in ("flate_small_runs", "flate_extend", "flate_parse_walk",
+                 "flate_pack"):
+        assert _build.LAUNCHES[name] == 3, name
+    win = torch.from_numpy(windows("text", seed=level))
+    cl = torch.tensor([0, CTX], dtype=torch.int32)
+    knobs = r1.level_knobs(level)
+    for a, b in zip(r1match.find_matches_device(
+            win.to(cuda), cl.to(cuda), K=knobs["K"], K3=knobs["K3"],
+            ctx=CTX, nwords=knobs["nwords"]),
+            r1match.find_matches_device(
+            win, cl, K=knobs["K"], K3=knobs["K3"], ctx=CTX,
+            nwords=knobs["nwords"])):
+        _eq(a, b)

@@ -39,7 +39,8 @@ def test_level_kernel_table_equal():
     "HISTORY_LEN", "MAX_STORED_BLOCK", "SHARD_LEN", "NUM_LITLEN",
     "NUM_LITLEN_CODES", "NUM_DIST", "NUM_DIST_CODES", "NUM_CODEGEN",
     "END_OF_BLOCK", "MAX_CODE_BITS", "MAX_CODEGEN_BITS", "CODEGEN_ORDER",
-    "HASH_MUL", "LEVEL_DEFAULT"])
+    "HASH_MUL", "LEVEL_DEFAULT", "LOOKUP_BITS", "LEVEL_PARAMS", "LEVEL_FAST",
+    "LEVEL_BEST"])
 def test_consts_equal(name):
     assert getattr(consts, name) == getattr(j_consts, name)
 
@@ -47,7 +48,8 @@ def test_consts_equal(name):
 @pytest.mark.parametrize("name", [
     "LENGTH_EXTRA_BITS", "LENGTH_BASE", "DIST_EXTRA_BITS", "DIST_BASE",
     "FIXED_LITLEN_LENS", "FIXED_DIST_LENS", "CODEGEN_ORDER",
-    "FIXED_LITLEN_CODES", "FIXED_DIST_CODES"])
+    "FIXED_LITLEN_CODES", "FIXED_DIST_CODES", "LENGTH_TO_CODE",
+    "DIST_TO_CODE"])
 def test_tables_equal(name):
     a, b = getattr(tables, name), getattr(j_tables, name)
     assert a.dtype == b.dtype
@@ -320,6 +322,20 @@ def test_level_params():
             pipeline2.level_params(level)
 
 
+def test_round1_level_knobs():
+    """The round-1 encoder's phase1 knobs follow the JAX package's level
+    table (jx/pipeline.py:294, :326-327)."""
+    from flate_tpu_torch.device import pipeline
+    for level in range(1, 10):
+        K, _nice, lazy, max_lazy = j_consts.LEVEL_PARAMS[level]
+        assert pipeline.level_knobs(level) == dict(
+            K=K, K3=min(8, K), lazy=lazy, max_lazy=max_lazy,
+            nwords=16 if level >= 6 else 8)
+    for level in (0, 10, -2):
+        with pytest.raises(ValueError):
+            pipeline.level_knobs(level)
+
+
 def test_cuda_default_raises_without_card():
     """The entry points run on "cuda" unless told otherwise, and raise when
     there is no card rather than run on the CPU."""
@@ -358,7 +374,10 @@ def test_port_imports_no_jax_and_no_flate_tpu():
         "import flate_tpu_torch.cli.gzip_cli, flate_tpu_torch.cli.gunzip_cli\n"
         "from flate_tpu_torch.device import anyinflate, bitonic, checksum, "
         "encode, encode2, header, huff, inflate2, match2, onehot, pack, "
-        "parse, pipeline2, runs, scan, squeeze\n"
+        "parse, pipeline, pipeline2, runs, scan, squeeze\n"
+        "from flate_tpu_torch.device import match\n"
+        "from flate_tpu_torch import bitpack, block, deflate, huffman\n"
+        "from flate_tpu_torch.parallel import pigz\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or "
         "m.startswith('jax.') or m == 'flate_tpu' or "
