@@ -158,17 +158,35 @@ Phases, one line each:
      parallel.pigz.compress_mesh on a one-rank NCCL group (FileStore
      under build/) on 2 MiB + 12,345 bytes at level 6 must equal
      compress_device (batch 1).
+ 16. the rest of the decode API (no new kernel; S1, B6 and B7 run in every
+     step): phase 13's foreign stream through zlib.decompressor(io.BytesIO
+     (...)) read in (1 << 20) + 17-byte pieces at the Decompressor's
+     WINDOW, a quarter and four times it, and phase 8's 32 MiB level-6
+     gzip member (chains from its FLT1 shard offsets: no scan, no false
+     head) at WINDOW and a quarter, each equal to the input, with launch
+     counters and decode stats set to 0 just before and read just after:
+     S1, B6 and B7 must launch on the foreign stream; seconds and GB/s
+     beside the one-shot's of phases 13 and 8, steps, chain heads and
+     rounds a step, false heads, window grows, peak input and output
+     buffer bytes; phase 8's 8 MiB member followed by a foreign gzip
+     member, whose routes (metrics records) must be indexed then chained;
+     phase 10's FDICT member and zlib.compressobj(zdict=32 KiB) over 8 MiB
+     decoded with dictionary= (one-shot and streamed); the two streams of
+     too_far_streams must raise InvalidMatch; gzip.huffman and gzip.store
+     round trips of 8 MiB; roundtrip_cli and decompress_cli in this
+     process (exit codes 0, 0, 1, 1); metrics.summary().
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 165 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
+About 215 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
 and 10 ~30-55 s, the plain versions' host loops ~25 s, phases 13 and 14
-~15 s, phase 15 ~15 s with its CPU twins).
+~15 s, phase 15 ~15 s with its CPU twins, phase 16 ~35 s).
 """
 
 from __future__ import annotations
 
+import gzip
 import io
 import json
 import os
@@ -356,6 +374,27 @@ def big_block_streams():
          mem9(zeros9[:40000], 15, zlib.Z_HUFFMAN_ONLY), zeros9[:40000]),
         ("gzip_zeros_9mib_mem9", "GZIP", mem9(zeros9, 31), zeros9),
     ]
+
+
+def too_far_streams():
+    """(container name, stream) of a match that reaches before the
+    stream's start: a raw fixed block of the literal "a", a match of
+    length 3 at distance 2 and the end of block, and the same body as a
+    zlib member whose footer is the Adler-32 of the zero-filled b"a\0a\0".
+    CPython's zlib rejects both ("invalid distance too far back"), the JAX
+    package raises InvalidMatch, and so must the port."""
+    def rev(v, n):
+        return int(format(v, f"0{n}b")[::-1], 2)
+
+    fields = [(1, 1), (1, 2), (rev(0x30 + 97, 8), 8), (rev(1, 7), 7),
+              (rev(1, 5), 5), (rev(0, 7), 7)]
+    v = n = 0
+    for val, width in fields:
+        v |= val << n
+        n += width
+    raw = v.to_bytes((n + 7) // 8, "little")
+    member = b"\x78\x01" + raw + zlib.adler32(b"a\0a\0").to_bytes(4, "big")
+    return [("RAW", raw), ("ZLIB", member)]
 
 
 def main() -> int:
@@ -879,7 +918,8 @@ def main() -> int:
                 if api.gzip.decompress(blob) != data:
                     raise AssertionError("level 6: the port's own decode "
                                          "differs from the input")
-                line += f"; own decode ok in {time.time() - t:.4f} s"
+                own6_secs = time.time() - t
+                line += f"; own decode ok in {own6_secs:.4f} s"
             sized = {"text": api.gzip.compress(text, level=L),
                      "mixed 8 MiB": blob if data is data8
                      else api.gzip.compress(data8, level=L)}
@@ -1317,7 +1357,7 @@ def main() -> int:
     inflate2.STATS.clear()
     t = time.time()
     got = api.zlib.decompress(foreign)
-    secs = time.time() - t
+    secs = foreign_secs = time.time() - t
     counts = dict(_build.LAUNCHES)
     stats = dict(inflate2.STATS)
     launches["decode", "e"] = counts
@@ -1385,6 +1425,9 @@ def main() -> int:
               flush=True)
 
     phase15(dev, api, _build)
+    phase16(api, _build, inflate2, data32, foreign, foreign_secs,
+            blobs["mixed 32 MiB", 6], own6_secs, blobs["mixed 8 MiB", 6],
+            with_d, zd)
 
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)
@@ -1544,6 +1587,168 @@ def phase15(dev, api, _build) -> None:
     print(f"[15] pigz.compress_mesh on a one-rank NCCL mesh, 2 MiB + 12345 "
           f"at level 6: bytes == compress_device(batch=1) ({len(blob)}); "
           f"{secs:.4f} s = {len(mesh_data) / secs / 1e9:.4f} GB/s", flush=True)
+
+
+def stream_read(api, _build, inflate2, container: str, blob: bytes,
+                window: int, piece: int = (1 << 20) + 17, dictionary=None):
+    """blob through api.<container>.decompressor(io.BytesIO(blob)) at a
+    decode window of `window` bytes, read `piece` bytes at a time; launch
+    counters and decode stats set to 0 just before, read just after.
+    Returns (output, seconds, Decompressor.stats, launches, stats)."""
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    inflate2.STATS.clear()
+    t = time.time()
+    d = getattr(api, container).decompressor(io.BytesIO(blob),
+                                             dictionary=dictionary)
+    d.WINDOW = window
+    parts = []
+    while chunk := d.read(piece):
+        parts.append(chunk)
+    secs = time.time() - t
+    return (b"".join(parts), secs, dict(d.stats), dict(_build.LAUNCHES),
+            dict(inflate2.STATS))
+
+
+def run_cli(main, data: bytes, argv) -> int:
+    """main(argv) with `data` as its standard input, in this process."""
+    saved = sys.stdin
+    sys.stdin = type("Stdin", (), {"buffer": io.BytesIO(data)})()
+    try:
+        return main(argv)
+    finally:
+        sys.stdin = saved
+
+
+def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
+            own6_secs, member8, fdict_member, zd) -> None:
+    """The rest of the decode API on the card: the streaming Decompressor,
+    concatenated members of both routes, dictionaries, the too-far-back
+    streams, the huffman and store modes, the two CLIs and the metrics."""
+    from flate_tpu_torch import errors, metrics
+    from flate_tpu_torch.cli import decompress_cli, roundtrip_cli
+    window = api.Decompressor.WINDOW
+    for name, container, blob, oneshot, windows in (
+            ("zlib.compress(32 MiB mixed, 6)", "zlib", foreign, foreign_secs,
+             (window, window // 4, window * 4)),
+            ("phase 8's level-6 gzip member (FLT1)", "gzip", member6,
+             own6_secs, (window, window // 4))):
+        for w in windows:
+            got, secs, dstats, counts, stats = stream_read(
+                api, _build, inflate2, container, blob, w)
+            if got != data32:
+                raise AssertionError(f"stream {name}, window {w}: output "
+                                     f"differs from the input")
+            if container == "zlib":
+                for k in ("flate_scan_headers", "flate_lane_walk",
+                          "flate_walk"):
+                    if counts.get(k, 0) <= 0:
+                        raise AssertionError(f"stream {name}: {k} not "
+                                             f"launched: {counts}")
+            elif stats.get("false_heads", 0) or \
+                    counts.get("flate_scan_headers", 0):
+                raise AssertionError(f"stream {name}: a chain head off the "
+                                     f"chain, or a scan: {stats} {counts}")
+            steps = dstats["steps"]
+            print(f"[16] {container}.decompressor(io.BytesIO({name}, "
+                  f"{len(blob)} bytes)) at a {w}-byte window, reads of "
+                  f"(1 << 20) + 17: == input in {secs:.4f} s = "
+                  f"{len(data32) / secs / 1e9:.4f} GB/s (one-shot "
+                  f"{oneshot:.4f} s = {len(data32) / oneshot / 1e9:.4f} "
+                  f"GB/s); {steps} steps, chain heads a step "
+                  f"{stats.get('chain_heads', 0) / steps:.2f}, rounds a step "
+                  f"{stats.get('chained_rounds', 0) / steps:.2f}, false "
+                  f"heads {stats.get('false_heads', 0)}, window grows "
+                  f"{dstats.get('window_grows', 0)}; peak input "
+                  f"{dstats['input_peak']} bytes, peak output buffer "
+                  f"{dstats['output_peak']} bytes; launches S1 "
+                  f"{counts.get('flate_scan_headers', 0)}, B6 "
+                  f"{counts.get('flate_lane_walk', 0)}, B7 "
+                  f"{counts.get('flate_walk', 0)} ({counts}); stats {stats}",
+                  flush=True)
+
+    metrics.reset()
+    metrics.enable()
+    other = text_corpus(3 << 20)
+    two = member8 + gzip.compress(other, 6)
+    t = time.time()
+    if api.gzip.decompress(two) != data32[:B * S] + other:
+        raise AssertionError("indexed + foreign gzip members: output differs")
+    secs = time.time() - t
+    routes = [r["op"] for r in metrics.records() if r["op"].startswith(
+        "device.")]
+    if routes != ["device.decompress_indexed", "device.decompress_any"]:
+        raise AssertionError(f"indexed + foreign members: routes {routes}")
+    print(f"[16] gzip.decompress(phase 8's 8 MiB level-6 member + "
+          f"gzip.compress(3 MiB text)) in {secs:.4f} s: member routes "
+          f"{routes}", flush=True)
+
+    d32 = text_corpus(32 * 1024)
+    c = zlib.compressobj(6, zdict=d32)
+    zb = c.compress(data32[:B * S]) + c.flush()
+    t = time.time()
+    ok = (api.zlib.decompress(fdict_member, dictionary=zd) == zd * 4
+          and api.zlib.decompress(zb, dictionary=d32) == data32[:B * S])
+    secs = time.time() - t
+    got, ssecs, dstats, counts, _ = stream_read(
+        api, _build, inflate2, "zlib", zb, window, dictionary=d32)
+    if not ok or got != data32[:B * S]:
+        raise AssertionError("dictionary members: output differs")
+    print(f"[16] phase 10's FDICT member and zlib.compressobj(6, zdict=32 "
+          f"KiB text) over 8 MiB mixed ({len(zb)} bytes) decoded with "
+          f"dictionary=: == input in {secs:.4f} s; the 8 MiB through the "
+          f"Decompressor {ssecs:.4f} s, {dstats['steps']} steps, launches "
+          f"{counts}", flush=True)
+
+    for container, blob in too_far_streams():
+        ns = api.flate if container == "RAW" else api.zlib
+        try:
+            ns.decompress(blob)
+        except errors.InvalidMatch as e:
+            print(f"[16] {container} stream of a match before its start "
+                  f"({blob.hex()}): InvalidMatch ({e})", flush=True)
+        else:
+            raise AssertionError(f"{container} too far back: no error")
+
+    data8 = data32[:B * S]
+    for mode in ("huffman", "store"):
+        sub = getattr(api.gzip, mode)
+        t = time.time()
+        blob = sub.compress(data8)
+        csecs = time.time() - t
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t = time.time()
+        got = api.gzip.decompress(blob)
+        dsecs = time.time() - t
+        if got != data8 or zlib.decompress(blob, 31) != data8:
+            raise AssertionError(f"{mode}: 8 MiB round trip differs")
+        print(f"[16] gzip.{mode}.compress(8 MiB mixed) on the host: "
+              f"{len(blob)} bytes in {csecs:.4f} s; gzip.decompress on the "
+              f"card {dsecs:.4f} s = {len(data8) / dsecs / 1e9:.4f} GB/s, "
+              f"launches {dict(_build.LAUNCHES)}; zlib agrees", flush=True)
+
+    small = text_corpus(100_000)
+    raw = zlib.compress(small, 6)[2:-4]
+    codes = {
+        "roundtrip_cli (100,000 bytes text)":
+            (run_cli(roundtrip_cli.main, small, []), 0),
+        "decompress_cli (its raw level-6 stream)":
+            (run_cli(decompress_cli.main, raw, []), 0),
+        "decompress_cli (cut 9 bytes short)":
+            (run_cli(decompress_cli.main, raw[:-9], []), 1),
+        "decompress_cli (a match before the start)":
+            (run_cli(decompress_cli.main, too_far_streams()[0][1], []), 1),
+    }
+    for what, (rc, want) in codes.items():
+        if rc != want:
+            raise AssertionError(f"{what}: exit {rc}, expected {want}")
+    print(f"[16] CLIs on the card, exit codes: "
+          f"{ {k: v[0] for k, v in codes.items()} }", flush=True)
+    print(f"[16] metrics.summary() of phase 16 after the streams: "
+          f"{json.dumps(metrics.summary())}", flush=True)
+    metrics.disable()
+    metrics.reset()
 
 
 if __name__ == "__main__":

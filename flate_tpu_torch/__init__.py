@@ -6,11 +6,16 @@ side).
     blob = ftt.gzip.compress(data, level=1)          # runs on "cuda"
     data = ftt.gzip.decompress(blob)                 # runs on "cuda"
     c = ftt.gzip.compressor(writer, level=6)         # streaming, on "cuda"
+    d = ftt.gzip.decompressor(reader)                # streaming, on "cuda"
+    ftt.metrics.enable(); ...; ftt.metrics.summary() # per-op GB/s
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 a missing card raises.  Kernels build with nvcc at first use.
 """
 
-from .api import flate, gzip, zlib
+from . import errors, metrics
+from .api import Compressor, Decompressor, flate, gzip, zlib
+from .containers import Container, GzipMetadata
 
-__all__ = ["gzip", "zlib", "flate"]
+__all__ = ["gzip", "zlib", "flate", "Compressor", "Decompressor",
+           "Container", "GzipMetadata", "errors", "metrics"]

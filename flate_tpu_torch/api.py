@@ -5,54 +5,79 @@
     blob = ftt.zlib.compress(data, level=3, device="cpu")
     blob = ftt.zlib.compress(data, dictionary=d)         # FDICT member
     data = ftt.gzip.decompress(blob)                     # on the CUDA card
-    data = ftt.gzip.decompress(blob, device="cpu", walk="serial")
+    data = ftt.zlib.decompress(blob, dictionary=d, device="cpu")
+    ftt.gzip.decompress(reader, writer)                  # streams
 
     c = ftt.gzip.compressor(out, level=6, meta=GzipMetadata(filename=b"x"))
     c.write(part1); c.flush()        # out now holds a decodable prefix
     c.write(part2); c.finish()
 
-Each namespace runs the one-shot device encode (device/pipeline2.py
-compress_device2, levels 1-9), the streaming device encode
-(Compressor over pipeline2.DeviceEncoder) and the device decode
-(device/inflate2.py, device/anyinflate.py) with its container.
+    d = ftt.gzip.decompressor(reader)                    # on the CUDA card
+    while chunk := d.read(1 << 20): ...
+
+Each namespace (gzip, zlib, flate) has the JAX package's surface:
+compress, decompress, compressor, decompressor, Compressor, Decompressor
+and the huffman / store sub-modes.  It runs the one-shot device encode
+(device/pipeline2.py compress_device2, levels 1-9), the streaming device
+encode (Compressor over pipeline2.DeviceEncoder) and the device decode
+(device/inflate2.py, device/anyinflate.py) with its container.  The
+huffman and store modes write their blocks on the host, as the JAX
+package does; their streams decode on the device like any other.
 """
 
 from __future__ import annotations
 
+import collections
 import io
+import time
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 
-from . import consts
-from .containers import (Container, GzipMetadata, Hasher, write_footer,
-                         write_header)
+from . import consts, metrics
+from .bitpack import BitSink
+from .block import write_flush_marker, write_huffman_only, write_stored
+from .containers import (Container, GzipMetadata, Hasher, parse_footer,
+                         parse_header, write_footer, write_header)
 from .device import anyinflate, inflate2, pipeline2, resolve_device
+from .errors import EndOfStream
+from .shard_index import parse_index_extra
 
 # An empty stored block, byte-aligned, written on a fresh byte: the
 # flush()/Z_SYNC_FLUSH marker (bits 000, pad, then 00 00 FF FF)
 FLUSH_MARKER = b"\x00\x00\x00\xff\xff"
 
+_BYTES = (bytes, bytearray, memoryview)
+
 
 class Compressor:
-    """Streaming device compressor: write()/flush()/finish(), reset(),
+    """Streaming compressor: write()/flush()/finish(), reset(),
     set_writer(), close().
 
-    Buffers input into batches of `batch` shards of `shard_len` bytes and
-    encodes each on the device (pipeline2.DeviceEncoder).  Every shard
-    stream ends byte-aligned, so everything written to the writer is a
-    decodable prefix; flush() encodes what is buffered, or writes the sync
-    marker when nothing is.  The header carries `meta` (gzip) or the preset
-    `dictionary`'s id (zlib); the dictionary also primes the match
-    context.  The container checksum is taken on the host as data is
-    written."""
+    mode "deflate" (the default) buffers input into batches of `batch`
+    shards of `shard_len` bytes and encodes each on the device
+    (pipeline2.DeviceEncoder).  Every shard stream ends byte-aligned, so
+    everything written to the writer is a decodable prefix; flush()
+    encodes what is buffered, or writes the sync marker when nothing is.
+    The header carries `meta` (gzip) or the preset `dictionary`'s id
+    (zlib); the dictionary also primes the match context.
+
+    The huffman_only() and store_only() compressors (modes "huffman" and
+    "store") write literal-only or stored blocks on the host, a block a
+    `shard_len` shard, each followed by the sync marker, as the JAX
+    package's Compressor does.  The container checksum is taken on the
+    host as data is written."""
 
     def __init__(self, writer, container: Container = Container.RAW,
                  level: int = consts.LEVEL_DEFAULT, *,
                  meta: Optional[GzipMetadata] = None,
                  dictionary: Optional[bytes] = None,
                  shard_len: int = consts.SHARD_LEN, ctx: int = pipeline2.CTX,
-                 batch: int = 64, device: str | torch.device = "cuda"):
+                 batch: int = 64, device: str | torch.device = "cuda",
+                 mode: str = "deflate"):
+        if mode not in ("deflate", "huffman", "store"):
+            raise ValueError(f"unknown mode {mode!r}")
         self._writer = writer
         self._container = container
         self._level = level
@@ -60,15 +85,30 @@ class Compressor:
         self._dictionary = dictionary
         self._shard_len, self._ctx, self._batch = shard_len, ctx, batch
         self._device = device
+        self._mode = mode
         self._start()
+
+    @classmethod
+    def huffman_only(cls, writer, container: Container = Container.RAW,
+                     meta: Optional[GzipMetadata] = None) -> "Compressor":
+        """A compressor of literal-only blocks (no matches)."""
+        return cls(writer, container, meta=meta, mode="huffman")
+
+    @classmethod
+    def store_only(cls, writer, container: Container = Container.RAW,
+                   meta: Optional[GzipMetadata] = None) -> "Compressor":
+        """A compressor of stored blocks."""
+        return cls(writer, container, meta=meta, mode="store")
 
     def _start(self) -> None:
         # the encoder first: an unknown level or missing card raises before
         # the header is written
-        self._enc = pipeline2.DeviceEncoder(
-            level=self._level, shard_len=self._shard_len, ctx=self._ctx,
-            batch=self._batch, dictionary=self._dictionary,
-            device=self._device)
+        self._enc = None
+        if self._mode == "deflate":
+            self._enc = pipeline2.DeviceEncoder(
+                level=self._level, shard_len=self._shard_len, ctx=self._ctx,
+                batch=self._batch, dictionary=self._dictionary,
+                device=self._device)
         self._hasher = Hasher(self._container)
         self._buf = bytearray()
         self._finished = False
@@ -79,11 +119,34 @@ class Compressor:
         if self._finished:
             raise ValueError(f"{what} after finish")
 
+    def _host_shard(self, n: int, final: bool) -> None:
+        """Write the first `n` buffered bytes as one huffman or store
+        block, then the sync marker unless final (a bare marker when
+        there is nothing to write)."""
+        chunk = bytes(self._buf[:n])
+        del self._buf[:n]
+        sink = BitSink()
+        if chunk or final:
+            if self._mode == "store":
+                write_stored(sink, chunk, final)
+            else:
+                write_huffman_only(sink, chunk, final)
+        if final:
+            sink.align_to_byte()
+        else:
+            write_flush_marker(sink)
+        self._writer.write(sink.getvalue())
+
     def write(self, data: bytes) -> int:
-        """Buffer `data`; encode and write every whole batch."""
+        """Buffer `data`; encode and write every whole batch (every shard
+        but the last buffered one, in the host modes)."""
         self._check_open("write")
         self._hasher.update(data)
         self._buf += data
+        if self._enc is None:
+            while len(self._buf) > self._shard_len:
+                self._host_shard(self._shard_len, final=False)
+            return len(data)
         step = self._batch * self._shard_len
         while len(self._buf) >= step:
             chunk = bytes(self._buf[:step])
@@ -94,7 +157,9 @@ class Compressor:
     def flush(self) -> None:
         """Byte-sync everything written so far (network-protocol flush)."""
         self._check_open("flush")
-        if self._buf:
+        if self._enc is None:
+            self._host_shard(len(self._buf), final=False)
+        elif self._buf:
             chunk = bytes(self._buf)
             self._buf.clear()
             self._writer.write(self._enc.encode(chunk))
@@ -104,9 +169,12 @@ class Compressor:
     def finish(self) -> None:
         """Encode the rest as the final block, then write the footer."""
         self._check_open("finish")
-        chunk = bytes(self._buf)
-        self._buf.clear()
-        self._writer.write(self._enc.encode(chunk, final=True))
+        if self._enc is None:
+            self._host_shard(len(self._buf), final=True)
+        else:
+            chunk = bytes(self._buf)
+            self._buf.clear()
+            self._writer.write(self._enc.encode(chunk, final=True))
         self._writer.write(write_footer(self._container, self._hasher))
         self._finished = True
 
@@ -124,9 +192,284 @@ class Compressor:
             self.finish()
 
 
+class _Member:
+    """Where the streaming decode of one member stands."""
+
+    __slots__ = ("body", "bit", "hist", "entries", "window", "done")
+
+    def __init__(self, body: int, hist: bytes, entries, window: int):
+        self.body = body             # stream offset of the member body
+        self.bit = 0                 # next block's bit in the body
+        self.hist = hist             # last CTX bytes of history
+        self.entries = entries       # FLT1 shard starts (body bits) or None
+        self.window = window         # compressed bytes the next step covers
+        self.done = False            # the final block is decoded
+
+
+class Decompressor:
+    """Streaming device decompressor: read(n)/read_all()/decompress(writer),
+    reset(), at_end(), set_reader().
+
+    A reader is pulled FETCH bytes at a time and the consumed prefix is
+    dropped past TRIM, so input memory stays bounded whatever the stream's
+    size.  Each step decodes the member's blocks in the next WINDOW
+    compressed bytes, from the block boundary where the last step stopped,
+    on the device (anyinflate.decode_step): chains from that bit and from
+    the scanner's entry in each eighth of the window (at most
+    anyinflate.CHUNK_BYTES apart), or from the FLT1 shard offsets where the
+    gzip header has them, with the member's last 32 KiB of output (or its
+    preset dictionary) as history.  A step resolves at most OUT_CAP bytes.
+    A block that runs off the window waits for the next step; the window
+    grows only while one block does not fit it, and only at the end of the
+    input does a block that runs off it raise EndOfStream.
+
+    Payload is served from an output buffer and checksummed as it is
+    served; the footer is checked on the read after the last payload byte.
+    reset() goes on with the next concatenated member."""
+
+    CHUNK = 1 << 16              # decompress(writer)'s read size
+    FETCH = 1 << 20              # reader pull granularity
+    TRIM = 1 << 22               # drop the consumed prefix beyond this
+    WINDOW = 8 << 20             # compressed bytes a decode step covers
+    OUT_CAP = 64 << 20           # output bytes a step resolves at most
+
+    def __init__(self, reader, container: Container = Container.RAW,
+                 verify: bool = True, dictionary: Optional[bytes] = None, *,
+                 device: str | torch.device = "cuda"):
+        self._dev = resolve_device(device)
+        self._container = container
+        self._verify = verify
+        self._dictionary = dictionary
+        if isinstance(reader, _BYTES):
+            self._src, self._data, self._eof = None, bytearray(reader), True
+        else:
+            self._src, self._data, self._eof = reader, bytearray(), False
+        self._base = 0           # stream offset of self._data[0]
+        self._pos = 0            # stream offset of the member (or its end)
+        # steps, window_grows, input_peak, output_peak
+        self.stats: collections.Counter = collections.Counter()
+        self.reset()
+
+    # -- input ------------------------------------------------------------
+    def _fetch(self) -> bool:
+        """Pull one chunk from the source; False at its end."""
+        if self._eof:
+            return False
+        chunk = self._src.read(self.FETCH)
+        if not chunk:
+            self._eof = True
+            return False
+        self._data += chunk
+        self.stats["input_peak"] = max(self.stats["input_peak"],
+                                       len(self._data))
+        return True
+
+    def _end(self) -> int:
+        return self._base + len(self._data)
+
+    def _fill(self, upto: int) -> None:
+        """Fetch until the input reaches stream offset `upto` or ends."""
+        while self._end() < upto and self._fetch():
+            pass
+
+    def _slice(self, lo: int, hi: int) -> bytes:
+        return bytes(self._data[lo - self._base:hi - self._base])
+
+    def _trim(self) -> None:
+        """Drop the consumed input prefix once it passes TRIM."""
+        keep = self._pos
+        if self._m is not None and not self._member_done:
+            keep = self._m.body + (self._m.bit >> 3)
+        if keep - self._base >= self.TRIM:
+            del self._data[:keep - self._base]
+            self._base = keep
+
+    # -- one member ---------------------------------------------------------
+    def _start_member(self) -> None:
+        while True:
+            try:
+                hdr, meta = parse_header(
+                    self._container, self._slice(self._pos, self._end()),
+                    allow_dict=self._dictionary is not None)
+                break
+            except EndOfStream:
+                if not self._fetch():
+                    raise
+        entries = None
+        idx = parse_index_extra(meta.extra) if meta and meta.extra else None
+        if idx is not None:
+            comp_lens = idx[0]
+            entries = [8 * int(s) for s in comp_lens.cumsum() - comp_lens]
+        self._m = _Member(self._pos + hdr,
+                          anyinflate.history(self._dictionary), entries,
+                          self.WINDOW)
+        self._hasher = Hasher(self._container)
+
+    def _step(self) -> None:
+        """Decode the next window of the member into the output buffer."""
+        m = self._m
+        while True:
+            b0 = m.body + (m.bit >> 3)
+            hi = b0 + m.window
+            self._fill(hi)
+            win = self._slice(b0, hi)
+            start = m.bit & 7
+            entries = None
+            if m.entries is not None:
+                entries = [e - 8 * (b0 - m.body) for e in m.entries]
+            kw = dict(entries=entries, device=self._dev,
+                      chunk_bytes=min(anyinflate.CHUNK_BYTES,
+                                      max(m.window // 8, 1)),
+                      out_cap=self.OUT_CAP)
+            out, stop, done, hist = anyinflate.decode_step(
+                win, start, m.hist, final_input=False, **kw)
+            if stop == start and not done:
+                if self._end() > hi or not self._eof:
+                    # one block does not fit the window: grow it
+                    m.window *= 2
+                    self.stats["window_grows"] += 1
+                    continue
+                # the input has ended: the block's own error
+                out, stop, done, hist = anyinflate.decode_step(
+                    win, start, m.hist, final_input=True, **kw)
+            break
+        self.stats["steps"] += 1
+        m.bit = 8 * (b0 - m.body) + stop
+        m.hist = hist
+        m.done = done
+        m.window = self.WINDOW
+        if self._out_pos:
+            del self._out[:self._out_pos]
+            self._out_pos = 0
+        self._out += out
+        self.stats["output_peak"] = max(self.stats["output_peak"],
+                                        len(self._out))
+        self._trim()
+
+    def _finish_member(self) -> None:
+        """Check the footer and move past it."""
+        m = self._m
+        end = m.body + (m.bit + 7) // 8
+        if self._container is not Container.RAW:
+            size = self._container.footer_size
+            self._fill(end + size)
+            if self._verify:
+                size = parse_footer(self._container,
+                                    self._slice(end, end + size),
+                                    self._hasher)
+            elif self._end() < end + size:
+                raise EndOfStream("footer truncated")
+            end += size
+        self._pos = end
+        self._member_done = True
+
+    # -- public -------------------------------------------------------------
+    def read(self, n: int = -1) -> bytes:
+        """Up to `n` bytes of the member (all of it when n < 0); b"" once
+        the member has been served and its footer checked."""
+        if self._member_done:
+            return b""
+        if self._m is None:
+            self._start_member()
+        m = self._m
+        while not m.done and (n < 0 or len(self._out) - self._out_pos < n):
+            self._step()
+        hi = len(self._out) if n < 0 else self._out_pos + n
+        chunk = bytes(self._out[self._out_pos:hi])
+        self._out_pos += len(chunk)
+        if self._verify:
+            self._hasher.update(chunk)
+        else:
+            self._hasher.nbytes += len(chunk)
+        if m.done and self._out_pos == len(self._out) and (n < 0
+                                                           or not chunk):
+            self._finish_member()
+        return chunk
+
+    def read_all(self) -> bytes:
+        return self.read(-1)
+
+    def decompress(self, writer) -> None:
+        """Stream the member to `writer`, CHUNK bytes a write."""
+        while chunk := self.read(self.CHUNK):
+            writer.write(chunk)
+
+    def reset(self) -> None:
+        """Prepare for the next concatenated member."""
+        self._m: Optional[_Member] = None
+        self._hasher: Optional[Hasher] = None
+        self._member_done = False
+        self._out = bytearray()
+        self._out_pos = 0
+
+    def at_end(self) -> bool:
+        """Whether no input follows the last finished member."""
+        self._fill(self._pos + 1)
+        return self._pos >= self._end()
+
+    def set_reader(self, reader) -> None:
+        """Go on with more input, mid-member too: bytes are appended to the
+        input; a file-like object becomes the source pulled from."""
+        if not isinstance(reader, _BYTES):
+            self._src, self._eof = reader, False
+            return
+        self._data += reader
+        self._trim()
+
+
+def decode_members(data: bytes, container: Container, verify: bool = True,
+                   dictionary: Optional[bytes] = None, *,
+                   device: str | torch.device = "cuda", batch: int = 8,
+                   walk: str | None = None) -> bytes:
+    """Every member of `data`, in order, on the device: one with the FLT1
+    index shard-parallel (inflate2), any other as chains of blocks
+    (anyinflate).  Bytes after a member are read as the next member, so
+    trailing bytes that are not one raise.  With a dictionary, the one
+    member at the start (chained, with the dictionary as its history),
+    as the JAX package decodes it."""
+    dev = resolve_device(device)
+    if dictionary is not None:
+        out, _ = anyinflate._decompress_member_any(
+            data, 0, container, verify, dev, dictionary=dictionary)
+        return out
+    out = bytearray()
+    offset = 0
+    while offset < len(data):
+        t = time.perf_counter()
+        try:
+            chunk, end = inflate2.decompress_member_device(
+                data, offset, container, batch, verify, device=dev,
+                walk=walk)
+            op = "device.decompress_indexed"
+        except LookupError:
+            chunk, end = anyinflate._decompress_member_any(
+                data, offset, container, verify, dev)
+            op = "device.decompress_any"
+        metrics.record(op, end - offset, len(chunk), time.perf_counter() - t)
+        out += chunk
+        offset = end
+    return bytes(out)
+
+
 class _Namespace:
     def __init__(self, container: Container):
-        self._container = container
+        self.container = container
+        self._name = container.name.lower()
+        self.Compressor = Compressor
+        self.Decompressor = Decompressor
+        self.huffman = self._sub_mode("huffman")
+        self.store = self._sub_mode("store")
+
+    def _sub_mode(self, mode: str) -> SimpleNamespace:
+        def compress(data, writer=None, meta=None):
+            return self._compress(data, writer, meta, mode=mode)
+
+        def compressor(writer, meta=None):
+            return Compressor(writer, self.container, meta=meta, mode=mode)
+
+        return SimpleNamespace(compress=compress, decompress=self.decompress,
+                               compressor=compressor,
+                               decompressor=self.decompressor)
 
     def compressor(self, writer, level: int = consts.LEVEL_DEFAULT, *,
                    meta: Optional[GzipMetadata] = None,
@@ -135,9 +478,17 @@ class _Namespace:
                    ctx: int = pipeline2.CTX, batch: int = 64,
                    device: str | torch.device = "cuda") -> Compressor:
         """A streaming Compressor of this container writing to `writer`."""
-        return Compressor(writer, self._container, level, meta=meta,
+        return Compressor(writer, self.container, level, meta=meta,
                           dictionary=dictionary, shard_len=shard_len,
                           ctx=ctx, batch=batch, device=device)
+
+    def decompressor(self, reader, verify: bool = True,
+                     dictionary: Optional[bytes] = None, *,
+                     device: str | torch.device = "cuda") -> Decompressor:
+        """A streaming Decompressor of this container reading `reader`
+        (bytes or a file-like object)."""
+        return Decompressor(reader, self.container, verify, dictionary,
+                            device=device)
 
     def compress(self, data, level: int = consts.LEVEL_DEFAULT, *,
                  writer=None, meta: Optional[GzipMetadata] = None,
@@ -153,30 +504,49 @@ class _Namespace:
         (gzip: with the FLT1 shard index that lets the decode run
         shard-parallel); a reader, `meta` or `dictionary` stream through
         the Compressor."""
-        kw = dict(shard_len=shard_len, ctx=ctx, batch=batch, device=device)
-        is_bytes = isinstance(data, (bytes, bytearray, memoryview))
-        if is_bytes and meta is None and dictionary is None:
-            blob = pipeline2.compress_device2(
-                bytes(data), level=level, container=self._container, **kw)
-            if writer is None:
-                return blob
-            writer.write(blob)
-            return None
-        out = io.BytesIO() if writer is None else writer
-        c = self.compressor(out, level, meta=meta, dictionary=dictionary,
-                            **kw)
-        if is_bytes:
-            c.write(data)
-        else:
-            while chunk := data.read(batch * shard_len):
-                c.write(chunk)
-        c.finish()
-        return out.getvalue() if writer is None else None
+        return self._compress(data, writer, meta, level=level,
+                              dictionary=dictionary, shard_len=shard_len,
+                              ctx=ctx, batch=batch, device=device)
 
-    def decompress(self, data: bytes, *,
+    def _compress(self, data, writer, meta, *, mode: str = "deflate",
+                  level: int = 0, dictionary=None, **kw):
+        is_bytes = isinstance(data, _BYTES)
+        nbytes = len(data) if is_bytes else 0
+        with metrics.timed(f"{self._name}.compress", nbytes, level=level,
+                           mode=mode) as m:
+            if is_bytes and mode == "deflate" and meta is None \
+                    and dictionary is None:
+                blob = pipeline2.compress_device2(
+                    bytes(data), level=level, container=self.container,
+                    **kw)
+            else:
+                out = io.BytesIO() if writer is None else writer
+                c = Compressor(out, self.container, level, meta=meta,
+                               dictionary=dictionary, mode=mode, **kw)
+                if is_bytes:
+                    c.write(data)
+                else:
+                    step = c._shard_len * (c._batch if c._enc else 1)
+                    while chunk := data.read(step):
+                        c.write(chunk)
+                c.finish()
+                if writer is not None:
+                    return None
+                blob = out.getvalue()
+            m["bytes_out"] = len(blob)
+        if writer is None:
+            return blob
+        writer.write(blob)
+        return None
+
+    def decompress(self, data, writer=None, verify: bool = True,
+                   dictionary: Optional[bytes] = None, *,
                    device: str | torch.device = "cuda", batch: int = 8,
-                   walk: str | None = None) -> bytes:
-        """Decompress a stream of this container on `device`.
+                   walk: str | None = None):
+        """Decompress a stream of this container on `device`: bytes, or a
+        reader.  Returns the bytes, or writes them to `writer` and returns
+        None; a reader with a writer streams through the Decompressor,
+        member after member, in bounded memory.
 
         Members that carry the encoder's FLT1 shard index decode
         shard-parallel, `batch` shards at a time (device/inflate2.py).  A
@@ -185,23 +555,37 @@ class _Namespace:
         device as chains of blocks, from bit 0 and from the first
         dynamic-block header the device scanner finds in each further
         512 KiB of the body (device/anyinflate.py, device/scan.py).
-        There is no host decoder to fall back
-        to, and the decode never leaves the named device on its own: a
-        missing card raises DeviceUnavailable.
+        Every concatenated member is decoded; bytes after the last that
+        are not a member raise.  A `dictionary` is the preset history of
+        the one member decoded (zlib: the FDICT member's).  There is no
+        host decoder to fall back to, and the decode never leaves the
+        named device on its own: a missing card raises DeviceUnavailable.
 
         walk: "lanes" (lane walk with join resolve) or "serial" (exact
         serial walk) for the indexed decode; None reads
         FLATE_TPU_INFLATE_WALK from the environment at call time and
-        defaults to "lanes".  Checksums and sizes are verified; corrupt
-        input raises the errors of flate_tpu_torch.errors."""
+        defaults to "lanes".  Checksums and sizes are verified unless
+        verify=False; corrupt input raises the errors of
+        flate_tpu_torch.errors."""
         dev = resolve_device(device)
-        data = bytes(data)
-        try:
-            return inflate2.decompress_device(
-                data, self._container, batch=batch, device=dev, walk=walk)
-        except LookupError:
-            return anyinflate.decompress_device_any(
-                data, self._container, device=dev)
+        if not isinstance(data, _BYTES) and writer is not None:
+            with metrics.timed(f"{self._name}.decompress", 0):
+                d = self.decompressor(data, verify, dictionary, device=dev)
+                while True:
+                    d.decompress(writer)
+                    if d.at_end():
+                        break
+                    d.reset()
+            return None
+        raw = bytes(data) if isinstance(data, _BYTES) else data.read()
+        with metrics.timed(f"{self._name}.decompress", len(raw)) as m:
+            out = decode_members(raw, self.container, verify, dictionary,
+                                 device=dev, batch=batch, walk=walk)
+            m["bytes_out"] = len(out)
+        if writer is None:
+            return out
+        writer.write(out)
+        return None
 
 
 gzip = _Namespace(Container.GZIP)

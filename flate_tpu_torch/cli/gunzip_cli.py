@@ -3,8 +3,8 @@
     python -m flate_tpu_torch.cli.gunzip_cli [-o OUT] [-c]
         [--device cuda|cpu] FILE.gz       -> FILE (or OUT, or stdout)
 
-Reads the whole member and decodes it with flate_tpu_torch.gzip.decompress
-(shard-parallel where the member carries the FLT1 index).
+Streams the file through flate_tpu_torch.gzip.decompress(reader, writer):
+the streaming Decompressor, member after member, in bounded memory.
 """
 
 import argparse
@@ -20,15 +20,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import flate_tpu_torch as ftt
-    with open(args.file, "rb") as f:
-        data = ftt.gzip.decompress(f.read(), device=args.device)
     if args.stdout:
-        sys.stdout.buffer.write(data)
-        return 0
-    path = args.output or (args.file[:-3] if args.file.endswith(".gz")
-                           else args.file + ".out")
-    with open(path, "wb") as out:
-        out.write(data)
+        out, close = sys.stdout.buffer, False
+    else:
+        path = args.output or (args.file[:-3] if args.file.endswith(".gz")
+                               else args.file + ".out")
+        out, close = open(path, "wb"), True
+    try:
+        with open(args.file, "rb") as f:
+            ftt.gzip.decompress(f, writer=out, device=args.device)
+    finally:
+        if close:
+            out.close()
     return 0
 
 

@@ -23,7 +23,13 @@ Counterpart of flate_tpu/jx/anyinflate.py:
    batched consecutively and resolved with a COMPACT output layout (rows
    at cumulative offsets, so cross-block back-references inside a batch
    land on real bytes) and a 32 KiB context carry between batches.
-   Stored blocks are raw byte spans flushed from the host.
+   Stored blocks are raw byte spans flushed from the host.  The context
+   holds only real history (a preset dictionary, then the member's
+   output): a match that reaches before it raises InvalidMatch.
+4. **Streaming steps** (`decode_step`): the same chained decode over a
+   window of a longer member, from a known block boundary and with the
+   history carried from the step before; it stops at the first block that
+   runs off the window, which the next step decodes (api.Decompressor).
 
 Correctness never depends on speculation: join failures re-decode the
 block with the exact serial walk; spans too short to contain the EOB
@@ -39,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import consts, tables
+from .. import consts, metrics, tables
 from .. import inflate as hinf
 from ..containers import Container, Hasher, parse_footer, parse_header
 from ..errors import (
@@ -47,6 +53,7 @@ from ..errors import (
     FlateError,
     InvalidBlockType,
     InvalidCode,
+    InvalidMatch,
     WrongStoredBlockNlen,
 )
 from . import inflate2 as i2
@@ -155,15 +162,18 @@ def symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
     return i2._extract(word, mask, joined, start, NS, G)
 
 
-def resolve_compact(words, counts, out_lens, ctx0, *, S: int):
+def resolve_compact(words, counts, out_lens, ctx0, *, S: int,
+                    hist_len: int = CTX):
     """Parallel LZ resolution with COMPACT row placement.
 
     words (B, NS) compacted symbols of CONSECUTIVE blocks; row b's
     output occupies [CTX + prefix(out_lens)[b], ... + out_lens[b]) of a
     flat buffer, so back-references cross rows exactly like the
     original stream (variable-size blocks — unlike inflate2._resolve
-    whose rows sit at a fixed stride).  Returns (flat (B*S,) u8 whose
-    first sum(out_lens) bytes are the stream, err (B,))."""
+    whose rows sit at a fixed stride).  The last `hist_len` bytes of ctx0
+    are real history; a match that reaches before them is an error.
+    Returns (flat (B*S,) u8 whose first sum(out_lens) bytes are the
+    stream, err (B,))."""
     B, NS = words.shape
     dev = words.device
     out_lens = out_lens.to(torch.int32)
@@ -182,7 +192,7 @@ def resolve_compact(words, counts, out_lens, ctx0, *, S: int):
 
     o_ism, o_dist = i2.propagate_match_fields(live, is_m, offs, dist, S)
     # a match's leftmost source byte is base + offs - dist
-    err = err + (is_m & (base + offs - dist < 0)).sum(dim=1)
+    err = err + (is_m & (base + offs - dist < CTX - hist_len)).sum(dim=1)
     glob, in_range, P = i2.run_pointers(o_ism, o_dist, base, out_lens, S)
     P = torch.clamp(P, 0, T).to(torch.int64)
 
@@ -328,76 +338,148 @@ def decompress_device_any(data: bytes,
                           verify: bool = True, *,
                           chunk_bytes: int = CHUNK_BYTES,
                           device: str | torch.device = "cuda") -> bytes:
-    """Device decode of an arbitrary (unindexed) single/multi-member
-    stream, each member as chains from bit 0 and from the chunk entries
-    the scanner finds every `chunk_bytes` of its body."""
+    """Device decode of an arbitrary (unindexed) stream of one or more
+    concatenated members, each as chains from bit 0 and from the chunk
+    entries the scanner finds every `chunk_bytes` of its body.  Bytes
+    after a member are read as the next member, as the JAX package's
+    public decode reads them: trailing bytes that are not one raise its
+    error."""
     dev = resolve_device(device)
-    out = bytearray()
-    offset = 0
-    while offset < len(data):
-        chunk, offset = _decompress_member_any(
-            data, offset, container, verify, dev, chunk_bytes=chunk_bytes)
-        out += chunk
-        if container is not Container.GZIP:
-            break
+    with metrics.timed("device.decompress_any", len(data)) as m:
+        out = bytearray()
+        offset = 0
+        while offset < len(data):
+            chunk, offset = _decompress_member_any(
+                data, offset, container, verify, dev,
+                chunk_bytes=chunk_bytes)
+            out += chunk
+        m["bytes_out"] = len(out)
     return bytes(out)
+
+
+def history(dictionary: bytes | None) -> bytes:
+    """The history a member starts with: the last CTX bytes of its preset
+    dictionary, or none.  Its length is the bytes of real history."""
+    return bytes(dictionary[-CTX:]) if dictionary else b""
 
 
 def _decompress_member_any(data: bytes, offset: int,
                            container: Container, verify: bool,
                            dev: torch.device, *,
                            chunk_bytes: int = CHUNK_BYTES,
-                           entries: list | None = None):
-    """`entries` gives KNOWN block-header bit positions (relative to the
+                           entries: list | None = None,
+                           dictionary: bytes | None = None):
+    """Decode the member at byte `offset`; returns (bytes, the offset
+    after its footer).
+
+    `entries` gives KNOWN block-header bit positions (relative to the
     member body) as chain heads — e.g. the per-shard offsets of an FLT1
     index, which make every chain exact.  None scans the body for one
-    entry per chunk of `chunk_bytes` (scan.chunk_entries)."""
+    entry per chunk of `chunk_bytes` (scan.chunk_entries).  `dictionary`
+    is the preset history: a zlib header may then carry FDICT."""
     i2.STATS["chained_members"] += 1
-    hdr_len, _meta = parse_header(container, data[offset:])
+    hdr_len, _meta = parse_header(container, data[offset:],
+                                  allow_dict=dictionary is not None)
     body = data[offset + hdr_len:]
-    nbits = 8 * len(body)
-
-    # ---- chain heads --------------------------------------------------
     if entries is None:
         entries = scan.chunk_entries(body, chunk_bytes, device=dev)
-    else:
-        entries = sorted({0, *(int(e) for e in entries if e < nbits)})
-    i2.STATS["chain_heads"] += len(entries)
+    chain, end_bit, _done = _chain(body, entries, 0, dev)
+    out = bytearray()
+    _resolve_chain(chain, body, history(dictionary), dev, out.extend)
 
-    # ---- chained decode rounds ----------------------------------------
+    foot_off = offset + hdr_len + ((end_bit + 7) // 8)
+    hasher = Hasher(container)
+    if verify:
+        hasher.update(bytes(out))
+        foot_len = parse_footer(container, data[foot_off:], hasher)
+    else:
+        foot_len = container.footer_size
+        if len(data) < foot_off + foot_len:
+            raise EndOfStream("footer truncated")
+    return bytes(out), foot_off + foot_len
+
+
+def decode_step(window: bytes, start: int, hist: bytes, *,
+                final_input: bool, entries: list | None = None,
+                chunk_bytes: int = CHUNK_BYTES, out_cap: int | None = None,
+                device: str | torch.device = "cuda"):
+    """One step of a streaming decode: the blocks of `window` from its
+    bit `start` (a block boundary), with `hist` the history before it (at
+    most CTX bytes, all of them real: a dictionary, or the member's
+    output so far).
+
+    Chains run from `start` and from `entries` (bit positions in the
+    window; None: the scanner's entry in each `chunk_bytes` of it).  The
+    step stops at the final block, at the first block that runs off the
+    end of the window (final_input=False: more input can still come), or
+    once the chain holds `out_cap` bytes of output.  With
+    final_input=True a block that runs off the end raises EndOfStream.
+
+    Returns (output, stop bit in the window, whether the final block was
+    decoded, history after the step)."""
+    dev = resolve_device(device)
+    if entries is None:
+        entries = scan.chunk_entries(window, chunk_bytes, device=dev)
+    chain, stop, done = _chain(window, entries, start, dev,
+                               final_input=final_input, out_cap=out_cap)
+    parts: list = []
+    hist = _resolve_chain(chain, window, hist, dev, parts.append)
+    return b"".join(parts), stop, done, hist
+
+
+def _chain(body: bytes, entries, start: int, dev: torch.device, *,
+           final_input: bool = True, out_cap: int | None = None):
+    """Decode the chain of blocks from bit `start` of `body` in device
+    rounds, beside the chains from `entries`.  Returns (chain, stop,
+    done): the decoded blocks from `start` in stream order, the bit where
+    the chain stopped (the final block's end bit when done), and whether
+    the final block is in it.
+
+    A block that runs off the end of `body` raises EndOfStream once the
+    chain from `start` reaches it, or with final_input=False stops the
+    chain there.  out_cap stops the chain once it holds that many output
+    bytes."""
+    nbits = 8 * len(body)
+    heads = {start, *(int(e) for e in entries if start < e < nbits)}
+    frontier = set(heads)
+    i2.STATS["chain_heads"] += len(heads)
     decoded: dict = {}           # header bit pos -> result/stored plan
     failed: dict = {}            # header bit pos -> its FlateError
-    frontier = set(entries)
+    waiting: set = set()         # header bit pos of blocks off the end
     span: dict = {}
     serial_set: set = set()
-    final_pos = None             # header pos of the BFINAL block
-    chain_head = 0
-    stall = 0
+
+    def off_the_end(pos: int, err: FlateError) -> None:
+        if final_input:
+            failed[pos] = err
+        else:
+            waiting.add(pos)
+
+    head, head_out, stall = start, 0, 0
     while True:
-        todo = sorted(frontier - set(decoded) - set(failed))
-        if not todo:
-            break
+        todo = sorted(frontier - decoded.keys() - failed.keys() - waiting)
+        frontier.clear()
         plans = []
         for pos in todo:
-            frontier.discard(pos)
             if pos >= nbits:
-                failed[pos] = EndOfStream(
-                    f"stream ends at bit {nbits} before its final block")
+                off_the_end(pos, EndOfStream(
+                    f"stream ends at bit {nbits} before its final block"))
                 continue
             try:
                 p = plan_block_at(body, pos)
+            except EndOfStream as e:
+                off_the_end(pos, e)
+                continue
             except FlateError as e:
                 # a chain from a false entry runs into garbage: an error
-                # counts only once chain 0 reaches its position
+                # counts only once the chain from `start` reaches it
                 failed[pos] = e
                 continue
             if p.kind == "stored":
                 decoded[pos] = {"plan": p, "end_bit": p.end_bit,
-                                "ok": True, "stored": True}
+                                "out_len": p.stored_len, "stored": True}
                 if not p.bfinal:
                     frontier.add(p.end_bit)
-                elif final_pos is None:
-                    final_pos = pos
             else:
                 plans.append(p)
         if plans:
@@ -417,60 +499,72 @@ def _decompress_member_any(data: bytes, offset: int,
                     continue
                 if not r["ok"]:
                     if _runs_off_the_end(r, nbits):
-                        failed[pos] = EndOfStream(
+                        off_the_end(pos, EndOfStream(
                             f"block at bit {pos} runs past the end of "
-                            f"the stream")
+                            f"the stream"))
                     else:
                         failed[pos] = InvalidCode(
                             f"block at bit {pos} undecodable")
                     continue
                 if r["end_bit"] > nbits:
-                    failed[pos] = EndOfStream(
+                    off_the_end(pos, EndOfStream(
                         f"block at bit {pos} ends past the end of the "
-                        f"stream")
+                        f"stream"))
                     continue
                 r["stored"] = False
                 decoded[pos] = r
                 if not r["plan"].bfinal:
                     frontier.add(r["end_bit"])
-                elif final_pos is None:
-                    final_pos = pos
-        # chain-complete check: walk from 0 through decoded.  The chain
-        # head's block is always in the frontier, so every round either
-        # finishes it or retries it (span escalation / serial rewalk,
-        # both bounded) — a persistent stall is a logic error, not data.
-        pos = chain_head
-        while pos in decoded and not decoded[pos]["plan"].bfinal:
-            pos = decoded[pos]["end_bit"]
-        if pos in decoded and decoded[pos]["plan"].bfinal:
+        # walk the chain from its head through what is decoded.  The head's
+        # block is always in the frontier, so every round either finishes
+        # it or retries it (span escalation / serial rewalk, both bounded)
+        # — a persistent stall is a logic error, not data.
+        pos, done, capped = head, False, False
+        while pos in decoded:
+            r = decoded[pos]
+            if r["plan"].bfinal:
+                done = True
+                break
+            head_out += r["out_len"]
+            pos = r["end_bit"]
+            if out_cap is not None and head_out >= out_cap:
+                capped = True
+                break
+        if done or capped or pos in waiting:
             break
         if pos in failed:
             raise failed[pos]
-        stall = stall + 1 if pos == chain_head else 0
-        chain_head = pos
+        stall = stall + 1 if pos == head else 0
+        head = pos
         frontier.add(pos)
         if stall > 12:
             raise InvalidCode("block chain did not converge")
 
-    # ---- confirmed chain in stream order ------------------------------
     chain = []
-    pos = 0
-    while True:
-        if pos not in decoded:
-            raise InvalidCode(f"chain break at bit {pos}")
-        r = decoded[pos]
+    at = start
+    while at in decoded and (done or at != pos):
+        r = decoded[at]
         chain.append(r)
+        at = r["end_bit"]
         if r["plan"].bfinal:
-            end_bit = r["end_bit"]
             break
-        pos = r["end_bit"]
+    on_chain = {r["plan"].pos for r in chain}
+    i2.STATS["false_heads"] += sum(1 for e in heads
+                                   if e < at and e not in on_chain)
+    return chain, at, done
 
-    # ---- resolve in stream order with context carry -------------------
-    out = bytearray()
-    hasher = Hasher(container)
 
-    def flush(rows):
-        """Resolve rows (words, counts, out_len) of consecutive output."""
+def _resolve_chain(chain: list, body: bytes, hist: bytes,
+                   dev: torch.device, emit) -> bytes:
+    """Resolve the chain's blocks in stream order, RES_B rows a batch with
+    the last CTX bytes of output as the next batch's context.  `hist` is
+    the history before the chain, every byte of it real: a match that
+    reaches before it raises InvalidMatch.  Passes each resolved span to
+    emit(bytes) and returns the history after the chain."""
+    rows: list = []
+
+    def flush():
+        nonlocal hist
         S = _bucket(max(max(ol for _, _, ol in rows), 1024), 1024)
         NSr = max(c for _, c, _ in rows)
         w = torch.stack([torch.nn.functional.pad(wr, (0, NSr - c))
@@ -480,41 +574,34 @@ def _decompress_member_any(data: bytes, offset: int,
         out_lens = torch.tensor([ol for _, _, ol in rows],
                                 dtype=torch.int32, device=dev)
         ctx0 = np.zeros(CTX, np.uint8)
-        hist = bytes(out[-CTX:])
         if hist:
             ctx0[CTX - len(hist):] = np.frombuffer(hist, np.uint8)
         flat, err = resolve_compact(w, counts, out_lens,
-                                    torch.from_numpy(ctx0).to(dev), S=S)
+                                    torch.from_numpy(ctx0).to(dev), S=S,
+                                    hist_len=len(hist))
         if bool(err.any()):
-            raise InvalidCode("device resolve failed")
+            raise InvalidMatch("a match reaches before the start of the "
+                               "history")
         total = sum(ol for _, _, ol in rows)
         r = flat[:total].cpu().numpy().tobytes()
-        out.extend(r)
-        hasher.update(r)
+        emit(r)
+        hist = (hist + r[-CTX:])[-CTX:]
+        rows.clear()
 
-    batch: list = []
     for r in chain:
-        if r.get("stored"):
-            if batch:
-                flush(batch)
-                batch = []
+        if r["stored"]:
+            if rows:
+                flush()
             p = r["plan"]
             s = body[p.stored_off:p.stored_off + p.stored_len]
-            out.extend(s)
-            hasher.update(s)
+            emit(s)
+            hist = (hist + s[-CTX:])[-CTX:]
             continue
         for piece in _pieces(r["words"][r["row"], :r["counts"]],
                              r["out_len"]):
-            batch.append(piece)
-            if len(batch) >= RES_B:
-                flush(batch)
-                batch = []
-    if batch:
-        flush(batch)
-
-    foot_off = offset + hdr_len + ((end_bit + 7) // 8)
-    if verify:
-        foot_len = parse_footer(container, data[foot_off:], hasher)
-    else:
-        foot_len = container.footer_size
-    return bytes(out), foot_off + foot_len
+            rows.append(piece)
+            if len(rows) >= RES_B:
+                flush()
+    if rows:
+        flush()
+    return hist

@@ -23,7 +23,7 @@ Counterpart of flate_tpu/jx/inflate2.py.  Three passes:
 
 Shard boundaries come from the FLT1 index (an RFC 1952 EXTRA subfield the
 encoder writes), so a member decodes shard-parallel.  A member without an
-index raises LookupError here; api.decompress then decodes it through
+index raises LookupError here; api.decompress then decodes that member through
 device/anyinflate.py.
 
 On CUDA tensors the two walks launch their kernels
@@ -42,10 +42,10 @@ import os
 import numpy as np
 import torch
 
-from .. import _build, consts, tables
+from .. import _build, consts, metrics, tables
 from .. import inflate as hinf
 from ..containers import Container, Hasher, parse_footer, parse_header
-from ..errors import InvalidBlockType, WrongStoredBlockNlen
+from ..errors import EndOfStream, InvalidBlockType, WrongStoredBlockNlen
 from ..shard_index import parse_index_extra
 from . import onehot, resolve_device, to_i32
 
@@ -62,8 +62,11 @@ LANE_J = 96                      # max join-walk steps
 # serially after an unproven speculation, "segmented_reroutes" the members
 # sent on to the chained route, "chained_members" the members
 # device/anyinflate.py decoded, "chain_heads" their chain heads (bit 0,
-# the scanner's chunk entries or a re-routed member's shard offsets) and
-# "chained_rounds" the device rounds of their chained decode.
+# the scanner's chunk entries or a re-routed member's shard offsets),
+# "chained_rounds" the device rounds of their chained decode, and
+# "false_heads" the chain heads before where the decoded chain stopped that
+# are not block starts on it (a scanner entry that only looked like a
+# header; an FLT1 index's entries are all block starts).
 STATS: collections.Counter = collections.Counter()
 
 
@@ -535,14 +538,14 @@ def _extract(word: torch.Tensor, mask: torch.Tensor, joined: torch.Tensor,
 
 def decode_batch2(comp, clen, start, lims_ll, kbase_ll, syms_ll,
                   lims_d, kbase_d, syms_d, out_lens, ctx0, *,
-                  S: int, NS: int, G: int = LANE_G):
+                  S: int, NS: int, G: int = LANE_G, hist_len: int = CTX):
     """Lane-walk twin of decode_batch; extra return: spec_fail (B,)."""
     STATS["decode_batch2"] += 1
     word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d)
     mask, joined = _lane_walk(word, start, 8 * clen, G=G)
     words, counts, spec_fail, _, _, _ = _extract(word, mask, joined,
                                                  start, NS, G)
-    out, err = _resolve(words, counts, out_lens, ctx0, S)
+    out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
     return out, err, counts, spec_fail
 
 
@@ -651,9 +654,11 @@ def double_pointers(Pf: torch.Tensor) -> torch.Tensor:
     return Pf
 
 
-def _resolve(words, counts, out_lens, ctx0, S: int):
+def _resolve(words, counts, out_lens, ctx0, S: int, hist_len: int = CTX):
     """words (B, NS) int32 compacted symbols; ctx0 (CTX,) u8 resolved
-    context.  Returns (flat output (B*S,) u8 in global layout, err (B,)).
+    context, whose last `hist_len` bytes are real history: a match that
+    reaches before them is an error.  Returns (flat output (B*S,) u8 in
+    global layout, err (B,)).
 
     Shards are consecutive member spans: shard b occupies
     [CTX + b*S, CTX + b*S + out_lens[b]) of the flat buffer (out_lens
@@ -674,9 +679,9 @@ def _resolve(words, counts, out_lens, ctx0, S: int):
     init[:CTX] = ctx0.to(torch.int32)
 
     o_ism, o_dist = propagate_match_fields(live, is_m, offs, dist, S)
-    # out-of-window reference: a match's leftmost source byte is
-    # base + offs - dist, so one per-symbol test covers every byte
-    err = err + (is_m & (base + offs - dist < 0)).sum(dim=1)
+    # a reference before the real history: a match's leftmost source byte
+    # is base + offs - dist, so one per-symbol test covers every byte
+    err = err + (is_m & (base + offs - dist < CTX - hist_len)).sum(dim=1)
     # P_run >= base - CTX >= 0 always (dist <= MAX_DISTANCE == CTX)
     _, _, P = run_pointers(o_ism, o_dist, base, out_lens, S)
     P = torch.clamp(P, 0, T).to(torch.int64)
@@ -695,11 +700,11 @@ def _resolve(words, counts, out_lens, ctx0, S: int):
 
 def decode_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
                  lims_d, kbase_d, syms_d, out_lens, ctx0, *,
-                 S: int, NS: int):
+                 S: int, NS: int, hist_len: int = CTX):
     STATS["decode_batch"] += 1
     word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d)
     words, counts = _walk(word, start, 8 * clen, NS)
-    out, err = _resolve(words, counts, out_lens, ctx0, S)
+    out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
     return out, err, counts
 
 
@@ -773,7 +778,7 @@ def decompress_member_device(data: bytes, offset: int,
     walk = walk_mode(walk)
     try:
         return _decompress_member_indexed(data, offset, container, batch,
-                                          dev, walk)
+                                          dev, walk, verify)
     except _Segmented:
         from . import anyinflate
         STATS["segmented_reroutes"] += 1
@@ -830,7 +835,7 @@ def pack_coded_run(plans_run, hist: bytes,
 
 def _decompress_member_indexed(data: bytes, offset: int,
                                container: Container, batch: int,
-                               dev: torch.device, walk: str):
+                               dev: torch.device, walk: str, verify: bool):
     hdr_len, meta = parse_header(container, data[offset:])
     if meta is None or meta.extra is None:
         raise LookupError("no FLT1 index")
@@ -884,13 +889,16 @@ def _decompress_member_indexed(data: bytes, offset: int,
             while k < nb and plans[k][0].kind == "coded":
                 k += 1
             run = plans[j:k]
-            args = pack_coded_run(run, bytes(out[-CTX:]), dev)
+            hist = bytes(out[-CTX:])
+            args = pack_coded_run(run, hist, dev)
             if walk == "serial":
-                dev_out, err, _ = decode_batch(*args, S=S, NS=NS)
+                dev_out, err, _ = decode_batch(*args, S=S, NS=NS,
+                                               hist_len=len(hist))
                 spec_np = np.zeros(len(run), bool)
                 err_np = err.cpu().numpy().astype(bool)
             else:
-                dev_out, err, _, spec_fail = decode_batch2(*args, S=S, NS=NS)
+                dev_out, err, _, spec_fail = decode_batch2(
+                    *args, S=S, NS=NS, hist_len=len(hist))
                 flags = _pack_flags(err, spec_fail).cpu().numpy()
                 err_np, spec_np = flags[0].astype(bool), flags[1].astype(bool)
             if spec_np.any():
@@ -900,14 +908,15 @@ def _decompress_member_indexed(data: bytes, offset: int,
                 # exact serial walk, on the same device: correctness
                 # never depends on the speculative path
                 STATS["serial_retries"] += 1
-                dev_out, err, _ = decode_batch(*args, S=S, NS=NS)
+                dev_out, err, _ = decode_batch(*args, S=S, NS=NS,
+                                               hist_len=len(hist))
                 err_np = err.cpu().numpy().astype(bool)
             if err_np.any():
                 # a coded-first shard with MORE blocks after its first
                 # EOB (segmented) decodes short and poisons in-batch
                 # back-references; re-decode the member on the chained
-                # device path — genuinely corrupt streams raise the
-                # exact taxonomy from there
+                # device path — genuinely corrupt streams (a match before
+                # the member's start too) raise the exact taxonomy there
                 raise _Segmented()
             out_np = dev_out.cpu().numpy().reshape(len(run), S)
             for bi, (p2, _) in enumerate(run):
@@ -918,7 +927,12 @@ def _decompress_member_indexed(data: bytes, offset: int,
         i += nb
 
     foot_off = body + total_comp
-    foot_len = parse_footer(container, data[foot_off:], hasher)
+    if verify:
+        foot_len = parse_footer(container, data[foot_off:], hasher)
+    else:
+        foot_len = container.footer_size
+        if len(data) < foot_off + foot_len:
+            raise EndOfStream("footer truncated")
     return bytes(out), foot_off + foot_len
 
 
@@ -927,18 +941,18 @@ def decompress_device(data: bytes,
                       batch: int = 8, *,
                       device: str | torch.device = "cuda",
                       walk: str | None = None) -> bytes:
-    """Device decode of a (possibly multi-member) indexed stream, in
-    batches of `batch` shards.  walk="lanes" (the default, or the
-    environment's FLATE_TPU_INFLATE_WALK) uses the lane walk, "serial" the
-    exact serial walk."""
+    """Device decode of a stream of indexed members, in batches of `batch`
+    shards; a member without the FLT1 index raises LookupError.
+    walk="lanes" (the default, or the environment's FLATE_TPU_INFLATE_WALK)
+    uses the lane walk, "serial" the exact serial walk."""
     dev = resolve_device(device)
     walk = walk_mode(walk)
-    out = bytearray()
-    offset = 0
-    while offset < len(data):
-        chunk, offset = decompress_member_device(
-            data, offset, container, batch=batch, device=dev, walk=walk)
-        out += chunk
-        if container is not Container.GZIP:
-            break
+    with metrics.timed("device.decompress_indexed", len(data)) as m:
+        out = bytearray()
+        offset = 0
+        while offset < len(data):
+            chunk, offset = decompress_member_device(
+                data, offset, container, batch=batch, device=dev, walk=walk)
+            out += chunk
+        m["bytes_out"] = len(out)
     return bytes(out)

@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import _build, consts, shard_index
+from .. import _build, consts, metrics, shard_index
 from ..checksums import adler32_combine, crc32_combine
 from ..containers import (Container, GzipMetadata, Hasher, write_footer,
                           write_header)
@@ -338,8 +338,11 @@ def compress_device2(data: bytes, level: int = consts.LEVEL_DEFAULT,
     card) and fetches the word grid: the same bytes."""
     kern = level_params(level, shard_len)
     dev = resolve_device(device)
-    return _compress_device2_impl(data, kern, container, shard_len, ctx,
-                                  batch, index, independent, dev, fused)
+    with metrics.timed("device.compress", len(data), level=level) as m:
+        out = _compress_device2_impl(data, kern, container, shard_len, ctx,
+                                     batch, index, independent, dev, fused)
+        m["bytes_out"] = len(out)
+    return out
 
 
 def _fold_hashes(hasher: Hasher, hash_kind: int, a: np.ndarray,

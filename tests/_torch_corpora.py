@@ -567,3 +567,29 @@ def scan_edge_cases() -> dict:
         "random": (rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(),
                    0, None, 1000, (32768, 131072)),
     }
+
+
+def too_far_streams() -> dict:
+    """container name -> stream: chip_smoke.py's raw and zlib streams of a
+    match that reaches before the stream's start (InvalidMatch)."""
+    from chip_smoke import too_far_streams as streams
+    return dict(streams())
+
+
+def small_blocks(data: bytes, wbits: int = 15, mem_level: int = 2,
+                 level: int = 6) -> bytes:
+    """zlib's stream of `data` at a low memLevel: blocks of at most
+    2^(mem_level + 6) - 1 symbols, a few hundred bytes each, so a small
+    decode window holds several."""
+    c = zlib.compressobj(level, zlib.DEFLATED, wbits, mem_level)
+    return c.compress(data) + c.flush()
+
+
+def c12_stream() -> bytes:
+    """A Huffman-only raw stream of 50,000 random bytes below 64 (seed 12)
+    whose last 3 bytes are 0xFF: its final block ends a byte before the
+    end, and the byte left over reads as a block of type 3."""
+    data = np.random.default_rng(12).integers(0, 64, 50_000,
+                                              dtype=np.uint8).tobytes()
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_HUFFMAN_ONLY)
+    return (c.compress(data) + c.flush())[:-3] + b"\xff" * 3

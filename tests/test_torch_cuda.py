@@ -22,8 +22,9 @@ from flate_tpu_torch.device import squeeze
 
 from _torch_corpora import (CTX, KINDS, S, big_block_streams, corpus,
                             lane_edge_rows, pack_edge_rows, parse_edge_rows,
-                            scan_cases, small_run_edge_rows, trap_stream,
-                            walk_edge_rows, windows)
+                            scan_cases, small_blocks, small_run_edge_rows,
+                            too_far_streams, trap_stream, walk_edge_rows,
+                            windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -936,3 +937,73 @@ def test_round1_cuda_bytes_equal_cpu(cuda, level):
             win, cl, K=knobs["K"], K3=knobs["K3"], ctx=CTX,
             nwords=knobs["nwords"])):
         _eq(a, b)
+
+
+class _SmallWindow(api.Decompressor):
+    WINDOW = 16384
+    FETCH = 5000
+    TRIM = 32768
+
+
+def _stream_read(blob: bytes, container: Container, device, n: int,
+                 dictionary=None, cls=_SmallWindow) -> bytes:
+    d = cls(blob, container, dictionary=dictionary, device=device)
+    parts = []
+    while chunk := d.read(n):
+        parts.append(chunk)
+    return b"".join(parts)
+
+
+@pytest.mark.parametrize("case", ["small_blocks", "level6", "own_gzip",
+                                  "stored"])
+def test_decompressor_cuda_equal_cpu(cuda, case):
+    """The streaming Decompressor at a 16 KiB window on the card: the
+    CPU's bytes, with the scanner and a walk kernel launched."""
+    data = corpus("mixed", 200_000, seed=61)
+    container = Container.ZLIB
+    if case == "small_blocks":
+        blob = small_blocks(data)
+    elif case == "level6":
+        blob = zlib.compress(data, 6)
+    elif case == "own_gzip":
+        blob, container = api.gzip.compress(data, 6, shard_len=S), \
+            Container.GZIP
+    else:
+        c = zlib.compressobj(0)
+        blob = b"".join(c.compress(data[i:i + 20000]) + c.flush(
+            zlib.Z_FULL_FLUSH) for i in range(0, len(data), 20000)) \
+            + c.flush()
+    _build.LAUNCHES.clear()
+    got = _stream_read(blob, container, cuda, 7777)
+    walks = _build.LAUNCHES["flate_lane_walk"] + _build.LAUNCHES["flate_walk"]
+    assert got == data == _stream_read(blob, container, "cpu", 7777)
+    if case != "stored":
+        assert walks > 0
+    if case in ("small_blocks", "level6"):
+        assert _build.LAUNCHES["flate_scan_headers"] > 0
+
+
+def test_dictionary_cuda_equal_cpu(cuda):
+    d = corpus("text", 40_000, seed=62)
+    data = corpus("text", 150_000, seed=63)
+    c = zlib.compressobj(6, zdict=d)
+    blob = c.compress(data) + c.flush()
+    got = api.zlib.decompress(blob, dictionary=d)
+    assert got == data == api.zlib.decompress(blob, dictionary=d,
+                                              device="cpu")
+    assert _stream_read(blob, Container.ZLIB, cuda, 50_000, d) == data
+
+
+@pytest.mark.parametrize("container", ["RAW", "ZLIB"])
+def test_too_far_back_raises_on_cuda(cuda, container):
+    from flate_tpu_torch import errors
+    ns = api.flate if container == "RAW" else api.zlib
+    with pytest.raises(errors.InvalidMatch):
+        ns.decompress(too_far_streams()[container])
+
+
+@pytest.mark.parametrize("mode", ["huffman", "store"])
+def test_sub_modes_decode_on_cuda(cuda, mode):
+    data = corpus("mixed", 300_000, seed=64)
+    blob = getattr(api.gzip, mode).compress(data)
+    assert api.gzip.decompress(blob) == data

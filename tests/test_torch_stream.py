@@ -279,7 +279,8 @@ def test_compress_bytes_route_unchanged():
 def test_cli_uses_compress(tmp_path, monkeypatch):
     """gzip_cli goes through flate_tpu_torch.gzip.compress (small shapes on
     the CPU here) and writes a member that gzip decodes; gunzip_cli reads
-    it back through flate_tpu_torch.gzip.decompress."""
+    it back through flate_tpu_torch.gzip.decompress, streaming the file to
+    the output."""
     from flate_tpu_torch.cli import gunzip_cli, gzip_cli
     seen = {}
     orig, orig_d = ftt.gzip.compress, ftt.gzip.decompress
@@ -288,9 +289,10 @@ def test_cli_uses_compress(tmp_path, monkeypatch):
         seen["compress"] = (level, device)
         return orig(data, level, writer=writer, **PORT_KW)
 
-    def spy_d(data, *, device="cuda", **kw):
+    def spy_d(data, writer=None, *, device="cuda", **kw):
         seen["decompress"] = device
-        return orig_d(data, device="cpu")
+        seen["streamed"] = not isinstance(data, bytes) and writer is not None
+        return orig_d(data, writer, device="cpu")
 
     monkeypatch.setattr(ftt.gzip, "compress", spy)
     monkeypatch.setattr(ftt.gzip, "decompress", spy_d)
@@ -306,7 +308,7 @@ def test_cli_uses_compress(tmp_path, monkeypatch):
     p.unlink()
     assert gunzip_cli.main(["--device", "cpu",
                             str(tmp_path / "f.bin.gz")]) == 0
-    assert seen["decompress"] == "cpu"
+    assert seen["decompress"] == "cpu" and seen["streamed"]
     assert p.read_bytes() == DATA
     out = tmp_path / "o.bin"
     assert gunzip_cli.main(["--device", "cpu", "-o", str(out),

@@ -372,6 +372,8 @@ def test_port_imports_no_jax_and_no_flate_tpu():
         "import flate_tpu_torch, flate_tpu_torch.api, flate_tpu_torch._build\n"
         "import flate_tpu_torch.inflate\n"
         "import flate_tpu_torch.cli.gzip_cli, flate_tpu_torch.cli.gunzip_cli\n"
+        "import flate_tpu_torch.cli.roundtrip_cli\n"
+        "import flate_tpu_torch.cli.decompress_cli, flate_tpu_torch.metrics\n"
         "from flate_tpu_torch.device import anyinflate, bitonic, checksum, "
         "encode, encode2, header, huff, inflate2, match2, onehot, pack, "
         "parse, pipeline, pipeline2, runs, scan, squeeze\n"
