@@ -137,7 +137,15 @@ Phases, one line each:
      one-bit literals a block, in rows of a symbol slot a bit of the span)
      and a gzip member of the 9 MiB run: each must equal its input with a
      walk kernel launched; GB/s of output, rows cut for the resolve and
-     rounds (inflate2.STATS).
+     rounds (inflate2.STATS).  Then blocks of more than MAX_SPAN = 2 MiB
+     compressed, from the port's host writer (long_block_streams): a
+     Huffman-only zlib member of 12 MiB of text (a 6,882,241-byte block)
+     and a level-1 gzip member of 6 MiB mixed (about 2.96 MB), each one
+     final block, with MAX_SPAN untouched: each must equal its input with
+     a walk kernel launched and at least as many continuation rows as
+     its block needs past its first row; each beside the same input cut
+     into blocks of 2 MiB of input (GB/s, rounds, launches), and the
+     Huffman one also through zlib.decompressor at the 8 MiB window.
  15. the round-1 encoder (device/pipeline.compress_device, the JAX
      package's jx/pipeline) at its defaults (shard_len 128 KiB, ctx 32
      KiB, batch 8) at levels 1, 6 and 9 on 8 MiB + 12,345 bytes of the
@@ -179,9 +187,10 @@ Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 215 s on an H100 (the kernel build ~6 s, the CPU twins of phases 8
-and 10 ~30-55 s, the plain versions' host loops ~25 s, phases 13 and 14
-~15 s, phase 15 ~15 s with its CPU twins, phase 16 ~35 s).
+About 275-345 s on an H100 (the kernel build ~6 s, the CPU twins of
+phases 8 and 10 ~30-55 s, the plain versions' host loops ~25 s, phase 13
+~15 s, phase 14 ~60 s, most of it the host writer's long blocks and their
+cut twins, phase 15 ~15 s with its CPU twins, phase 16 ~35 s).
 """
 
 from __future__ import annotations
@@ -373,6 +382,52 @@ def big_block_streams():
         ("huffman_40000", "ZLIB",
          mem9(zeros9[:40000], 15, zlib.Z_HUFFMAN_ONLY), zeros9[:40000]),
         ("gzip_zeros_9mib_mem9", "GZIP", mem9(zeros9, 31), zeros9),
+    ]
+
+
+def member(container: str, raw: bytes, data: bytes) -> bytes:
+    """A zlib or gzip member around raw deflate bytes that decode to
+    `data`."""
+    if container == "GZIP":
+        return (b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\xff" + raw
+                + zlib.crc32(data).to_bytes(4, "little")
+                + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
+    return b"\x78\x01" + raw + zlib.adler32(data).to_bytes(4, "big")
+
+
+def host_blocks(data: bytes, piece: int, huffman: bool) -> bytes:
+    """Raw deflate of `data` from the port's host writer, a block for each
+    `piece` bytes of input, as its host Compressor writes a block a shard:
+    Huffman-only, or level 1 (block.write_block picks the cheapest kind),
+    the last block final."""
+    from flate_tpu_torch import bitpack, block, deflate
+    sink = bitpack.BitSink()
+    for lo in range(0, len(data), piece):
+        d = data[lo:lo + piece]
+        final = lo + piece >= len(data)
+        if huffman:
+            block.write_huffman_only(sink, d, final)
+        else:
+            block.write_block(sink, deflate.tokenize_shard(
+                np.frombuffer(d, np.uint8), None, 1), final, raw=d)
+    return sink.getvalue()
+
+
+def long_block_streams(text_size: int = 12 << 20, mixed_size: int = 6 << 20):
+    """(name, container, stream, input) of one final block each whose
+    compressed length passes the chained route's MAX_SPAN (2 MiB):
+    Huffman-only over `text_size` bytes of the text corpus as a zlib
+    member (12 MiB: a 6,882,241-byte block, more than MAX_S of output
+    too) and level 1 over `mixed_size` bytes of the mixed corpus as a gzip
+    member (6 MiB: about 2.96 MB).  The card tests make them small and cut
+    MAX_SPAN instead."""
+    text, mixed = text_corpus(text_size), mixed_corpus(mixed_size)
+    return [
+        ("huffman_12mib_text", "ZLIB",
+         member("ZLIB", host_blocks(text, len(text), True), text), text),
+        ("level1_6mib_one_block", "GZIP",
+         member("GZIP", host_blocks(mixed, len(mixed), False), mixed),
+         mixed),
     ]
 
 
@@ -1423,6 +1478,7 @@ def main() -> int:
               f"{stats.get('block_pieces', 0)}, rounds "
               f"{stats.get('chained_rounds')}, launches {counts}",
               flush=True)
+    phase14_long(api, _build, inflate2, anyinflate)
 
     phase15(dev, api, _build)
     phase16(api, _build, inflate2, data32, foreign, foreign_secs,
@@ -1439,6 +1495,75 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase14_long(api, _build, inflate2, anyinflate) -> None:
+    """Phase 14's blocks longer than MAX_SPAN, decoded in continuation
+    rows, each beside the same input cut into blocks of 2 MiB of input
+    (at most 1.2 MB compressed, under MAX_SPAN)."""
+    def decode(container, blob):
+        ns = getattr(api, container.lower())
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        inflate2.STATS.clear()
+        t = time.time()
+        got = ns.decompress(blob)
+        return (got, time.time() - t, dict(_build.LAUNCHES),
+                dict(inflate2.STATS))
+
+    t = time.time()
+    streams = long_block_streams()
+    print(f"[14] long blocks written by the port's host writer in "
+          f"{time.time() - t:.1f} s", flush=True)
+    for name, container, blob, want in streams:
+        frame = 18 if container == "GZIP" else 6
+        rows = -(-(len(blob) - frame) // anyinflate.MAX_SPAN)
+        got, secs, counts, stats = decode(container, blob)
+        if got != want:
+            raise AssertionError(f"{name}: output differs from the input")
+        walks = counts.get("flate_lane_walk", 0) + counts.get("flate_walk",
+                                                              0)
+        if walks <= 0:
+            raise AssertionError(f"{name}: no walk kernel launched: "
+                                 f"{counts}")
+        if stats.get("continuation_rows", 0) < rows - 1:
+            raise AssertionError(
+                f"{name}: {stats.get('continuation_rows', 0)} continuation "
+                f"rows, the block needs at least {rows - 1}")
+        cut = member(container, host_blocks(
+            want, 2 << 20, name.startswith("huffman")), want)
+        got2, secs2, counts2, stats2 = decode(container, cut)
+        if got2 != want:
+            raise AssertionError(f"{name}, cut into blocks: output differs "
+                                 f"from the input")
+        print(f"[14] {name} (one block of {len(blob) - frame} bytes, "
+              f"api.{container.lower()}.decompress on the card): "
+              f"{len(want)} bytes == input in {secs:.4f} s = "
+              f"{len(want) / secs / 1e9:.4f} GB/s of output; continuation "
+              f"rows {stats.get('continuation_rows', 0)} (at least "
+              f"{rows - 1}), rounds {stats.get('chained_rounds')}, chain "
+              f"heads {stats.get('chain_heads')}, false heads "
+              f"{stats.get('false_heads', 0)}, rows cut for the resolve "
+              f"{stats.get('block_pieces', 0)}, launches {counts}; the same "
+              f"input in blocks of 2 MiB of input ({len(cut)} bytes): "
+              f"{secs2:.4f} s = {len(want) / secs2 / 1e9:.4f} GB/s, rounds "
+              f"{stats2.get('chained_rounds')}, launches {counts2}",
+              flush=True)
+        if name.startswith("huffman"):
+            out, ssecs, dstats, scounts, sstats = stream_read(
+                api, _build, inflate2, "zlib", blob,
+                api.Decompressor.WINDOW)
+            if out != want:
+                raise AssertionError(f"{name}: zlib.decompressor's output "
+                                     f"differs from the input")
+            print(f"[14] {name} through zlib.decompressor at the "
+                  f"{api.Decompressor.WINDOW >> 20} MiB window: == input in "
+                  f"{ssecs:.4f} s = {len(want) / ssecs / 1e9:.4f} GB/s, "
+                  f"steps {dstats.get('steps')}, window grows "
+                  f"{dstats.get('window_grows', 0)}, continuation rows "
+                  f"{sstats.get('continuation_rows', 0)}, peak input "
+                  f"{dstats.get('input_peak')} B, launches {scounts}",
+                  flush=True)
 
 
 def round1_stages_equal(r1, r1match, data: bytes, level: int) -> str:

@@ -13,10 +13,11 @@ Counterpart of flate_tpu/jx/anyinflate.py:
    the chain from bit 0 reaches it, so a false entry's garbage chain
    costs rounds, never the result.  (The JAX package raises at the first
    failure of any chain, also on such streams that zlib decodes.)
-2. **Chained block decode** (device): each round decodes one block per
-   active chain position — pass1 speculative symbol decode over the
-   block's span, multi-lane walk with join resolve (device/inflate2.py),
-   symbol compaction with EOB discovery.  The EOB gives the exact bit
+2. **Chained block decode** (device): each round decodes one row (a
+   block, or a continuation row of a long one) per active chain position
+   — pass1 speculative symbol decode over the row's span, multi-lane
+   walk with join resolve (device/inflate2.py), symbol compaction with
+   EOB discovery.  The EOB gives the exact bit
    position of the NEXT block header, which the host parses (tiny) and
    queues for the next round, so all chains advance concurrently.
 3. **LZ resolution in stream order** (device): the chain's blocks are
@@ -32,12 +33,16 @@ Counterpart of flate_tpu/jx/anyinflate.py:
    runs off the window, which the next step decodes (api.Decompressor).
 
 Correctness never depends on speculation: join failures re-decode the
-block with the exact serial walk; spans too short to contain the EOB
-escalate; what still fails raises.  A block that runs off the end of the
-body (no EOB up to the last bit, and no invalid code wholly before it), an
-EOB past the last bit, or a chain that reaches the end of the body before
-its final block raises EndOfStream, as the JAX package's public decode
-does for a truncated stream; other failures raise InvalidCode.
+row with the exact serial walk; a block's first span escalates from SPAN0
+until its EOB lies in it, and a block that still has none at MAX_SPAN goes
+on in continuation rows from the end of the row's last whole symbol, so a
+block of any compressed length decodes; what still fails raises.  A block
+that runs off the end of the body (no EOB up to the last bit, and no
+invalid code wholly before it), an EOB past the last bit, or a chain that
+reaches the end of the body before its final block raises EndOfStream, as
+the JAX package's public decode does for a truncated stream; an invalid
+code raises InvalidCode.  (The JAX device function stops escalating at
+MAX_SPAN and fails such a block; its public decode reads it on the host.)
 """
 
 from __future__ import annotations
@@ -62,17 +67,22 @@ from . import resolve_device, scan
 CTX = consts.MAX_DISTANCE
 
 CHUNK_BYTES = 1 << 19            # chain spacing of the chunk-entry scanner
-SPAN0 = 1 << 16                  # initial block span (64 KiB comp)
-MAX_SPAN = 1 << 21               # escalation cap (2 MiB comp)
+SPAN0 = 1 << 16                  # a block's first span (64 KiB comp)
+# the compressed bytes of a row: a block's first span escalates to it, a
+# continuation row takes it at once.  It bounds a row, not a block: a
+# longer block decodes in rows of at most this many bytes, so pass 1 of a
+# row holds at most 2^24 positions and its bit offsets fit int32
+MAX_SPAN = 1 << 21
 RES_B = 8                        # resolve batch rows
 MAX_S = 1 << 22                  # output bytes of a resolve row
 # bit positions one symbol_batch call may hold: pass 1 makes a few dozen
 # int32 temporaries of this many elements, so a round's rows go through
-# in chunks
+# in chunks (two rows of MAX_SPAN a call)
 MAX_POSITIONS = 1 << 25
 # the longest symbol: a 15-bit length code, 5 extra bits, a 15-bit
 # distance code and 13 extra bits
 MAX_SYMBOL_BITS = 48
+_EOB_WORD = i2.K_EOB << 6        # the end-of-block a resolve row ends with
 
 
 # ---------------------------------------------------------------------------
@@ -80,8 +90,17 @@ MAX_SYMBOL_BITS = 48
 # ---------------------------------------------------------------------------
 
 class BlockPlan:
-    __slots__ = ("kind", "pos", "bfinal", "body_bit", "ll", "d",
+    """One row of the chained decode: a block from its header at bit
+    `pos` ("stored" or "coded"), or a continuation row of a coded block
+    ("cont"), which starts at bit `pos` on a symbol boundary of the block
+    whose header is at bit `block`."""
+    __slots__ = ("kind", "pos", "block", "bfinal", "body_bit", "ll", "d",
                  "stored_off", "stored_len", "end_bit")
+
+    def key(self):
+        """The row's key in a chain: its header bit, or (bit, header bit)
+        for a continuation row, whose bit may also be a chain entry."""
+        return self.pos if self.kind != "cont" else (self.pos, self.block)
 
 
 def plan_block_at(body: bytes, pos: int) -> BlockPlan:
@@ -90,7 +109,7 @@ def plan_block_at(body: bytes, pos: int) -> BlockPlan:
     stored blocks are fully resolved here (end_bit known); coded blocks
     get canonical decode scalars and decode on device."""
     p = BlockPlan()
-    p.pos = pos
+    p.pos = p.block = pos
     bits = hinf._BitCursor(body, pos)
     p.bfinal = bits.read(1)
     btype = bits.read(2)
@@ -123,26 +142,44 @@ def plan_block_at(body: bytes, pos: int) -> BlockPlan:
     return p
 
 
+def plan_continuation(p: BlockPlan, bit: int) -> BlockPlan:
+    """The row after coded row `p`, which reached MAX_SPAN bytes without
+    its end-of-block: the same block and decode tables from `bit`, the end
+    of p's last whole symbol; no header."""
+    q = BlockPlan()
+    q.kind = "cont"
+    q.pos = q.body_bit = bit
+    q.block, q.bfinal, q.ll, q.d = p.block, p.bfinal, p.ll, p.d
+    return q
+
+
 # ---------------------------------------------------------------------------
 # Device stages
 # ---------------------------------------------------------------------------
 
 def symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
                  lims_d, kbase_d, syms_d, *, NS: int,
-                 G: int = i2.LANE_G, serial: bool = False):
+                 G: int = i2.LANE_G, serial: bool = False, cut: bool = True):
     """Span bytes -> compacted true symbols (stay on device).
 
     Returns (words (B, NS), counts, spec_fail, has_eob, out_len,
     end_bit).  serial=True uses the exact one-symbol-per-step walk
-    (retry path for join failures)."""
+    (retry path for join failures).
+
+    A row whose end-of-block does not end inside its span (clen bytes)
+    reports its cut instead (inflate2._cut): counts, out_len and end_bit
+    of its whole symbols, with no end-of-block among them, and spec_fail
+    when its chain is unproven up to the cut.  The next row of the block
+    starts at that end bit.  cut=False skips the cut (such a row keeps
+    what its walk gives): for rows that only escalate their span."""
     word = i2._pass1(comp, lims_ll, kbase_ll, syms_ll,
                      lims_d, kbase_d, syms_d)
+    nbits = 8 * clen
+    slots = torch.arange(NS, dtype=torch.int32, device=word.device)[None, :]
     if serial:
         # the serial walk already emits compacted words + counts; the
         # extras of _extract are recomputed from them
-        words, counts = i2._walk(word, start, 8 * clen, NS)
-        slots = torch.arange(NS, dtype=torch.int32,
-                             device=words.device)[None, :]
+        words, counts = i2._walk(word, start, nbits, NS)
         kind = (words >> 6) & 3
         live = slots < (counts[:, None] - 1)
         value = (words >> 8) & 0xFF
@@ -157,9 +194,30 @@ def symbol_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
         # start plus the advances of the walked symbols
         adv = torch.where(slots < counts[:, None], words & 63, 0)
         end_bit = start.to(torch.int32) + adv.sum(dim=1).to(torch.int32)
-        return words, counts, ~has_eob, has_eob, out_len, end_bit
-    mask, joined = i2._lane_walk(word, start, 8 * clen, G=G)
-    return i2._extract(word, mask, joined, start, NS, G)
+        fail = torch.zeros_like(has_eob)
+        joined = mask = None
+    else:
+        mask, joined = i2._lane_walk(word, start, nbits, G=G)
+        words, counts, fail, has_eob, out_len, end_bit = i2._extract(
+            word, mask, joined, start, NS, G)
+        kind = (words >> 6) & 3
+    # an end-of-block counts only where the chain reaches it whole: none
+    # after an invalid code, none that runs past the span (decoded from the
+    # zeros after it)
+    has_eob = has_eob & (end_bit <= nbits) & ~(
+        (kind == i2.K_BAD) & (slots < counts[:, None] - 1)).any(dim=1)
+    # the cut of the rows without one: one fetch of their indices, so a
+    # round whose rows all end their blocks pays nothing more
+    rows = torch.nonzero(~has_eob)[:, 0] if cut else ()
+    if len(rows):
+        n = counts[rows] if mask is None else mask[rows].sum(
+            dim=1, dtype=torch.int32)
+        cuts = i2._cut(words[rows], n, start[rows], nbits[rows],
+                       None if joined is None else joined[rows], G)
+        counts, out_len, end_bit, fail = (
+            t.index_copy(0, rows, c.to(t.dtype))
+            for t, c in zip((counts, out_len, end_bit, fail), cuts))
+    return words, counts, fail, has_eob, out_len, end_bit
 
 
 def resolve_compact(words, counts, out_lens, ctx0, *, S: int,
@@ -230,7 +288,7 @@ def _pieces(words: torch.Tensor, out_len: int) -> list:
                            dtype=starts.dtype, device=words.device)
     cuts = torch.searchsorted(starts, targets)
     cut_np, at_np = torch.stack([cuts, starts[cuts]]).cpu().numpy()
-    eob = torch.full((1,), i2.K_EOB << 6, dtype=words.dtype,
+    eob = torch.full((1,), _EOB_WORD, dtype=words.dtype,
                      device=words.device)
     bounds = [0, *cut_np.tolist(), n]
     offs = [0, *at_np.tolist(), out_len]
@@ -248,8 +306,10 @@ def _pieces(words: torch.Tensor, out_len: int) -> list:
 # ---------------------------------------------------------------------------
 
 def _pack_meta(counts, fail, has_eob, out_len, end_bit):
-    """One fetched tensor for the five per-row results of a group;
-    end_bit is span-relative (<= 2 MiB * 8 bits), so int32 is safe."""
+    """One fetched tensor for the five per-row results of a group.
+    end_bit is relative to the row's first byte and no row spans more than
+    MAX_SPAN bytes (2 MiB: 2^24 bits), so int32 is safe whatever the
+    body's length; the host adds the row's byte offset as a Python int."""
     return torch.stack([
         counts.to(torch.int32), fail.to(torch.int32),
         has_eob.to(torch.int32), out_len.to(torch.int32),
@@ -265,16 +325,18 @@ def _bucket(n: int, lo: int) -> int:
 
 def _decode_round(body: bytes, plans: list, span: dict,
                   serial_set: set, dev: torch.device) -> dict:
-    """Decode one block per plan on device; returns pos -> result dict
-    with (words ref, row, counts, out_len, end_bit, ok).  A row of a C-byte
-    span has 8 C symbol slots: a symbol takes at least one bit, so the
-    chain always fits, however short its symbols."""
+    """Decode one row per plan on device; returns key -> result dict
+    with (words ref, row, counts, out_len, end_bit, has_eob, ok), keyed by
+    BlockPlan.key.  A block's first row spans span[key] bytes (SPAN0 until
+    it escalates), a continuation row MAX_SPAN, neither past the body.  A
+    row of a C-byte span has 8 C symbol slots: a symbol takes at least one
+    bit, so the chain always fits, however short its symbols."""
     groups: dict = {}
     for p in plans:
         byte0 = p.pos >> 3
-        cap = span.get(p.pos, SPAN0)
+        cap = span.get(p.key(), MAX_SPAN if p.kind == "cont" else SPAN0)
         C = _bucket(min(len(body) - byte0, cap), 8192)
-        key = (C, p.pos in serial_set)
+        key = (C, p.key() in serial_set)
         groups.setdefault(key, []).append((p, byte0))
     results = {}
     for (C, serial), grp in groups.items():
@@ -298,15 +360,24 @@ def _decode_round(body: bytes, plans: list, span: dict,
                 start[bi] = p.body_bit - 8 * byte0
                 sc_ll[bi], kb_ll[bi], sy_ll[bi] = p.ll
                 sc_d[bi], kb_d[bi], sy_d[bi] = p.d
+            # a row without its end-of-block needs its cut only where it
+            # does not just escalate: at MAX_SPAN or the body's end
+            cut = C >= MAX_SPAN or any(byte0 + C >= len(body)
+                                       for _, byte0 in part)
             words, counts, fail, has_eob, out_len, end_bit = symbol_batch(
                 *i2.args_from_numpy((comp, clen, start, sc_ll, kb_ll, sy_ll,
                                      sc_d, kb_d, sy_d), dev),
-                NS=8 * C, serial=serial)
-            meta_np = _pack_meta(counts, fail, has_eob, out_len,
-                                 end_bit).cpu().numpy()
-            cn_np, fail_np, eob_np, ol_np, eb_np = meta_np
+                NS=8 * C, serial=serial, cut=cut)
+            # the word at slot `counts`: what stopped a row without its
+            # end-of-block, fetched with the rest
+            stop = torch.gather(words, 1, torch.clamp(
+                counts, max=8 * C - 1).to(torch.int64)[:, None])[:, 0]
+            meta_np = torch.cat([
+                _pack_meta(counts, fail, has_eob, out_len, end_bit),
+                stop[None].to(torch.int32)]).cpu().numpy()
+            cn_np, fail_np, eob_np, ol_np, eb_np, stop_np = meta_np
             for bi, (p, byte0) in enumerate(part):
-                results[p.pos] = {
+                results[p.key()] = {
                     "words": words, "row": bi, "plan": p,
                     "counts": int(cn_np[bi]),
                     "out_len": int(ol_np[bi]),
@@ -315,22 +386,19 @@ def _decode_round(body: bytes, plans: list, span: dict,
                     "ok": not bool(fail_np[bi]),
                     "serial": serial,
                     "span": C,
+                    "stop": int(stop_np[bi]),
                 }
     return results
 
 
-def _runs_off_the_end(r: dict, nbits: int) -> bool:
-    """Whether a coded block whose serial walk found no EOB ran off the
-    end of the body's `nbits` bits: its span reaches the end and no
-    invalid code (K_BAD) of the walk lies wholly before it."""
-    if (r["plan"].pos >> 3) + r["span"] < nbits >> 3:
-        return False
-    w = r["words"][r["row"], :r["counts"]].cpu().numpy()
-    bad = np.flatnonzero(((w >> 6) & 3) == i2.K_BAD)
-    if bad.size == 0:
-        return True
-    at = r["plan"].body_bit + int((w[:bad[0]] & 63).sum())
-    return at + MAX_SYMBOL_BITS > nbits
+def _invalid_code_at_cut(r: dict, span_end: int) -> bool:
+    """Whether the word that stopped a coded row without its end-of-block
+    at its cut (end_bit) is an invalid code (K_BAD) that lies wholly
+    before the row's last bit `span_end`: the block's own error, which
+    more bits cannot mend.  Otherwise the row was cut by its span's end
+    (or the body's)."""
+    return ((r["stop"] >> 6) & 3) == i2.K_BAD \
+        and r["end_bit"] + MAX_SYMBOL_BITS <= span_end
 
 
 def decompress_device_any(data: bytes,
@@ -427,40 +495,57 @@ def decode_step(window: bytes, start: int, hist: bytes, *,
     return b"".join(parts), stop, done, hist
 
 
+def _bit(key) -> int:
+    """The bit where the row of a chain key starts."""
+    return key[0] if isinstance(key, tuple) else key
+
+
 def _chain(body: bytes, entries, start: int, dev: torch.device, *,
            final_input: bool = True, out_cap: int | None = None):
     """Decode the chain of blocks from bit `start` of `body` in device
     rounds, beside the chains from `entries`.  Returns (chain, stop,
-    done): the decoded blocks from `start` in stream order, the bit where
-    the chain stopped (the final block's end bit when done), and whether
-    the final block is in it.
+    done): the decoded rows from `start` in stream order, the bit where
+    the chain stopped (the final block's end bit when done; always a
+    block's header bit otherwise), and whether the final block is in it.
+
+    A coded block's first row escalates its span from SPAN0 to MAX_SPAN
+    until its end-of-block lies in it.  A row that reaches MAX_SPAN bytes
+    without it is proven up to the end of its last whole symbol, and the
+    block goes on from there in a continuation row (plan_continuation) in
+    the next round, so a block of any compressed length decodes in rows of
+    at most MAX_SPAN bytes; the row that holds the end-of-block ends it.
 
     A block that runs off the end of `body` raises EndOfStream once the
     chain from `start` reaches it, or with final_input=False stops the
-    chain there.  out_cap stops the chain once it holds that many output
-    bytes."""
+    chain at its header.  out_cap stops the chain at the first block end
+    where it holds that many output bytes."""
     nbits = 8 * len(body)
     heads = {start, *(int(e) for e in entries if start < e < nbits)}
     frontier = set(heads)
     i2.STATS["chain_heads"] += len(heads)
-    decoded: dict = {}           # header bit pos -> result/stored plan
-    failed: dict = {}            # header bit pos -> its FlateError
-    waiting: set = set()         # header bit pos of blocks off the end
+    decoded: dict = {}           # row key -> result/stored plan
+    failed: dict = {}            # row key -> its FlateError
+    waiting: set = set()         # row keys of blocks off the end
+    conts: dict = {}             # continuation row key -> its plan
     span: dict = {}
     serial_set: set = set()
 
-    def off_the_end(pos: int, err: FlateError) -> None:
+    def off_the_end(key, err: FlateError) -> None:
         if final_input:
-            failed[pos] = err
+            failed[key] = err
         else:
-            waiting.add(pos)
+            waiting.add(key)
 
     head, head_out, stall = start, 0, 0
     while True:
-        todo = sorted(frontier - decoded.keys() - failed.keys() - waiting)
+        todo = sorted(frontier - decoded.keys() - failed.keys() - waiting,
+                      key=_bit)
         frontier.clear()
         plans = []
         for pos in todo:
+            if pos in conts:
+                plans.append(conts[pos])
+                continue
             if pos >= nbits:
                 off_the_end(pos, EndOfStream(
                     f"stream ends at bit {nbits} before its final block"))
@@ -477,7 +562,8 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                 continue
             if p.kind == "stored":
                 decoded[pos] = {"plan": p, "end_bit": p.end_bit,
-                                "out_len": p.stored_len, "stored": True}
+                                "next": p.end_bit, "out_len": p.stored_len,
+                                "stored": True, "last": True}
                 if not p.bfinal:
                     frontier.add(p.end_bit)
             else:
@@ -485,49 +571,59 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
         if plans:
             i2.STATS["chained_rounds"] += 1
             res = _decode_round(body, plans, span, serial_set, dev)
-            for pos, r in res.items():
+            for key, r in res.items():
+                p = r["plan"]
+                span_end = 8 * min((p.pos >> 3) + r["span"], len(body))
+                bad = not r["has_eob"] and _invalid_code_at_cut(r, span_end)
                 if not r["has_eob"] and r["span"] < MAX_SPAN \
-                        and (pos >> 3) + r["span"] < len(body):
-                    # EOB not in span: escalate the span and retry
-                    span[pos] = r["span"] * 2
-                    frontier.add(pos)
+                        and span_end < nbits and not (r["ok"] and bad):
+                    # EOB not in a first row's span: escalate and retry
+                    span[key] = r["span"] * 2
+                    frontier.add(key)
                     continue
                 if not r["ok"] and not r["serial"]:
                     # join failure: retry with the exact serial walk
-                    serial_set.add(pos)
-                    frontier.add(pos)
+                    serial_set.add(key)
+                    frontier.add(key)
                     continue
-                if not r["ok"]:
-                    if _runs_off_the_end(r, nbits):
-                        off_the_end(pos, EndOfStream(
-                            f"block at bit {pos} runs past the end of "
-                            f"the stream"))
-                    else:
-                        failed[pos] = InvalidCode(
-                            f"block at bit {pos} undecodable")
-                    continue
-                if r["end_bit"] > nbits:
-                    off_the_end(pos, EndOfStream(
-                        f"block at bit {pos} ends past the end of the "
+                r["stored"], r["last"] = False, r["has_eob"]
+                if r["has_eob"]:
+                    r["next"] = r["end_bit"]
+                    decoded[key] = r
+                    if not p.bfinal:
+                        frontier.add(r["end_bit"])
+                elif span_end == nbits and not bad:
+                    off_the_end(key, EndOfStream(
+                        f"block at bit {p.block} runs past the end of the "
                         f"stream"))
-                    continue
-                r["stored"] = False
-                decoded[pos] = r
-                if not r["plan"].bfinal:
-                    frontier.add(r["end_bit"])
+                elif bad or r["counts"] == 0:
+                    # an invalid code, or no progress: never a loop
+                    failed[key] = InvalidCode(
+                        f"block at bit {p.block} undecodable at bit "
+                        f"{r['end_bit']}")
+                else:
+                    # proven up to its cut: the block goes on from there
+                    q = plan_continuation(p, r["end_bit"])
+                    r["next"] = q.key()
+                    conts[r["next"]] = q
+                    decoded[key] = r
+                    frontier.add(r["next"])
+                    i2.STATS["continuation_rows"] += 1
         # walk the chain from its head through what is decoded.  The head's
-        # block is always in the frontier, so every round either finishes
+        # row is always in the frontier, so every round either finishes
         # it or retries it (span escalation / serial rewalk, both bounded)
-        # — a persistent stall is a logic error, not data.
+        # — a persistent stall is a logic error, not data.  Progress is a
+        # row, so a block of many continuation rows moves the head in
+        # every round.
         pos, done, capped = head, False, False
         while pos in decoded:
             r = decoded[pos]
-            if r["plan"].bfinal:
+            if r["last"] and r["plan"].bfinal:
                 done = True
                 break
             head_out += r["out_len"]
-            pos = r["end_bit"]
-            if out_cap is not None and head_out >= out_cap:
+            pos = r["next"]
+            if r["last"] and out_cap is not None and head_out >= out_cap:
                 capped = True
                 break
         if done or capped or pos in waiting:
@@ -545,10 +641,14 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
     while at in decoded and (done or at != pos):
         r = decoded[at]
         chain.append(r)
-        at = r["end_bit"]
-        if r["plan"].bfinal:
+        at = r["next"]
+        if r["last"] and r["plan"].bfinal:
             break
-    on_chain = {r["plan"].pos for r in chain}
+    # a chain that stops inside a block (its next row waits for more
+    # input) stops at the block's header
+    while chain and not chain[-1]["last"]:
+        at = chain.pop()["plan"].block
+    on_chain = {r["plan"].pos for r in chain if r["plan"].kind != "cont"}
     i2.STATS["false_heads"] += sum(1 for e in heads
                                    if e < at and e not in on_chain)
     return chain, at, done
@@ -556,11 +656,13 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
 
 def _resolve_chain(chain: list, body: bytes, hist: bytes,
                    dev: torch.device, emit) -> bytes:
-    """Resolve the chain's blocks in stream order, RES_B rows a batch with
+    """Resolve the chain's rows in stream order, RES_B rows a batch with
     the last CTX bytes of output as the next batch's context.  `hist` is
     the history before the chain, every byte of it real: a match that
-    reaches before it raises InvalidMatch.  Passes each resolved span to
-    emit(bytes) and returns the history after the chain."""
+    reaches before it raises InvalidMatch.  A row that does not end its
+    block gets an end-of-block word of its own, as _pieces gives one.
+    Passes each resolved span to emit(bytes) and returns the history after
+    the chain."""
     rows: list = []
 
     def flush():
@@ -597,8 +699,10 @@ def _resolve_chain(chain: list, body: bytes, hist: bytes,
             emit(s)
             hist = (hist + s[-CTX:])[-CTX:]
             continue
-        for piece in _pieces(r["words"][r["row"], :r["counts"]],
-                             r["out_len"]):
+        w = r["words"][r["row"], :r["counts"]]
+        if not r["last"]:
+            w = torch.nn.functional.pad(w, (0, 1), value=_EOB_WORD)
+        for piece in _pieces(w, r["out_len"]):
             rows.append(piece)
             if len(rows) >= RES_B:
                 flush()

@@ -63,10 +63,13 @@ LANE_J = 96                      # max join-walk steps
 # sent on to the chained route, "chained_members" the members
 # device/anyinflate.py decoded, "chain_heads" their chain heads (bit 0,
 # the scanner's chunk entries or a re-routed member's shard offsets),
-# "chained_rounds" the device rounds of their chained decode, and
-# "false_heads" the chain heads before where the decoded chain stopped that
-# are not block starts on it (a scanner entry that only looked like a
-# header; an FLT1 index's entries are all block starts).
+# "chained_rounds" the device rounds of their chained decode,
+# "continuation_rows" the rows they planned after a row that reached
+# MAX_SPAN bytes without its block's end-of-block (a block of any
+# compressed length decodes as such rows), and "false_heads" the chain
+# heads before where the decoded chain stopped that are not block starts on
+# it (a scanner entry that only looked like a header; an FLT1 index's
+# entries are all block starts).
 STATS: collections.Counter = collections.Counter()
 
 
@@ -290,27 +293,30 @@ def _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d):
 
 def _walk_plain(word: torch.Tensor, start: torch.Tensor,
                 nbits: torch.Tensor, NS: int):
-    """All rows step together, one symbol per round of the Python loop."""
+    """The chain's positions by doubling, not one step at a time:
+    P[i] = next^i(start), where next(p) is p + adv, or the end of the bits
+    n after an end-of-block word, and n is a sink.  P[2^k:2^(k+1)] is
+    next^(2^k) of P[:2^k], and the table of next^(2^k) doubles beside it,
+    so a row of N positions takes log2(NS) rounds of gathers.  The chain
+    never moves back, so its positions before n are a prefix of P."""
     B, N = word.shape
     dev = word.device
-    out = torch.zeros((B, NS + 1), dtype=torch.int32, device=dev)
-    cur = start.to(torch.int64)
-    n = torch.clamp(nbits.to(torch.int64), max=N)
-    k = torch.zeros(B, dtype=torch.int64, device=dev)
-    step = 0
-    while True:
-        act = (cur >= 0) & (cur < n) & (k < NS)
-        if step % 64 == 0 and not bool(act.any()):
-            break
-        step += 1
-        w = torch.gather(word, 1, torch.clamp(cur, 0, N - 1)[:, None])[:, 0]
-        # rows that are done write to the sink column NS
-        out.scatter_(1, torch.where(act, k, NS)[:, None],
-                     w.to(torch.int32)[:, None])
-        k = k + act
-        nxt = torch.where(((w >> 6) & 3) == K_EOB, n, cur + (w & 63))
-        cur = torch.where(act, nxt, cur)
-    return out[:, :NS].contiguous(), k.to(torch.int32)
+    n = torch.clamp(nbits.to(torch.int64), max=N)[:, None]
+    pos = torch.arange(N + 1, dtype=torch.int64, device=dev)[None, :]
+    w = torch.nn.functional.pad(word, (0, 1)).to(torch.int64)
+    nxt = torch.where(((w >> 6) & 3) == K_EOB, n, pos + (w & 63))
+    nxt = torch.where(pos >= n, n, torch.minimum(nxt, n))
+    s = start.to(torch.int64)[:, None]
+    P = torch.where((s >= 0) & (s < n), s, n)
+    while P.shape[1] < NS:
+        P = torch.cat([P, torch.gather(nxt, 1, P)], dim=1)
+        if P.shape[1] < NS:
+            nxt = torch.gather(nxt, 1, nxt)
+    P = P[:, :NS]
+    live = P < n
+    out = torch.where(live, torch.gather(word, 1, torch.clamp(P, max=N - 1)),
+                      0)
+    return out.to(torch.int32).contiguous(), live.sum(dim=1).to(torch.int32)
 
 
 def _walk(word: torch.Tensor, start: torch.Tensor, nbits: torch.Tensor,
@@ -534,6 +540,49 @@ def _extract(word: torch.Tensor, mask: torch.Tensor, joined: torch.Tensor,
     lane_ok = joined | (lanes < l0) | (lanes > le)
     spec_fail = ~lane_ok.all(dim=1) | ~has_eob
     return words_c, counts, spec_fail, has_eob, out_len, end_bit
+
+
+def _cut(words: torch.Tensor, n: torch.Tensor, start: torch.Tensor,
+         nbits: torch.Tensor, joined: torch.Tensor | None = None,
+         G: int = LANE_G):
+    """Where a row without its end-of-block stops: the leading symbols of
+    its chain that lie wholly inside its `nbits` bits, up to the first
+    invalid code.  A symbol that runs past the row's last bit was decoded
+    from the zeros beyond it; the row after this one decodes it again from
+    the real bits.
+
+    words (B, NS): the chain's words in order from `start`, n (B,) of them
+    (the serial walk's words, or _extract's compaction of a lane-walk
+    mask).  Returns (counts, out_len, end_bit, unproven): the whole
+    symbols, their output bytes, the bit where they end (start when there
+    is none) and, given the lane walk's `joined`, whether a lane from the
+    start's through the end bit's is not joined (None: the serial walk,
+    exact).  The word at slot `counts` is the one that stopped the row."""
+    B, NS = words.shape
+    dev = words.device
+    slots = torch.arange(NS, dtype=torch.int32, device=dev)[None, :]
+    adv = words & 63
+    kind = (words >> 6) & 3
+    ends = start.to(torch.int32)[:, None] + torch.cumsum(adv, dim=1,
+                                                         dtype=torch.int32)
+    whole = ((slots < n[:, None]) & (kind <= K_MATCH)
+             & (ends <= nbits.to(torch.int32)[:, None]))
+    # the first slot that is not whole; NS when every slot is
+    stop = torch.nn.functional.pad(~whole, (0, 1), value=True)
+    counts = torch.argmax(stop.to(torch.int32), dim=1).to(torch.int32)
+    prefix = slots < counts[:, None]
+    end_bit = start.to(torch.int32) + torch.where(prefix, adv, 0).sum(
+        dim=1, dtype=torch.int32)
+    olen = torch.where(kind == K_MATCH, ((words >> 8) & 0xFF) + 3, 1)
+    out_len = torch.where(prefix, olen, 0).sum(dim=1, dtype=torch.int32)
+    if joined is None:
+        return counts, out_len, end_bit, torch.zeros_like(whole[:, 0])
+    lanes = torch.arange(joined.shape[1], dtype=torch.int32,
+                         device=dev)[None, :]
+    l0 = torch.div(start.to(torch.int32), G, rounding_mode="floor")[:, None]
+    le = torch.div(end_bit, G, rounding_mode="floor")[:, None]
+    lane_ok = joined | (lanes < l0) | (lanes > le)
+    return counts, out_len, end_bit, ~lane_ok.all(dim=1)
 
 
 def decode_batch2(comp, clen, start, lims_ll, kbase_ll, syms_ll,

@@ -525,6 +525,18 @@ def big_block_streams() -> dict:
             for name, container, blob, _ in streams()}
 
 
+def long_block_streams(text_size: int = 300_000,
+                       mixed_size: int = 400_000) -> dict:
+    """name -> (container name, stream, input): chip_smoke.py's one-block
+    streams of the port's host writer, whose blocks pass MAX_SPAN (phase
+    14 decodes them at 12 and 6 MiB), here 164 and 183 KB blocks: more
+    than MAX_SPAN once a test cuts it to 64 KiB."""
+    from chip_smoke import long_block_streams as streams
+    return {name: (container, blob, data)
+            for name, container, blob, data in streams(text_size,
+                                                       mixed_size)}
+
+
 def placed_headers(nbytes: int, offsets, name: str = "accepted") -> bytes:
     """nbytes of zero bytes (no offset passes the first test) with header
     case `name` and its end-of-block code at each bit offset."""

@@ -111,17 +111,37 @@ def test_symbol_batch_equal(level, serial):
 
 
 def test_symbol_batch_short_span():
-    """A span that ends before its EOB: has_eob false on both sides."""
+    """A span that ends before its EOB: has_eob false on both sides.  An
+    EOB that ends past the span (the JAX lane walk finds the last row's
+    in the lane that holds the span's end; its serial walk stops at the
+    span's end) is none for the port.  A row without one reports its cut
+    instead of JAX's unproven flag: proven, the same counts, output bytes
+    and end bit by the lane and the serial walk, the end bit inside the
+    span, and its words the JAX serial walk's first counts words."""
     ja = list(coded_run(port_blob("text", 3))[:9])
     ja[1] = ja[1] // 2
+    nbits = 8 * np.asarray(ja[1])
     ta = i2.args_from_numpy(ja, "cpu")
+    cuts = []
     for serial in (False, True):
         jout = j_ai.symbol_batch(*[jnp.asarray(x) for x in ja], NS=NS,
                                  serial=serial, interpret=True)
         tout = ai.symbol_batch(*ta, NS=NS, serial=serial)
-        np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))
-        np.testing.assert_array_equal(tout[2].numpy(), np.asarray(jout[2]))
+        jeob = np.asarray(jout[3]) & (np.asarray(jout[5]) <= nbits)
+        np.testing.assert_array_equal(tout[3].numpy(), jeob)
         assert not np.asarray(jout[3])[:3].any()
+        assert not jeob.any() and not tout[2].numpy().any()
+        counts, end_bit = tout[1].numpy(), tout[5].numpy()
+        assert (counts > 0).all() and (end_bit <= nbits).all()
+        assert (end_bit > nbits - 48).all()
+        if serial:
+            jw = np.asarray(jout[0])
+            for b in range(len(counts)):
+                np.testing.assert_array_equal(u32(tout[0][b, :counts[b]]),
+                                              jw[b, :counts[b]])
+        cuts.append([tout[k].numpy() for k in (1, 4, 5)])
+    for a, b in zip(*cuts):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("fault", [None, "out_lens", "window", "bad_code"])

@@ -21,7 +21,8 @@ from flate_tpu_torch.device import pack, parse, pipeline2, runs, scan
 from flate_tpu_torch.device import squeeze
 
 from _torch_corpora import (CTX, KINDS, S, big_block_streams, corpus,
-                            lane_edge_rows, pack_edge_rows, parse_edge_rows,
+                            lane_edge_rows, long_block_streams,
+                            pack_edge_rows, parse_edge_rows,
                             scan_cases, small_blocks, small_run_edge_rows,
                             too_far_streams, trap_stream, walk_edge_rows,
                             windows)
@@ -908,6 +909,25 @@ def test_big_blocks_cuda_equal_cpu(cuda, name):
     want = zlib.decompress(blob, 31 if container == "GZIP" else 15)
     assert got == want == ns.decompress(blob, device="cpu")
     assert walks > 0
+
+
+@pytest.mark.parametrize("name", ["huffman_12mib_text",
+                                  "level1_6mib_one_block"])
+def test_long_blocks_cuda_equal_cpu(cuda, monkeypatch, name):
+    """Blocks longer than MAX_SPAN, cut to 64 KiB (164 and 183 KB blocks of
+    the port's host writer): continuation rows on the card, through a walk
+    kernel, give the CPU's bytes and the input."""
+    monkeypatch.setattr(anyinflate, "MAX_SPAN", 1 << 16)
+    monkeypatch.setattr(anyinflate, "SPAN0", 1 << 14)
+    container, blob, data = long_block_streams()[name]
+    ns = getattr(api, container.lower())
+    _build.LAUNCHES.clear()
+    inflate2.STATS.clear()
+    got = ns.decompress(blob)
+    walks = _build.LAUNCHES["flate_lane_walk"] + _build.LAUNCHES["flate_walk"]
+    conts = inflate2.STATS["continuation_rows"]
+    assert got == data == ns.decompress(blob, device="cpu")
+    assert walks > 0 and conts >= 2
 
 
 @pytest.mark.parametrize("level", [1, 4, 6, 9])

@@ -99,7 +99,8 @@ first block of every chain head: one _decode_round call, by the lane walk
 and again by the serial walk, each row with the symbol slots the measured
 tree gives it), mean of --reps calls on the host clock (the call fetches
 its rows' results, so this is the whole round), then the decode of each
-of chip_smoke.py's big-block streams through api.zlib/gzip.decompress,
+of chip_smoke.py's big-block streams and of phase 16's huffman member of
+8 MiB (64 blocks of 131,072 literals) through api.zlib/gzip.decompress,
 best of 3 on the host clock.  A tree whose rows start with fewer slots and
 walk again with more, and one whose rows hold a slot a bit of their span,
 compare in one call.
@@ -630,7 +631,8 @@ def scan_part(reps: int) -> dict:
 
 def rounds_part(reps: int) -> dict:
     """The chained route's first round on the foreign stream, by the lane
-    walk and by the serial walk, and the big-block streams' decodes."""
+    walk and by the serial walk, and the big-block and huffman streams'
+    decodes."""
     import inspect
     import zlib
 
@@ -674,6 +676,22 @@ def rounds_part(reps: int) -> dict:
         out[f"decode_{name}_s"] = best
         print(f"decode {name}: best of 3 {best:.4f} s = "
               f"{len(want) / best / 1e9:.4f} GB/s", flush=True)
+    # chip_smoke.py phase 16's huffman member: 64 blocks of 131,072
+    # literals, each past its first 64 KiB span
+    data8 = mixed_corpus(B * S)
+    blob = api.gzip.huffman.compress(data8)
+    api.gzip.decompress(blob)
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = api.gzip.decompress(blob)
+        best = min(best, time.perf_counter() - t)
+    if got != data8:
+        raise AssertionError("huffman 8 MiB: output differs from its input")
+    out["decode_huffman_8mib_s"] = best
+    print(f"decode huffman_8mib: best of 3 {best:.4f} s = "
+          f"{len(data8) / best / 1e9:.4f} GB/s", flush=True)
     return out
 
 
