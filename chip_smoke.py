@@ -14,9 +14,9 @@ Phases, one line each:
      the stages before it: exact equality, kernel and plain times, and the
      bound (bytes over the memory rate or the integer operations this
      data needs over the int32 issue rate, whichever is larger); B1, B3
-     and B5 (the whole pack_fields call, its offsets included) also
-     replayed from a CUDA graph (graph_ms, the device alone), and a line
-     each for torch.sort of B1's int32 keys beside the same keys as
+     and B5 (the whole pack_fields call, its offsets included), and B4,
+     also replayed from a CUDA graph (graph_ms, the device alone), and a
+     line each for torch.sort of B1's int32 keys beside the same keys as
      int64;
   4. the main path: flate_tpu_torch.api.gzip.compress of 32 MiB of the
      mixed corpus at levels 1 and 3 with the launch counters reset just
@@ -50,12 +50,13 @@ Phases, one line each:
      pass; extension caps 32 and 64; pack after the squeeze, level 9 with
      4096-byte parse blocks), B1 with fingerprint words and B2 ranking by
      them with both outputs (K=48, nw=8, fp=True), B8 (top-2 chain
-     extension) on those outputs, and B9 (parse walk) three ways: rows =
-     level 6's parse blocks (8192 x 1024), rows = level 9's (2048 x 4096),
-     rows = shards (64 x 131072, the parse_walk entry point); and B1/B2 at
-     K = 1024 with 20 exact words (rows staged with 65 words, the halo's
-     built from the window) on the batch's first 4 rows, whose launches
-     are counted around find_matches_fused at those knobs.  B2 at level
+     extension, also from a CUDA graph) on those outputs, and B9 (parse
+     walk) three ways: rows = level 6's parse blocks (8192 x 1024), rows
+     = level 9's (2048 x 4096), rows = shards (64 x 131072, the
+     parse_walk entry point); and B1/B2 at K = 1024 with 20 exact words
+     (rows staged with 65 words, the halo's built from the window) on
+     the batch's first 4 rows, whose launches are counted around
+     find_matches_fused at those knobs.  B2 at level
      6 is also timed with the L2 flushed before each launch, and every B2
      case prints, beside its own bound, the bound of reading ne + nf words
      a position as the TPU kernel's inputs are laid out;
@@ -162,7 +163,11 @@ Phases, one line each:
      (the host tail encoder's seconds, timed alone, left out) and size
      against zlib.compress at the level (printed, not gated);
      the device time of batch 0's phase1 and of its main-table candidate
-     loop (CUDA events), and the loop's share of a batch.  Then
+     loop (CUDA events), and the loop's share of a batch.  At level 6,
+     B3, B4, B9 and B5 at the round-1 shape (8 x 128 KiB) on the inputs
+     compress_device gives them in its first batch (recorded from a call
+     on that batch), against their plain versions as in phase 3, with
+     their bounds; their launches are the level-6 run's.  Then
      parallel.pigz.compress_mesh on a one-rank NCCL group (FileStore
      under build/) on 2 MiB + 12,345 bytes at level 6 must equal
      compress_device (batch 1).
@@ -675,7 +680,8 @@ def main() -> int:
             lambda: runs.extend_chains(mlen0, mdist0, limit, cap),
             lambda: runs._extend_chains_plain(mlen0, mdist0, limit, cap),
             nbytes(mlen0, mdist0) + B * W * 4,
-            3 * B * W + 3 * int(((mlen0 == cap) & (mdist0 > 0)).sum()))
+            3 * B * W + 3 * int(((mlen0 == cap) & (mdist0 > 0)).sum()),
+            graph=True)
         drop = (mlen == 3) & (mdist0 > 4096)
         mlen = torch.where(drop, 0, mlen)
         mdist = torch.where(drop, 0, mdist0)
@@ -728,7 +734,8 @@ def main() -> int:
          lambda: runs._extend_chains2_plain(*cands, limit, 4 * ne),
          nbytes(*cands) + 2 * B * W * 4,
          6 * B * W + 3 * sum(int(((l == 4 * ne) & (d > 0)).sum())
-                             for l, d in (cands[:2], cands[2:])))
+                             for l, d in (cands[:2], cands[2:])),
+         graph=True)
     # B2 at K = 1024 with 20 exact words (rows staged with 65 words: the
     # halo's are built from the window), through find_matches_fused on the
     # batch's first 4 rows; no level sets it
@@ -1480,7 +1487,7 @@ def main() -> int:
               flush=True)
     phase14_long(api, _build, inflate2, anyinflate)
 
-    phase15(dev, api, _build)
+    phase15(dev, api, _build, case, walk_case, launches)
     phase16(api, _build, inflate2, data32, foreign, foreign_secs,
             blobs["mixed 32 MiB", 6], own6_secs, blobs["mixed 8 MiB", 6],
             with_d, zd)
@@ -1620,7 +1627,71 @@ def round1_stages_equal(r1, r1match, data: bytes, level: int) -> str:
             f"{[p.kind for p in plans]})")
 
 
-def phase15(dev, api, _build) -> None:
+def first_calls(calls, fn) -> dict:
+    """fn() with the arguments of the first call of each (module, name)
+    in `calls` recorded, tensors cloned: {name: (args, kwargs)}."""
+    seen, saved = {}, []
+    for mod, name in calls:
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+
+        def record(*args, _real=real, _name=name, **kw):
+            if _name not in seen:
+                seen[_name] = (tuple(a.clone() if isinstance(a, torch.Tensor)
+                                     else a for a in args), kw)
+            return _real(*args, **kw)
+        setattr(mod, name, record)
+    try:
+        fn()
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return seen
+
+
+def round1_cases(r1, case, walk_case, data: bytes, level: int) -> None:
+    """B3, B4, B9 and B5 at the round-1 shape (a batch of 8 x 128 KiB with
+    32 KiB of context) against their plain versions, on the inputs that
+    compress_device gives them in its first batch (recorded from a call
+    on that batch), with their bounds as in phase 3."""
+    from flate_tpu_torch.device import pack, parse, runs, to_i32
+    seen = first_calls(
+        ((runs, "small_dist_runs"), (runs, "extend_chains"),
+         (parse, "_parse_walk"), (pack, "pack_fields")),
+        lambda: r1.compress_device(data[:8 * S], level=level))
+    path = ("round1", level)
+    (window, limit, min_src), _ = seen["small_dist_runs"]
+    B1, W1 = window.shape
+    case(15, path, f"small_runs_r1_l{level}", "flate_small_runs",
+         "flate_tpu/jx/runs.py:85",
+         lambda: runs.small_dist_runs(window, limit, min_src),
+         lambda: runs._small_dist_runs_plain(window, limit, min_src),
+         nbytes(window) + 2 * B1 * W1 * 4,
+         sum(int(ln.sum()) for ln in
+             runs._run_lengths(window, limit, min_src)), graph=True)
+    (mlen, mdist, limit), kw = seen["extend_chains"]
+    cap = kw["cap"]
+    case(15, path, f"extend_r1_l{level}", "flate_extend",
+         "flate_tpu/jx/runs.py:172",
+         lambda: runs.extend_chains(mlen, mdist, limit, cap),
+         lambda: runs._extend_chains_plain(mlen, mdist, limit, cap),
+         nbytes(mlen, mdist) + B1 * W1 * 4,
+         3 * B1 * W1 + 3 * int(((mlen == cap) & (mdist > 0)).sum()),
+         graph=True)
+    (step,), _ = seen["_parse_walk"]
+    walk_case(15, path, f"parse_walk_r1_l{level}", step)
+    (vals, bits, nwr), _ = seen["pack_fields"]
+    vals, bits = to_i32(vals), bits.to(torch.int32)
+    case(15, path, f"pack_r1_l{level}", "flate_pack",
+         "flate_tpu/jx/pack.py:32",
+         lambda: (lambda w, t: (w.reshape(B1, -1), t))(
+             *pack.pack_fields(vals, bits, nwr)),
+         lambda: pack._pack_plain(vals, bits, nwr * 128),
+         nbytes(vals, bits) + B1 * nwr * 128 * 4,
+         3 * int((bits != 0).sum()), graph=True)
+
+
+def phase15(dev, api, _build, case, walk_case, launches) -> None:
     """The round-1 encoder and its mesh on the card (docstring, 15)."""
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1646,6 +1717,7 @@ def phase15(dev, api, _build) -> None:
             if counts.get(name, 0) <= 0:
                 raise AssertionError(f"round-1 level {level}: {name} never "
                                      f"launched: {counts}")
+        launches[("round1", level)] = counts
         if zlib.decompress(blob, 31) != data:
             raise AssertionError(f"round-1 level {level}: zlib round trip")
         if api.gzip.decompress(blob) != data:
@@ -1691,6 +1763,8 @@ def phase15(dev, api, _build) -> None:
               f"{loop_ms / 1e3 / per_batch:.2%} of a batch; cuda == cpu "
               f"bytes on 2 shards + 12345 (cpu {cpu_s:.1f} s); {held}",
               flush=True)
+        if level == 6:
+            round1_cases(r1, case, walk_case, data, level)
 
     mesh_data = data[:(2 << 20) + 12345]
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as td:

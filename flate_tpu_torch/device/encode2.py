@@ -53,10 +53,6 @@ KIND_DYN, KIND_FIX, KIND_LIT, KIND_STO = 0, 1, 2, 3
 _HYST = 192
 
 
-def _packed(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    return codes | (lens << 24)
-
-
 def seg_size(S: int, blk: int = 1024) -> int:
     """Segment size: parse-block aligned, <= MAX_STORED, ~32 per shard."""
     if blk > MAX_STORED:
@@ -272,12 +268,8 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     ll_sel_lens = torch.where(k_dyn, ll_lens,
                               torch.where(k_fix, fix_ll, lit_lens))
     d_sel_lens = torch.where(k_dyn, d_lens, torch.where(k_fix, fix_d, lit_d))
-    ll_tab = _packed(huff.canonical_codes_dev(ll_sel_lens,
-                                              consts.MAX_CODE_BITS),
-                     ll_sel_lens)
-    d_tab = _packed(huff.canonical_codes_dev(d_sel_lens,
-                                             consts.MAX_CODE_BITS),
-                    d_sel_lens)
+    ll_tab = huff.packed_tables(ll_sel_lens, consts.MAX_CODE_BITS)
+    d_tab = huff.packed_tables(d_sel_lens, consts.MAX_CODE_BITS)
     # fixed blocks use the full-table codes (see _FIX_LL_PACKED)
     ll_tab = torch.where(k_fix, geo["fix_ll_packed"], ll_tab)
     d_tab = torch.where(k_fix, geo["fix_d_packed"], d_tab)

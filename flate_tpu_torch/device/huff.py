@@ -1,10 +1,10 @@
 """Length-limited Huffman planning on the device — batched package-merge.
 
 Counterpart of flate_tpu/jx/huff.py: pm_lengths (:48),
-canonical_codes_dev (:117) and coded_size (:147).  Fixed-shape arrays:
-lists padded to 2n with +INF sentinels; each level's merge of sorted
-symbols with sorted packages is one sort over keys (weight << 1 |
-is_package), so original symbols win weight ties.
+canonical_codes_dev (:117), packed_tables (:141) and coded_size (:147).
+Fixed-shape arrays: lists padded to 2n with +INF sentinels; each level's
+merge of sorted symbols with sorted packages is one sort over keys
+(weight << 1 | is_package), so original symbols win weight ties.
 """
 
 from __future__ import annotations
@@ -100,6 +100,13 @@ def canonical_codes_dev(lens: torch.Tensor, max_bits: int) -> torch.Tensor:
     rev = _rev16(codes & 0xFFFF)
     shift = 16 - torch.clamp(lens, min=1)
     return torch.where(lens > 0, rev >> shift, 0)
+
+
+def packed_tables(lens: torch.Tensor, max_bits: int) -> torch.Tensor:
+    """code | (len << 24) per symbol, int64: the packer's table entry
+    format."""
+    lens = lens.to(torch.int64)
+    return canonical_codes_dev(lens, max_bits) | (lens << 24)
 
 
 def coded_size(freq: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

@@ -182,6 +182,32 @@ def test_pack_graph_replay(cuda):
         _eq(kt, pt)
 
 
+def test_pack_compact_grid_full_width(cuda):
+    """B5 at 64 x 142,848 slots (the compact grid of a 128 KiB shard, the
+    JAX package's slot_count_compact) on random fields over 45 % of
+    283,648 slots, each row's live fields moved to the front on the host:
+    equal to its plain version and to B5's words on the full grid."""
+    B, slots, SC, nwr = 64, 283648, 142848, 262
+    rng = np.random.default_rng(45)
+    bits = rng.integers(1, 16, (B, slots)) * (rng.random((B, slots)) < 0.45)
+    vals = rng.integers(0, 2**15, (B, slots)) & ((1 << bits) - 1)
+    vc = np.zeros((B, SC), np.uint32)
+    bc = np.zeros((B, SC), np.int32)
+    for r in range(B):
+        live = bits[r] > 0
+        vc[r, :live.sum()] = vals[r][live]
+        bc[r, :live.sum()] = bits[r][live]
+    pw = _pack_both(vc, bc, nwr, cuda)
+    fw, ft = pack.pack_fields(
+        torch.from_numpy(vals.astype(np.int32)).to(cuda),
+        torch.from_numpy(bits.astype(np.int32)).to(cuda), nwr)
+    cw, ct = pack.pack_fields(torch.from_numpy(vc.view(np.int32)).to(cuda),
+                              torch.from_numpy(bc).to(cuda), nwr)
+    _eq(cw, fw)
+    _eq(ct, ft)
+    _eq(cw.reshape(B, -1), pw)
+
+
 PREP_KNOBS = [(4, 8, 0), (3, 1, 0), (4, 2, 2), (4, 2, 5), (4, 3, 1)]
 
 

@@ -1,6 +1,13 @@
-"""Port field build (onehot, huff, header, encode2.build_fields) against the
-JAX package on the outputs of real parses.  Tolerance: exact (u32 values
-compared as uint32)."""
+"""Port field build (onehot, huff, header, encode2.build_fields) against
+the JAX package on the outputs of real parses, and the compact grid of
+tools/torch_kernel_probe.py (`slot_count_compact`, `compact`: the port's
+full grid compacted) against the JAX build_fields(compact=True).
+Tolerance: exact (u32 values compared as uint32)."""
+
+import functools
+import importlib.util
+import pathlib
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +21,9 @@ from flate_tpu.jx import match2 as j_match2
 from flate_tpu.jx import onehot as j_onehot
 from flate_tpu.jx import parse as j_parse
 
-from flate_tpu_torch.device import encode2, header, huff, onehot
+from flate_tpu_torch.device import encode2, header, huff, onehot, pack
 
-from _torch_corpora import CTX, KINDS, S, tt, u32, windows
+from _torch_corpora import CTX, KINDS, S, rfc_text, tt, u32, windows
 
 
 def _hists(seed, B=6, n=286):
@@ -43,6 +50,14 @@ def test_pm_lengths_and_codes_equal(n, max_bits):
     np.testing.assert_array_equal(
         huff.coded_size(tt(h), tl).numpy(),
         np.asarray(j_huff.coded_size(jnp.asarray(h), jnp.asarray(jl))))
+
+
+@pytest.mark.parametrize("n,max_bits", [(286, 15), (30, 15), (19, 7)])
+def test_packed_tables_equal(n, max_bits):
+    jl = j_huff.pm_lengths(jnp.asarray(_hists(n + 1, n=n)), max_bits)
+    np.testing.assert_array_equal(
+        u32(huff.packed_tables(tt(np.asarray(jl)), max_bits)),
+        u32(j_huff.packed_tables(jl, max_bits)))
 
 
 def test_build_headers_equal():
@@ -74,42 +89,124 @@ def test_hist_and_lookup_equal():
         u32(j_onehot.lookup_onehot(jnp.asarray(tab), jnp.asarray(sym))))
 
 
-def _parsed(win, ctx_len, valid, level_knobs=(12, 4)):
+def _parsed(win, ctx_len, valid, level_knobs=(12, 4), blk=1024):
     """The JAX parse of a window batch: (tail, m_r, d_r, starts_r, take_r)."""
     K, nw = level_knobs
     ml, md = j_match2.find_matches_fused(
         jnp.asarray(win), jnp.asarray(ctx_len), jnp.asarray(valid), K=K,
         nw=nw, ctx=CTX, interpret=True)
-    ml, md = j_parse.truncate_matches(ml, md, CTX, 1024)
+    ml, md = j_parse.truncate_matches(ml, md, CTX, blk)
     take, _ = j_parse.decide(ml, md, False, 0)
     starts = j_parse.parse_blocks(ml, md, start=CTX, lazy=False,
-                                  max_lazy=0, blk=1024)
+                                  max_lazy=0, blk=blk)
     return tuple(np.asarray(x)[:, CTX:] for x in
                  (win, ml, md, starts, take))
 
 
-def _check_build(parts, valid, final):
-    seg = encode2.seg_size(S, 1024)
-    j = j_encode2.build_fields(*(jnp.asarray(p) for p in parts),
-                               jnp.asarray(valid), jnp.asarray(final), S,
-                               seg)
-    t = encode2.build_fields(*(tt(p) for p in parts), tt(valid), tt(final),
-                             S, seg)
+def _equal(t, j):
+    """The port's (vals, bits, total_bits, kind) equal to the JAX ones."""
     assert t[0].dtype == torch.int32            # vals: the packer's width
     np.testing.assert_array_equal(u32(t[0]), u32(j[0]))     # vals
     np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
     np.testing.assert_array_equal(t[2].numpy(), np.asarray(j[2]))
     np.testing.assert_array_equal(t[3].numpy(), np.asarray(j[3]))
-    return t[3].numpy()
+
+
+def _check_build(parts, valid, final, compact=False, seg=None):
+    """The port's build_fields equal to the JAX one; returns the port's
+    (vals, bits, total_bits, kind).  compact=True: the port's grid
+    compacted by the probe's `compact`, equal to the JAX
+    build_fields(compact=True)."""
+    seg = seg or encode2.seg_size(S, 1024)
+    j = j_encode2.build_fields(*(jnp.asarray(p) for p in parts),
+                               jnp.asarray(valid), jnp.asarray(final), S,
+                               seg, compact=compact)
+    t = encode2.build_fields(*(tt(p) for p in parts), tt(valid), tt(final),
+                             S, seg)
+    if compact:
+        t = (*_probe().compact(t[0], t[1], _slot_count_compact(S, seg)),
+             *t[2:])
+    _equal(t, j)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _probe():
+    """tools/torch_kernel_probe.py loaded as a module."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "torch_kernel_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_kernel_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _slot_count_compact(S_, seg=None):
+    return _probe().slot_count_compact(S_, seg or encode2.seg_size(S_),
+                                       header.HDR_SLOTS)
+
+
+VALID = np.asarray([S, 1800], np.int32)
+FINAL = np.asarray([0, 1], np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kind_parts(kind):
+    """The JAX parse of two rows of one corpus kind (row 0 with context,
+    row 1 a final 1800-byte tail), made once a process."""
+    return _parsed(windows(kind, seed=13), np.asarray([CTX, 0], np.int32),
+                   VALID)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_build_fields_equal(kind):
-    win = windows(kind, seed=13)
-    ctx_len = np.asarray([CTX, 0], np.int32)
-    valid = np.asarray([S, 1800], np.int32)
-    final = np.asarray([0, 1], np.int32)
-    _check_build(_parsed(win, ctx_len, valid), valid, final)
+    _check_build(_kind_parts(kind), VALID, FINAL)
+
+
+@pytest.mark.parametrize("S_", [S, 1024, 7168, 1 << 17])
+def test_slot_count_compact_equal(S_):
+    for seg in (None, 1024, encode2.seg_size(S_)):
+        assert _slot_count_compact(S_, seg) == \
+            j_encode2.slot_count_compact(S_, seg)
+        assert _slot_count_compact(S_, seg) < encode2.slot_count(S_, seg)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_build_fields_compact_equal(kind):
+    """The port's grid compacted equals the JAX compact=True grid element
+    for element (its sort on the keys idx | 2^20 for dead slots), and
+    holds every live field of the full grid, in slot order."""
+    comp = _check_build(_kind_parts(kind), VALID, FINAL, compact=True)
+    full = _check_build(_kind_parts(kind), VALID, FINAL)
+    assert comp[0].shape == (2, _slot_count_compact(S, 1024))
+    for r in range(2):
+        live = full[1][r] > 0
+        n = int(live.sum())
+        assert torch.equal(comp[1][r, :n], full[1][r][live])
+        assert torch.equal(comp[0][r, :n], full[0][r][live])
+        assert not comp[1][r, n:].any() and not comp[0][r, n:].any()
+
+
+def _pack_equal(full, comp):
+    """The compact grid packs to the full grid's words and total_bits;
+    returns each row's stream bytes."""
+    nwr = -(-int(full[2].max()) // (32 * 128)) + 1
+    fw, ft = pack.pack_fields(full[0], full[1], nwr)
+    cw, ct = pack.pack_fields(comp[0], comp[1], nwr)
+    np.testing.assert_array_equal(cw.numpy(), fw.numpy())
+    np.testing.assert_array_equal(ct.numpy(), ft.numpy())
+    np.testing.assert_array_equal(ft.numpy(), full[2].numpy())
+    return [cw[r].numpy().reshape(-1).astype("<i4").tobytes()[
+        :int(ft[r]) // 8] for r in range(cw.shape[0])]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_compact_grid_packs_to_full_grid(kind):
+    parts = _kind_parts(kind)
+    full = _check_build(parts, VALID, FINAL)
+    comp = _check_build(parts, VALID, FINAL, compact=True)
+    raw = _pack_equal(full, comp)[1]         # row 1: no context, final
+    assert zlib.decompress(raw, -15) == parts[0][1, :VALID[1]].tobytes()
 
 
 @pytest.mark.parametrize("n", [20, 47, 147, 301])
@@ -123,7 +220,7 @@ def test_build_fields_fixed_blocks_high_literals(n):
     win[1, CTX:CTX + n] = rng.integers(0, 256, n, dtype=np.uint8)
     valid = np.asarray([n, n], np.int32)
     kind = _check_build(_parsed(win, np.zeros(2, np.int32), valid, (4, 2)),
-                        valid, np.asarray([1, 1], np.int32))
+                        valid, np.asarray([1, 1], np.int32))[3].numpy()
     if n == 20:
         assert kind[0] == encode2.KIND_FIX
 
@@ -138,3 +235,132 @@ def test_entropy_bits_close():
         encode2._entropy_bits(torch.from_numpy(h)).numpy(),
         np.asarray(j_encode2._entropy_bits(jnp.asarray(h))),
         rtol=2.0 ** -22, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the compact grid's bound: inputs that push the live field count up
+# ---------------------------------------------------------------------------
+
+ADV_VALID = np.asarray([S, S - 333], np.int32)
+ADV_FINAL = np.asarray([0, 1], np.int32)
+
+
+def _alternating_tail(seg, first_random, seed):
+    """S bytes whose segments alternate seeded random bytes and seeded
+    letters of a 16-letter alphabet.  The letters make the random bytes'
+    symbols rare, so those segments go stored and the letter segments
+    coded: a coded block opens in every other segment."""
+    rng = np.random.default_rng(seed)
+    rnd = rng.integers(0, 256, S, dtype=np.uint8)
+    letters = rng.integers(97, 97 + 16, S, dtype=np.uint8)
+    row = letters.copy()
+    for j, lo in enumerate(range(0, S, seg)):
+        if (j % 2 == 0) == first_random:
+            row[lo:lo + seg] = rnd[lo:lo + seg]
+    return row
+
+
+def _alternating_real(seg):
+    """The JAX parse (parse blocks of one segment) of two alternating
+    rows, one opening with random bytes, the other with letters."""
+    win = np.zeros((2, CTX + S), np.uint8)
+    for r in range(2):
+        win[r, CTX:] = _alternating_tail(seg, r == 0, seed=21 + r)
+    win[0, :CTX] = np.frombuffer(rfc_text()[:CTX], np.uint8)
+    return _parsed(win, np.asarray([CTX, 0], np.int32), ADV_VALID, blk=seg)
+
+
+def _literal_parse(tails):
+    """Every position a literal token start."""
+    B = len(tails)
+    zero = np.zeros((B, S), np.int32)
+    return (np.stack(tails), zero, zero, np.ones((B, S), bool),
+            np.zeros((B, S), bool))
+
+
+def _all_literals(seg):
+    """All-literal parses of an alternating row and a text row (coded
+    literals in every segment)."""
+    text = np.frombuffer(rfc_text()[:S], np.uint8)
+    return _literal_parse([_alternating_tail(seg, False, 3), text])
+
+
+def _length3_only(seg, period=509):
+    """Rows of `period` seeded random bytes repeated, parsed into matches
+    of exactly 3 bytes at seeded multiples of the period (valid copies),
+    none crossing a segment or the row's end: the first period bytes, and
+    the last seg % 3 of a segment, literals.  The random bytes make
+    literals dear, so the rows code the matches (two live fields a
+    match)."""
+    rng = np.random.default_rng(seg)
+    rows, mlen, mdist, starts, take = [], [], [], [], []
+    for n in ADV_VALID:
+        row = np.resize(rng.integers(0, 256, period, dtype=np.uint8), S)
+        st = np.ones(S, bool)
+        tk = np.zeros(S, bool)
+        for lo in range(0, n, seg):
+            for p in range(max(lo, period), min(lo + seg, n) - 2, 3):
+                tk[p] = True
+                st[p + 1:p + 3] = False
+        d = period * rng.integers(1, np.maximum(np.arange(S) // period, 1)
+                                  + 1)
+        rows.append(row)
+        mlen.append(np.where(tk, 3, 0))
+        mdist.append(np.where(tk, d, 0))
+        starts.append(st)
+        take.append(tk)
+    return (np.stack(rows), np.stack(mlen).astype(np.int32),
+            np.stack(mdist).astype(np.int32), np.stack(starts),
+            np.stack(take))
+
+
+ADVERSARIAL = {"alternating": _alternating_real, "literals": _all_literals,
+               "length3": _length3_only}
+
+
+def _openings(bits, seg):
+    """Block openings a row: segments whose header slots hold a live
+    field (the full grid's layout: per segment 4 boundary slots, the
+    header's, then two a position)."""
+    ns = -(-S // seg)
+    stride = 4 + header.HDR_SLOTS + 2 * seg
+    return sum((bits[:, j * stride + 4:j * stride + 4 + header.HDR_SLOTS]
+                > 0).any(axis=1) for j in range(ns))
+
+
+@pytest.mark.parametrize("seg", [256, 1024])
+@pytest.mark.parametrize("case", list(ADVERSARIAL))
+def test_compact_bound_holds(case, seg):
+    """The live fields of a row fit slot_count_compact in both packages
+    (the JAX compaction keeps every live field), on segments that
+    alternate stored and coded (the most openings), all-literal rows (a
+    live field a byte) and rows of length-3 matches only; the port's grid
+    compacted equals the JAX compact grid and packs to the full grid's
+    stream, which zlib decodes to the row."""
+    parts = ADVERSARIAL[case](seg)
+    valid, final = ADV_VALID, ADV_FINAL
+    SC = _slot_count_compact(S, seg)
+    args = (*(jnp.asarray(p) for p in parts), jnp.asarray(valid),
+            jnp.asarray(final), S, seg)
+    j_live = (np.asarray(j_encode2.build_fields(*args)[1]) > 0).sum(axis=1)
+    j_kept = (np.asarray(j_encode2.build_fields(*args, compact=True)[1])
+              > 0).sum(axis=1)
+    full = _check_build(parts, valid, final, seg=seg)
+    comp = _check_build(parts, valid, final, compact=True, seg=seg)
+    live = (full[1] > 0).sum(dim=1).numpy()
+    np.testing.assert_array_equal(live, j_live)
+    assert live.max() <= SC, (live, SC)
+    np.testing.assert_array_equal(j_kept, j_live)
+    np.testing.assert_array_equal((comp[1] > 0).sum(dim=1).numpy(), live)
+    if case == "literals":
+        # a live field a byte: the body term of the bound is reached
+        assert live.min() >= valid.min()
+    if case == "length3":
+        assert (comp[3] == encode2.KIND_DYN).all()
+    if case == "alternating":
+        assert _openings(full[1].numpy(), seg).max() >= -(-S // seg) // 2
+    raws = _pack_equal(full, comp)
+    if case != "alternating":                # row 0 there has context
+        assert zlib.decompressobj(-15).decompress(raws[0]) == \
+            parts[0][0].tobytes()
+    assert zlib.decompress(raws[1], -15) == parts[0][1, :valid[1]].tobytes()

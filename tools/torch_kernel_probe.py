@@ -75,6 +75,23 @@ Each is timed three ways, as B3 and B6 are.
 
     python3 tools/torch_kernel_probe.py --part prep,pack [--tree DIR]
 
+The compact field grid, `--part compact` (not in the default parts; no
+path of either package packs it): on the fields of the batch at levels
+1, 6 and 9, the JAX package's build_fields(compact=True) grid (each row's
+live fields first in slot order, then zeros, slot_count_compact columns)
+made from the full grid by `compact` (column c takes the row's (c + 1)-th
+live field, found by torch.searchsorted on one int32 prefix sum of the
+live flag over the whole batch; tests/test_torch_encode2.py holds it to
+the JAX grid), held equal to `compact_rows` (a prefix sum a row, the best
+of the other designs); the live fields a row against slot_count_compact;
+B5 on the compact grid against its plain version, its words and
+total_bits those of the full grid.  Timed three ways, as B3 and B6 are:
+each compaction, B5 on the compact grid, compaction + B5, and B5 on the
+full grid, with the bounds of the compaction (the full grid read, the
+compact one written) and of B5 on both grids.
+
+    python3 tools/torch_kernel_probe.py --part compact
+
 End to end, `--part e2e` (not in the default parts): the public entry
 points on the host clock, best of 3 (the level-6 encode of 32 MiB mixed,
 the indexed decode of the text corpus from levels 1 and 3, the chained
@@ -139,12 +156,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (B, CHAIN_STEP_NS, CTX, S,  # noqa: E402
-                        chained_chunk, cuda_ms, graph_ms, host_ms,
-                        mixed_corpus, most_marks, smi, text_corpus)
+from chip_smoke import (B, CHAIN_STEP_NS, CTX, HBM_BYTES_PER_S,  # noqa: E402
+                        INT_OPS_PER_S, S, chained_chunk, cuda_ms, graph_ms,
+                        host_ms, mixed_corpus, most_marks, nbytes, smi,
+                        text_corpus)
 
 # the checkout whose flate_tpu_torch is measured: set by main() (--tree)
-api = bitonic = encode2 = inflate2 = match2 = pack = parse = None
+api = bitonic = encode2 = header = inflate2 = match2 = pack = parse = None
 pipeline2 = runs = None
 
 
@@ -505,11 +523,12 @@ def prep(reps: int) -> dict:
     return out
 
 
-def level6_fields():
-    """build_fields' (vals, bits) of the level-6 batch and its word rows,
-    through the measured tree's stages as encode_batch_packed runs them."""
+def batch_fields(level: int = 6):
+    """build_fields' (vals, bits) of the batch at a level's knobs and its
+    segment size, through the measured tree's stages as
+    encode_batch_packed runs them."""
     window, ctx_len, valid = level6_batch()
-    lvl = pipeline2.level_params(6, S)
+    lvl = pipeline2.level_params(level, S)
     blk = lvl["blk"]
     ml, md = match2.find_matches_fused(window, ctx_len, valid, K=lvl["K"],
                                        nw=lvl["nw"], ctx=CTX, K3=lvl["K3"])
@@ -519,17 +538,19 @@ def level6_fields():
                                 max_lazy=lvl["max_lazy"], blk=blk)
     m_r, d_r = ml[:, CTX:], md[:, CTX:]
     take_r, starts_r = take[:, CTX:], starts[:, CTX:]
-    take_r, starts_r, m_r = pipeline2._squeeze_stage(
-        window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
+    if lvl["squeeze"]:
+        take_r, starts_r, m_r = pipeline2._squeeze_stage(
+            window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
     seg = encode2.seg_size(S, blk)
     finals = torch.zeros(B, dtype=torch.int32, device=window.device)
     vals, bits, _, _ = encode2.build_fields(
         window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S, seg)
-    return vals, bits, pipeline2._nwr(S, seg)
+    return vals, bits, seg
 
 
 def pack_part(reps: int) -> dict:
-    vals, bits, nwr = level6_fields()
+    vals, bits, seg = batch_fields()
+    nwr = pipeline2._nwr(S, seg)
     out = {"B5_vals_dtype": str(vals.dtype),
            "B5_live_fields": int((bits != 0).sum())}
     if hasattr(pack, "_pack_plain"):     # the kernel against its plain version
@@ -558,6 +579,106 @@ def pack_part(reps: int) -> dict:
             v64, off, nwr * 128), reps)
         print(f"B5 placement alone (_place: zeros and the kernel): {line}",
               flush=True)
+    return out
+
+
+def slot_count_compact(S: int, seg: int, hdr_slots: int) -> int:
+    """The compact grid's width, as jx/encode2.py:92-102 gives it: at most
+    one live body field a position (a token start emits fa; fb is live
+    only for matches, which take >= 3 positions each), plus <= 4 boundary
+    fields a segment and the trailer's 4, and one full header
+    (hdr_slots) a block opening (an opening follows a segment that is not
+    coded, so at most every other segment opens one), padded to 512."""
+    ns = -(-S // seg)
+    raw = S + 4 + ns * 4 + (ns // 2 + 1) * hdr_slots
+    return -(-raw // 512) * 512
+
+
+def compact(vals: torch.Tensor, bits: torch.Tensor, width: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The live fields (bits > 0) first, in slot order, then zero fields,
+    cut to `width` columns: what the JAX package's stable sort on the live
+    flag gives.  Column c of a row takes the row's (c + 1)-th live field,
+    found by a binary search of one prefix sum of the live flag over the
+    whole batch (a prefix sum a row runs on too few rows to fill the
+    card)."""
+    B_, slots = bits.shape
+    dt = torch.int32 if bits.numel() < 2**31 else torch.int64
+    cum = torch.cumsum((bits > 0).reshape(-1), 0, dtype=dt).view(B_, slots)
+    before = torch.cat([cum.new_zeros(1), cum[:-1, -1]])[:, None]
+    want = before + torch.arange(1, width + 1, dtype=dt, device=bits.device)
+    src = torch.clamp(torch.searchsorted(cum, want), max=slots - 1)
+    keep = want <= cum[:, -1:]
+    return (torch.where(keep, torch.gather(vals, 1, src), 0),
+            torch.where(keep, torch.gather(bits, 1, src), 0))
+
+
+def compact_rows(vals, bits, width):
+    """compact's gather with a prefix sum a row."""
+    B_, slots = bits.shape
+    cum = torch.cumsum(bits > 0, dim=1, dtype=torch.int32)
+    want = torch.arange(1, width + 1, dtype=torch.int32,
+                        device=bits.device).expand(B_, width).contiguous()
+    src = torch.clamp(torch.searchsorted(cum, want), max=slots - 1)
+    keep = want <= cum[:, -1:]
+    return (torch.where(keep, torch.gather(vals, 1, src), 0),
+            torch.where(keep, torch.gather(bits, 1, src), 0))
+
+
+def compact_part(reps: int) -> dict:
+    out = {}
+    for L in (1, 6, 9):
+        vals, bits, seg = batch_fields(L)
+        nwr = pipeline2._nwr(S, seg)
+        SC = slot_count_compact(S, seg, header.HDR_SLOTS)
+        nlive = (bits > 0).sum(dim=1).cpu().numpy()
+        if nlive.max() > SC:
+            raise AssertionError(f"level {L}: {nlive.max()} live fields in "
+                                 f"a row, over slot_count_compact {SC}")
+        vc, bc = compact(vals, bits, SC)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(compact_rows(vals, bits, SC), (vc, bc))):
+            raise AssertionError(f"level {L}: compact_rows != compact")
+        cw, ct = pack.pack_fields(vc, bc, nwr)
+        pw, pt = pack._pack_plain(vc, bc, nwr * 128)
+        if not (torch.equal(cw.reshape(B, -1), pw) and torch.equal(ct, pt)):
+            raise AssertionError(f"level {L}: B5 on the compact grid != its "
+                                 f"plain version")
+        fw, ft = pack.pack_fields(vals, bits, nwr)
+        if not (torch.equal(cw, fw) and torch.equal(ct, ft)):
+            raise AssertionError(f"level {L}: the compact grid packs to "
+                                 f"other words or total_bits")
+        k = f"l{L}_"
+        out.update({k + "slots": bits.shape[1], k + "compact_slots": SC,
+                    k + "live_min": int(nlive.min()),
+                    k + "live_max": int(nlive.max()),
+                    k + "live_mean": float(nlive.mean())})
+        grid_in = nbytes(vals, bits)
+        out[k + "compact_bound"] = ((grid_in + 8 * B * SC)
+                                    / HBM_BYTES_PER_S * 1e3)
+        out[k + "B5_compact_bound"] = max(
+            (nbytes(vc, bc) + B * nwr * 128 * 4) / HBM_BYTES_PER_S,
+            3 * int(nlive.sum()) / INT_OPS_PER_S) * 1e3
+        out[k + "B5_full_bound"] = max(
+            (grid_in + B * nwr * 128 * 4) / HBM_BYTES_PER_S,
+            3 * int(nlive.sum()) / INT_OPS_PER_S) * 1e3
+        print(f"level {L}: live fields a row {nlive.min()}-{nlive.max()} "
+              f"(mean {nlive.mean():.1f}) of slot_count_compact {SC} "
+              f"(slot_count {bits.shape[1]}); compact == compact_rows; B5 "
+              f"on it == its plain version and the full grid's words and "
+              f"total_bits; bounds: "
+              f"compaction {out[k + 'compact_bound']:.4f} ms, B5 compact "
+              f"{out[k + 'B5_compact_bound']:.4f}, B5 full "
+              f"{out[k + 'B5_full_bound']:.4f}", flush=True)
+        for name, fn in (
+                ("compact", lambda: compact(vals, bits, SC)),
+                ("compact_rows", lambda: compact_rows(vals, bits, SC)),
+                ("B5_compact", lambda: pack.pack_fields(vc, bc, nwr)),
+                ("compact_and_B5", lambda: pack.pack_fields(
+                    *compact(vals, bits, SC), nwr)),
+                ("B5_full", lambda: pack.pack_fields(vals, bits, nwr))):
+            line = three_ways(out, k + name, fn, reps)
+            print(f"level {L} {name}: {line}", flush=True)
     return out
 
 
@@ -781,14 +902,15 @@ def fused(reps: int) -> dict:
 
 
 def main() -> int:
-    global api, bitonic, encode2, inflate2, match2, pack, parse
+    global api, bitonic, encode2, header, inflate2, match2, pack, parse
     global pipeline2, runs
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--part",
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
-                         "lanes, prep, pack, e2e, fused, scan, rounds")
+                         "lanes, prep, pack, compact, e2e, fused, scan, "
+                         "rounds")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -797,7 +919,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.tree))
     from flate_tpu_torch import api
-    from flate_tpu_torch.device import bitonic, encode2, inflate2, match2
+    from flate_tpu_torch.device import bitonic, encode2, header, inflate2
+    from flate_tpu_torch.device import match2
     from flate_tpu_torch.device import pack, parse, pipeline2, runs
     card = smi()
     print(card, flush=True)
@@ -805,7 +928,8 @@ def main() -> int:
     res = {"card": card, "tree": os.path.abspath(args.tree)}
     parts = {"matcher": matcher, "network": network, "walks": walks,
              "runs": small_runs, "lanes": lanes, "prep": prep,
-             "pack": pack_part, "e2e": e2e, "fused": fused,
+             "pack": pack_part, "compact": compact_part, "e2e": e2e,
+             "fused": fused,
              "scan": scan_part, "rounds": rounds_part}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
