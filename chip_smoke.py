@@ -188,18 +188,33 @@ Phases, one line each:
      too_far_streams must raise InvalidMatch; gzip.huffman and gzip.store
      round trips of 8 MiB; roundtrip_cli and decompress_cli in this
      process (exit codes 0, 0, 1, 1); metrics.summary().
+ 17. malformed streams, through api.<ns>.decompress and
+     api.<ns>.decompressor(io.BytesIO(...)).read_all() on the card: the
+     reference's 40-stream corpus (tests/data/fuzz) against FUZZ_CASES,
+     the pinned streams of pinned_malformed against their verdicts, 300
+     raw, 100 zlib and 100 gzip mutations (mutants over fuzz_seeds, the
+     port's own members made on the card; gzip also with walk="serial")
+     against the port's verdicts on the CPU and, where CPython's zlib or
+     gzip accepts a stream, against its bytes, four 3 MiB streams of
+     large_malformed_streams against their error, and decompress_cli on
+     the corpus (exit 0 or 1 as the table says, never 2), with launch
+     counters set to 0 just before and read just after: S1, B6 and B7
+     must launch.  Prints the verdicts checked, mismatches (any raises),
+     launches and seconds.
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 275-345 s on an H100 (the kernel build ~6 s, the CPU twins of
+About 320-390 s on an H100 (the kernel build ~6 s, the CPU twins of
 phases 8 and 10 ~30-55 s, the plain versions' host loops ~25 s, phase 13
 ~15 s, phase 14 ~60 s, most of it the host writer's long blocks and their
-cut twins, phase 15 ~15 s with its CPU twins, phase 16 ~35 s).
+cut twins, phase 15 ~15 s with its CPU twins, phase 16 ~35 s; phase 17
+~45 s, half of it its CPU twins).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io
 import json
@@ -455,6 +470,224 @@ def too_far_streams():
     raw = v.to_bytes((n + 7) // 8, "little")
     member = b"\x78\x01" + raw + zlib.adler32(b"a\0a\0").to_bytes(4, "big")
     return [("RAW", raw), ("ZLIB", member)]
+
+
+
+# The reference's malformed-stream corpus, tests/data/fuzz (its table is
+# tests/test_inflate_fuzz.py CASES, which a CPU test holds this copy to):
+# (input name, expected output: a file name, bytes or None, error class).
+FUZZ_CASES = [
+    ("deflate-stream", "deflate-stream.expect", None),
+    ("empty-distance-alphabet01", b"", None),
+    ("empty-distance-alphabet02", b"", None),
+    ("end-of-stream", None, "EndOfStream"),
+    ("invalid-distance", None, "InvalidMatch"),
+    ("invalid-tree01", None, "IncompleteHuffmanTree"),
+    ("invalid-tree02", None, "IncompleteHuffmanTree"),
+    ("invalid-tree03", None, "IncompleteHuffmanTree"),
+    ("lengths-overflow", None, "InvalidDynamicBlockHeader"),
+    ("out-of-codes", None, "InvalidCode"),
+    ("puff01", None, "WrongStoredBlockNlen"),
+    ("puff02", None, "EndOfStream"),
+    ("puff03", b"\x0a", None),
+    ("puff04", None, "InvalidCode"),
+    ("puff05", None, "EndOfStream"),
+    ("puff06", None, "EndOfStream"),
+    ("puff08", None, "InvalidCode"),
+    ("puff09", b"P", None),
+    ("puff10", None, "InvalidCode"),
+    ("puff11", None, "InvalidMatch"),
+    ("puff12", None, "InvalidDynamicBlockHeader"),
+    ("puff13", None, "IncompleteHuffmanTree"),
+    ("puff14", None, "EndOfStream"),
+    ("puff15", None, "IncompleteHuffmanTree"),
+    ("puff16", None, "InvalidDynamicBlockHeader"),
+    ("puff17", None, "InvalidDynamicBlockHeader"),
+    ("fuzz1", None, "InvalidDynamicBlockHeader"),
+    ("fuzz2", None, "InvalidDynamicBlockHeader"),
+    ("fuzz3", None, "InvalidMatch"),
+    ("fuzz4", None, "OversubscribedHuffmanTree"),
+    ("puff18", None, "OversubscribedHuffmanTree"),
+    ("puff19", None, "OversubscribedHuffmanTree"),
+    ("puff20", None, "OversubscribedHuffmanTree"),
+    ("puff21", None, "OversubscribedHuffmanTree"),
+    ("puff22", None, "OversubscribedHuffmanTree"),
+    ("puff23", None, "InvalidDynamicBlockHeader"),
+    ("puff24", None, "InvalidDynamicBlockHeader"),
+    ("puff25", None, "OversubscribedHuffmanTree"),
+    ("puff26", None, "InvalidDynamicBlockHeader"),
+    ("puff27", None, "InvalidDynamicBlockHeader"),
+]
+
+
+def fuzz_case(name: str, expect) -> tuple:
+    """(input bytes, expected output or None) of a FUZZ_CASES entry."""
+    fuzz = os.path.join(HERE, "tests", "data", "fuzz")
+    with open(os.path.join(fuzz, f"{name}.input"), "rb") as fh:
+        data = fh.read()
+    if isinstance(expect, str):
+        with open(os.path.join(fuzz, expect), "rb") as fh:
+            expect = fh.read()
+    return data, expect
+
+
+FUZZ_TEXT = b"the quick brown fox jumps over the lazy dog " * 40
+
+
+def fuzz_mixed() -> bytes:
+    """The input of the port's own seed streams: the text, 2,048 seeded
+    random bytes (one random.Random(3)) and the text again, so its members
+    mix stored and coded shards."""
+    import random
+    rng = random.Random(3)
+    return FUZZ_TEXT + bytes(rng.randrange(256) for _ in range(2048)) \
+        + FUZZ_TEXT
+
+
+def own_member(container: str, device) -> bytes:
+    """The port's own member of fuzz_mixed() in `container` (RAW, ZLIB or
+    GZIP: with the FLT1 index), at shard_len 2048, ctx 1024, batch 2."""
+    from flate_tpu_torch.containers import Container
+    from flate_tpu_torch.device import pipeline2
+    return pipeline2.compress_device2(
+        fuzz_mixed(), level=6, container=Container[container],
+        shard_len=2048, ctx=1024, batch=2, device=device)
+
+
+def fuzz_seeds(container: str, own: bytes) -> list:
+    """The valid streams the mutations start from: for RAW the seeds of
+    tests/test_decoder_fuzz_differential.py (zlib at levels 0, 1, 6, 9, a
+    byte ramp, a sync-flushed stream) and the port's own member `own`; for
+    ZLIB zlib's members at those levels and `own`; for GZIP CPython's gzip
+    at levels 1, 6 and 9 (mtime 0) of fuzz_mixed(), `own` (whose mixed
+    shard re-routes it to the chained route) and OWN_GZIP_167 (all coded
+    shards: the indexed route decodes it)."""
+    if container == "RAW":
+        seeds = [zlib.compress(FUZZ_TEXT, lv)[2:-4] for lv in (0, 1, 6, 9)]
+        seeds.append(zlib.compress(bytes(range(256)) * 32, 6)[2:-4])
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        seeds.append(co.compress(FUZZ_TEXT) + co.flush(zlib.Z_SYNC_FLUSH)
+                     + co.flush())
+    elif container == "ZLIB":
+        seeds = [zlib.compress(FUZZ_TEXT, lv) for lv in (0, 1, 6, 9)]
+    else:
+        seeds = [gzip.compress(fuzz_mixed(), lv, mtime=0) for lv in (1, 6, 9)]
+        seeds.append(OWN_GZIP_167)
+    return seeds + [own]
+
+
+def mutants(seeds: list, n: int, seed: int = 20260817) -> list:
+    """n mutations of the seed streams, as the JAX package's mutation
+    differential makes them: a seed, then 1-6 edits of a bit flip (1/2), a
+    byte deleted (1/4) or a byte inserted (1/4)."""
+    import random
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        s = bytearray(rng.choice(seeds))
+        for _ in range(rng.randint(1, 6)):
+            op = rng.random()
+            if op < 0.5 and s:
+                s[rng.randrange(len(s))] ^= 1 << rng.randrange(8)
+            elif op < 0.75 and s:
+                del s[rng.randrange(len(s))]
+            else:
+                s.insert(rng.randrange(len(s) + 1), rng.randrange(256))
+        out.append(bytes(s))
+    return out
+
+
+# The port's own gzip member (own_member("GZIP", ...) of the text, 2,048
+# bytes of 0x79 and the text: a 44-byte header with a 32-byte FLT1 extra
+# field, shards of 68, 27 and 20 bytes, the footer).
+OWN_GZIP_167 = bytes.fromhex(
+    "1f8b0804000000000003200046541c000100030044000000000800001b0000000008"
+    "000014000000c0050000eccac711c0201004c154363519e4a513de444f910001503b"
+    "df697728687f2e376623f1c32609977f7f0b09caa0ed672a19abeca0a5a51dcbd2d2"
+    "8e6c33eb56010000ffff1a05a360148c5c300a46c1700684da0a84da15c35d2d0000"
+    "00ffff1a553baa7654edc8553baa7668ab05040000ffffed14587ec0150000")
+
+
+def pinned_malformed() -> list:
+    """(name, container, stream, expected: the output or an error class
+    name) of streams on which the port once gave another verdict than the
+    JAX package's host decode:
+    - OWN_GZIP_167 with bit 2 of byte 38 flipped (inside the FLT1 index:
+      the index no longer describes the body, which is intact) decodes to
+      its input; with bit 3 of byte 158 flipped (the NLEN of the empty
+      stored block that ends the body) it raises WrongStoredBlockNlen;
+    - raw streams whose first block is fixed, non-final and starts with a
+      match of length 3 at distance 1 (no output before it: InvalidMatch,
+      the first error in stream order), then: a code for litlen symbol 286
+      and 64 zero bits; three literals "A" and the end, cut at a byte; the
+      end of block and a stored block with LEN 5 and NLEN 5; the end of
+      block and a final dynamic block whose litlen lengths are 2, 0 x 255,
+      2 (incomplete), or 1, 1, 0 x 254, 1 (oversubscribed)."""
+    member = OWN_GZIP_167
+    text = FUZZ_TEXT + b"y" * 2048 + FUZZ_TEXT
+    flip38, flip158 = bytearray(member), bytearray(member)
+    flip38[38] ^= 1 << 2
+    flip158[158] ^= 1 << 3
+    return [
+        ("own gzip member, byte 38 bit 2", "GZIP", bytes(flip38), text),
+        ("own gzip member, byte 158 bit 3", "GZIP", bytes(flip158),
+         "WrongStoredBlockNlen"),
+        ("too far, then an invalid code", "RAW",
+         bytes.fromhex("0282310000000000000000"), "InvalidMatch"),
+        ("too far, then the stream is cut", "RAW", bytes.fromhex("02024747"),
+         "InvalidMatch"),
+        ("too far, then a stored block's NLEN", "RAW",
+         bytes.fromhex("02024000050005000000000000"), "InvalidMatch"),
+        ("too far, then an incomplete tree", "RAW",
+         bytes.fromhex("0202400170400200000020a8ffab1300000000"),
+         "InvalidMatch"),
+        ("too far, then an oversubscribed tree", "RAW",
+         bytes.fromhex("020240017040020000002048ff9f5600000000"),
+         "InvalidMatch"),
+    ]
+
+
+def large_malformed_streams(size: int = 3 << 20) -> list:
+    """(name, container, stream, error class name) of malformed streams of
+    `size` bytes of the mixed corpus, longer than the decode's 512 KiB
+    chunks (the scanner gives them chain heads past bit 0), each with the
+    error the serial decode meets first: zlib's level 6 cut at 3/4
+    (EndOfStream) or with its Adler-32 flipped (WrongZlibChecksum); a zlib
+    stream full-flushed after 2/3 of the input whose flush block's NLEN
+    is flipped (WrongStoredBlockNlen); the same as a raw stream made with
+    a preset dictionary of the input's first 32 KiB and decoded without
+    it (its first matches reach before the start: InvalidMatch comes
+    first)."""
+    data = mixed_corpus(size)
+    cut = 2 * size // 3
+    whole = zlib.compress(data, 6)
+
+    def flushed(wbits, **kw):
+        c = zlib.compressobj(6, zlib.DEFLATED, wbits, **kw)
+        head = bytearray(c.compress(data[:cut]) + c.flush(zlib.Z_FULL_FLUSH))
+        head[-1] ^= 1                 # NLEN of the flush's empty block
+        return bytes(head) + c.compress(data[cut:]) + c.flush()
+
+    return [
+        ("zlib cut at 3/4", "ZLIB", whole[:len(whole) * 3 // 4],
+         "EndOfStream"),
+        ("zlib Adler-32 flipped", "ZLIB", whole[:-1] + bytes([whole[-1] ^ 1]),
+         "WrongZlibChecksum"),
+        ("zlib flush NLEN flipped", "ZLIB", flushed(15),
+         "WrongStoredBlockNlen"),
+        ("raw with a dictionary, flush NLEN flipped", "RAW",
+         flushed(-15, zdict=data[:32 * 1024]), "InvalidMatch"),
+    ]
+
+
+def verdict(fn) -> tuple:
+    """(bytes, None) when fn() returns, (None, the error class name) when
+    it raises one of the port's stream errors."""
+    from flate_tpu_torch import errors
+    try:
+        return fn(), None
+    except errors.FlateError as e:
+        return None, type(e).__name__
 
 
 def main() -> int:
@@ -1491,6 +1724,7 @@ def main() -> int:
     phase16(api, _build, inflate2, data32, foreign, foreign_secs,
             blobs["mixed 32 MiB", 6], own6_secs, blobs["mixed 8 MiB", 6],
             with_d, zd)
+    phase17(api, _build, inflate2)
 
     for c in cases:
         c["launches"] = launches[c.pop("path")].get(c.pop("entry"), 0)
@@ -1948,6 +2182,125 @@ def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
           f"{json.dumps(metrics.summary())}", flush=True)
     metrics.disable()
     metrics.reset()
+
+
+def phase17(api, _build, inflate2, device: str = "cuda") -> None:
+    """Malformed streams on the card: every verdict of the one-shot and the
+    streaming decode on the card (a decoded stream or an error class) must
+    equal the table's, the construction's or the port's own on the CPU; a
+    mismatch raises."""
+    from flate_tpu_torch.cli import decompress_cli
+    names = {"RAW": "flate", "ZLIB": "zlib", "GZIP": "gzip"}
+    t0 = time.time()
+    # the port's own seed members, made on the card before the counters
+    # are set to 0
+    own = {c: own_member(c, device) for c in names}
+    sets = [(c, m) for c, n in (("RAW", 300), ("ZLIB", 100), ("GZIP", 100))
+            for m in mutants(fuzz_seeds(c, own[c]), n)]
+    nthreads = torch.get_num_threads()
+    torch.set_num_threads(1)         # the CPU twins: many tiny tensor ops
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    inflate2.STATS.clear()
+    checked, bad = 0, []
+
+    def decode(container, data, device):
+        ns = getattr(api, names[container])
+        one = verdict(lambda: ns.decompress(data, device=device))
+        streamed = verdict(lambda: ns.decompressor(
+            io.BytesIO(data), device=device).read_all())
+        return one, streamed
+
+    def check(what, got, want):
+        nonlocal checked
+        checked += 1
+        if got != want:
+            bad.append(f"{what}: {got[1] or len(got[0])} != "
+                       f"{want[1] or len(want[0])}")
+
+    try:
+        for name, expect, cls in FUZZ_CASES:
+            data, expect = fuzz_case(name, expect)
+            want = (expect, cls)
+            one, streamed = decode("RAW", data, device)
+            check(f"corpus {name} one-shot", one, want)
+            check(f"corpus {name} streamed", streamed, want)
+        for name, container, data, expect in pinned_malformed():
+            want = (expect, None) if isinstance(expect, bytes) \
+                else (None, expect)
+            one, streamed = decode(container, data, device)
+            check(f"pinned {name} one-shot", one, want)
+            check(f"pinned {name} streamed", streamed, want)
+        accepted = 0
+        for i, (container, data) in enumerate(sets):
+            one, streamed = decode(container, data, device)
+            cpu_one, cpu_streamed = decode(container, data, "cpu")
+            check(f"{container} mutation {i} one-shot", one, cpu_one)
+            check(f"{container} mutation {i} streamed", streamed,
+                  cpu_streamed)
+            if container == "GZIP":
+                check(f"GZIP mutation {i} one-shot serial walk", verdict(
+                    lambda: api.gzip.decompress(data, device=device,
+                                                walk="serial")),
+                    cpu_one)
+            ref = python_accepts(container, data)
+            if ref is not None:
+                accepted += 1
+                check(f"{container} mutation {i} against CPython", one,
+                      (ref, None))
+        big_secs = time.time()
+        large = large_malformed_streams()
+        for name, container, data, cls in large:
+            one, streamed = decode(container, data, device)
+            check(f"large {name} one-shot", one, (None, cls))
+            check(f"large {name} streamed", streamed, (None, cls))
+            if python_accepts(container, data) is not None:
+                bad.append(f"large {name}: CPython accepts it")
+        big_secs = time.time() - big_secs
+        codes = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            for name, expect, cls in FUZZ_CASES:
+                rc = run_cli(decompress_cli.main, fuzz_case(name, expect)[0],
+                             ["--device", device])
+                codes[rc] = codes.get(rc, 0) + 1
+                check(f"decompress_cli {name}", (None, rc),
+                      (None, 1 if cls else 0))
+    finally:
+        torch.set_num_threads(nthreads)
+    counts = dict(_build.LAUNCHES)
+    stats = dict(inflate2.STATS)
+    secs = time.time() - t0
+    print(f"[17] malformed streams on the card: {checked} verdicts (the 40 "
+          f"corpus cases and {len(pinned_malformed())} pinned streams "
+          f"one-shot and streamed against their table; {len(sets)} "
+          f"mutations (300 raw, 100 zlib, 100 gzip) one-shot and streamed "
+          f"against the port's CPU verdicts, gzip also with walk='serial', "
+          f"{accepted} that CPython accepts against its bytes; "
+          f"{len(large)} streams of 3 MiB of input in {big_secs:.4f} s; "
+          f"decompress_cli exit codes "
+          f"{codes}), mismatches {len(bad)}; launches S1 "
+          f"{counts.get('flate_scan_headers', 0)}, B6 "
+          f"{counts.get('flate_lane_walk', 0)}, B7 "
+          f"{counts.get('flate_walk', 0)}; re-routed members "
+          f"{stats.get('segmented_reroutes', 0)}; {secs:.4f} s", flush=True)
+    if bad:
+        raise AssertionError(f"phase 17: {len(bad)} mismatches: {bad[:20]}")
+    for k in ("flate_scan_headers", "flate_lane_walk", "flate_walk"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"phase 17: {k} not launched: {counts}")
+
+
+def python_accepts(container: str, data: bytes):
+    """CPython's output where its zlib (raw, zlib: the whole input one
+    stream) or gzip module accepts `data`, else None."""
+    try:
+        if container == "GZIP":
+            return gzip.decompress(data)
+        d = zlib.decompressobj(-15 if container == "RAW" else 15)
+        out = d.decompress(data)
+    except (OSError, EOFError, zlib.error):
+        return None
+    return out if d.eof and not d.unused_data else None
 
 
 if __name__ == "__main__":

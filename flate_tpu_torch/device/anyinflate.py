@@ -95,7 +95,7 @@ class BlockPlan:
     ("cont"), which starts at bit `pos` on a symbol boundary of the block
     whose header is at bit `block`."""
     __slots__ = ("kind", "pos", "block", "bfinal", "body_bit", "ll", "d",
-                 "stored_off", "stored_len", "end_bit")
+                 "lens", "stored_off", "stored_len", "end_bit")
 
     def key(self):
         """The row's key in a chain: its header bit, or (bit, header bit)
@@ -129,10 +129,12 @@ def plan_block_at(body: bytes, pos: int) -> BlockPlan:
     if btype == 1:
         ll_lens = np.asarray(tables.FIXED_LITLEN_LENS, np.int32)
         d_lens = np.asarray(tables.FIXED_DIST_LENS, np.int32)
+        p.lens = None
     elif btype == 2:
         ll_lens, d_lens = hinf.decode_dynamic_header_lens(bits)
         hinf.check_completeness(ll_lens, consts.MAX_CODE_BITS, True)
         hinf.check_completeness(d_lens, consts.MAX_CODE_BITS, False)
+        p.lens = (ll_lens, d_lens)
     else:
         raise InvalidBlockType(f"block type {btype}")
     p.kind = "coded"
@@ -149,8 +151,30 @@ def plan_continuation(p: BlockPlan, bit: int) -> BlockPlan:
     q = BlockPlan()
     q.kind = "cont"
     q.pos = q.body_bit = bit
-    q.block, q.bfinal, q.ll, q.d = p.block, p.bfinal, p.ll, p.d
+    q.block, q.bfinal, q.ll, q.d, q.lens = p.block, p.bfinal, p.ll, p.d, \
+        p.lens
     return q
+
+
+def stop_error(body: bytes, p: BlockPlan, bit: int) -> FlateError:
+    """The error of the symbol at `bit` of coded row `p`, where its chain
+    stopped without an end-of-block at the end of the body: that one
+    symbol decoded on the host with the block's tables, as the serial
+    decode meets it.  InvalidCode for a code the tables do not hold (the
+    bits past the body read as zeros, as they do there), EndOfStream when
+    the body ends inside the symbol or its extra bits; each in the order
+    the serial decode checks them.  No payload is decoded here."""
+    if p.lens is None:
+        ll, d = hinf.fixed_tables()
+    else:
+        ll = hinf.build_decode_table(p.lens[0], consts.MAX_CODE_BITS, True)
+        d = hinf.build_decode_table(p.lens[1], consts.MAX_CODE_BITS, False)
+    try:
+        hinf.read_symbol(hinf._BitCursor(body, bit), ll, d)
+    except (InvalidCode, EndOfStream) as e:
+        return type(e)(f"block at bit {p.block}: symbol at bit {bit}")
+    raise RuntimeError(f"block at bit {p.block}: the walk stopped at bit "
+                       f"{bit} on a whole symbol")
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +410,7 @@ def _decode_round(body: bytes, plans: list, span: dict,
                     "ok": not bool(fail_np[bi]),
                     "serial": serial,
                     "span": C,
+                    "cut": cut,
                     "stop": int(stop_np[bi]),
                 }
     return results
@@ -395,10 +420,30 @@ def _invalid_code_at_cut(r: dict, span_end: int) -> bool:
     """Whether the word that stopped a coded row without its end-of-block
     at its cut (end_bit) is an invalid code (K_BAD) that lies wholly
     before the row's last bit `span_end`: the block's own error, which
-    more bits cannot mend.  Otherwise the row was cut by its span's end
-    (or the body's)."""
+    more bits cannot mend.  Otherwise the row was cut by its span's end,
+    or stopped within a symbol of the body's end (stop_error decides)."""
     return ((r["stop"] >> 6) & 3) == i2.K_BAD \
         and r["end_bit"] + MAX_SYMBOL_BITS <= span_end
+
+
+def _reaches_before(rows: list, hist_len: int) -> bool:
+    """Whether a match of the chain's rows, in stream order, reaches before
+    the `hist_len` bytes of history: resolve_compact's test, made on the
+    symbols alone (no bytes are resolved).  A row gives its first `counts`
+    words, a stored block its length.  One fetch for all the rows."""
+    base, hits = 0, []
+    for r in rows:
+        if not r["stored"] and r["counts"]:
+            w = r["words"][r["row"], :r["counts"]]
+            kind = (w >> 6) & 3
+            is_m = kind == i2.K_MATCH
+            olen = torch.where(is_m, ((w >> 8) & 0xFF) + 3,
+                               (kind == i2.K_LIT).to(torch.int32))
+            offs = torch.cumsum(olen, dim=0) - olen
+            dist = ((w >> 16) & 0x7FFF) + 1
+            hits.append((is_m & (base + offs - dist < -hist_len)).any())
+        base += r["out_len"]
+    return bool(torch.stack(hits).any()) if hits else False
 
 
 def decompress_device_any(data: bytes,
@@ -451,9 +496,11 @@ def _decompress_member_any(data: bytes, offset: int,
     body = data[offset + hdr_len:]
     if entries is None:
         entries = scan.chunk_entries(body, chunk_bytes, device=dev)
-    chain, end_bit, _done = _chain(body, entries, 0, dev)
+    hist = history(dictionary)
+    chain, end_bit, _done = _chain(body, entries, 0, dev,
+                                   hist_len=len(hist))
     out = bytearray()
-    _resolve_chain(chain, body, history(dictionary), dev, out.extend)
+    _resolve_chain(chain, body, hist, dev, out.extend)
 
     foot_off = offset + hdr_len + ((end_bit + 7) // 8)
     hasher = Hasher(container)
@@ -489,7 +536,8 @@ def decode_step(window: bytes, start: int, hist: bytes, *,
     if entries is None:
         entries = scan.chunk_entries(window, chunk_bytes, device=dev)
     chain, stop, done = _chain(window, entries, start, dev,
-                               final_input=final_input, out_cap=out_cap)
+                               hist_len=len(hist), final_input=final_input,
+                               out_cap=out_cap)
     parts: list = []
     hist = _resolve_chain(chain, window, hist, dev, parts.append)
     return b"".join(parts), stop, done, hist
@@ -501,7 +549,8 @@ def _bit(key) -> int:
 
 
 def _chain(body: bytes, entries, start: int, dev: torch.device, *,
-           final_input: bool = True, out_cap: int | None = None):
+           hist_len: int, final_input: bool = True,
+           out_cap: int | None = None):
     """Decode the chain of blocks from bit `start` of `body` in device
     rounds, beside the chains from `entries`.  Returns (chain, stop,
     done): the decoded rows from `start` in stream order, the bit where
@@ -518,13 +567,21 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
     A block that runs off the end of `body` raises EndOfStream once the
     chain from `start` reaches it, or with final_input=False stops the
     chain at its header.  out_cap stops the chain at the first block end
-    where it holds that many output bytes."""
+    where it holds that many output bytes.
+
+    Errors come in stream order, as the serial decode meets them: when the
+    chain from `start` reaches a block that failed, a match before it (in
+    the rows before, or in the failed row's symbols before its stop) that
+    reaches before the `hist_len` bytes of history raises InvalidMatch
+    first; otherwise the block's own error is raised.  Only a failed
+    chain pays for that test."""
     nbits = 8 * len(body)
     heads = {start, *(int(e) for e in entries if start < e < nbits)}
     frontier = set(heads)
     i2.STATS["chain_heads"] += len(heads)
     decoded: dict = {}           # row key -> result/stored plan
     failed: dict = {}            # row key -> its FlateError
+    partial: dict = {}           # failed row key -> its symbols before it
     waiting: set = set()         # row keys of blocks off the end
     conts: dict = {}             # continuation row key -> its plan
     span: dict = {}
@@ -535,6 +592,13 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
             failed[key] = err
         else:
             waiting.add(key)
+
+    def fail(key, r: dict, err: FlateError) -> None:
+        if isinstance(err, EndOfStream):
+            off_the_end(key, err)
+        else:
+            failed[key] = err
+        partial[key] = r
 
     head, head_out, stall = start, 0, 0
     while True:
@@ -574,7 +638,9 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
             for key, r in res.items():
                 p = r["plan"]
                 span_end = 8 * min((p.pos >> 3) + r["span"], len(body))
-                bad = not r["has_eob"] and _invalid_code_at_cut(r, span_end)
+                # (a row without its cut only escalates)
+                bad = not r["has_eob"] and r["cut"] \
+                    and _invalid_code_at_cut(r, span_end)
                 if not r["has_eob"] and r["span"] < MAX_SPAN \
                         and span_end < nbits and not (r["ok"] and bad):
                     # EOB not in a first row's span: escalate and retry
@@ -592,15 +658,22 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                     decoded[key] = r
                     if not p.bfinal:
                         frontier.add(r["end_bit"])
-                elif span_end == nbits and not bad:
-                    off_the_end(key, EndOfStream(
-                        f"block at bit {p.block} runs past the end of the "
-                        f"stream"))
-                elif bad or r["counts"] == 0:
-                    # an invalid code, or no progress: never a loop
-                    failed[key] = InvalidCode(
+                elif bad:
+                    fail(key, r, InvalidCode(
                         f"block at bit {p.block} undecodable at bit "
-                        f"{r['end_bit']}")
+                        f"{r['end_bit']}"))
+                elif span_end == nbits:
+                    # stopped within a symbol of the body's end: that
+                    # symbol's own verdict, or (more input may come) wait
+                    fail(key, r, stop_error(body, p, r["end_bit"])
+                         if final_input else EndOfStream(
+                             f"block at bit {p.block} runs past the end of "
+                             f"the window"))
+                elif r["counts"] == 0:
+                    # no progress: never a loop
+                    fail(key, r, InvalidCode(
+                        f"block at bit {p.block} undecodable at bit "
+                        f"{r['end_bit']}"))
                 else:
                     # proven up to its cut: the block goes on from there
                     q = plan_continuation(p, r["end_bit"])
@@ -629,6 +702,16 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
         if done or capped or pos in waiting:
             break
         if pos in failed:
+            rows = []
+            at = start
+            while at != pos:
+                rows.append(decoded[at])
+                at = decoded[at]["next"]
+            if pos in partial:
+                rows.append(partial[pos])
+            if _reaches_before(rows, hist_len):
+                raise InvalidMatch("a match reaches before the start of "
+                                   "the history")
             raise failed[pos]
         stall = stall + 1 if pos == head else 0
         head = pos

@@ -45,7 +45,8 @@ import torch
 from .. import _build, consts, metrics, tables
 from .. import inflate as hinf
 from ..containers import Container, Hasher, parse_footer, parse_header
-from ..errors import EndOfStream, InvalidBlockType, WrongStoredBlockNlen
+from ..errors import (EndOfStream, FlateError, InvalidBlockType,
+                      WrongStoredBlockNlen)
 from ..shard_index import parse_index_extra
 from . import onehot, resolve_device, to_i32
 
@@ -106,7 +107,7 @@ class ShardPlan:
     `mixed` (stored then coded blocks: a segmented shard)."""
 
     __slots__ = ("kind", "stored_spans", "start_bit", "final",
-                 "ll", "d", "out_len")
+                 "ll", "d", "out_len", "end_bit", "end_final")
 
     def __init__(self):
         self.kind = "coded"
@@ -145,6 +146,8 @@ def plan_shard(comp: bytes, out_len: int) -> ShardPlan:
             bits.align_to_byte()
         p.kind = "stored"
         p.stored_spans = spans
+        # where the stored data ends, and whether its last block is final
+        p.end_bit, p.end_final = bits.pos, bfinal
         return p
     if btype == 1:
         ll_lens = np.asarray(tables.FIXED_LITLEN_LENS, np.int32)
@@ -587,14 +590,19 @@ def _cut(words: torch.Tensor, n: torch.Tensor, start: torch.Tensor,
 
 def decode_batch2(comp, clen, start, lims_ll, kbase_ll, syms_ll,
                   lims_d, kbase_d, syms_d, out_lens, ctx0, *,
-                  S: int, NS: int, G: int = LANE_G, hist_len: int = CTX):
-    """Lane-walk twin of decode_batch; extra return: spec_fail (B,)."""
+                  S: int, NS: int, G: int = LANE_G, hist_len: int = CTX,
+                  end_bit: bool = False):
+    """Lane-walk twin of decode_batch; extra return: spec_fail (B,), and
+    with end_bit=True the bit (B,) where each row's first end-of-block
+    ends."""
     STATS["decode_batch2"] += 1
     word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d)
     mask, joined = _lane_walk(word, start, 8 * clen, G=G)
-    words, counts, spec_fail, _, _, _ = _extract(word, mask, joined,
-                                                 start, NS, G)
+    words, counts, spec_fail, _, _, end = _extract(word, mask, joined,
+                                                   start, NS, G)
     out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
+    if end_bit:
+        return out, err, counts, spec_fail, end
     return out, err, counts, spec_fail
 
 
@@ -749,18 +757,27 @@ def _resolve(words, counts, out_lens, ctx0, S: int, hist_len: int = CTX):
 
 def decode_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
                  lims_d, kbase_d, syms_d, out_lens, ctx0, *,
-                 S: int, NS: int, hist_len: int = CTX):
+                 S: int, NS: int, hist_len: int = CTX,
+                 end_bit: bool = False):
+    """Serial-walk decode of a batch of shards: (output, err, counts), and
+    with end_bit=True the bit (B,) where each row's walk ends (after its
+    first end-of-block, when it has one)."""
     STATS["decode_batch"] += 1
     word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d)
     words, counts = _walk(word, start, 8 * clen, NS)
     out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
+    if end_bit:
+        slots = torch.arange(NS, dtype=torch.int32, device=words.device)
+        adv = torch.where(slots[None, :] < counts[:, None], words & 63, 0)
+        return out, err, counts, start + adv.sum(dim=1, dtype=torch.int32)
     return out, err, counts
 
 
-def _pack_flags(err, spec):
-    """One fetched tensor for the per-batch flag pair: each fetch blocks
-    the host until the device has caught up."""
-    return torch.stack([err.to(torch.int32), spec.to(torch.int32)])
+def _pack_flags(err, *rest):
+    """One fetched tensor for the per-batch flags (err, spec_fail) and any
+    further per-row results, as int32: each fetch blocks the host until
+    the device has caught up."""
+    return torch.stack([t.to(torch.int32) for t in (err, *rest)])
 
 
 def _bucket(c: int) -> int:
@@ -805,10 +822,38 @@ def _host_decode_shard(sh: bytes, out_len: int, hist: bytes) -> bytes:
     return bytes(outb[base:base + out_len])
 
 
-class _Segmented(Exception):
-    """Internal: the member has segmented (multi-block) shards — the
-    shard-parallel path cannot decode it; re-route to the chained device
-    path with exact index entries."""
+class _Reroute(Exception):
+    """Internal: the shard-parallel path cannot decode the member as its
+    FLT1 index describes it (segmented multi-block shards, or a stream the
+    index does not hold for); re-route it to the chained device path, with
+    the index's shard offsets as chain entries."""
+
+
+def _tail_ok(sh: bytes, bit: int, final: bool, last: bool) -> bool:
+    """Whether shard `sh` holds nothing the index does not count after its
+    data, which ends at `bit` (its coded block's end-of-block, or its last
+    stored block's bytes): only empty stored blocks (sync markers) up to
+    its last byte, and a final block exactly where the member ends — the
+    last block of the last shard, and none before.  `final` is the final
+    bit of the block that ends at `bit`.  What the serial decode reads
+    there is then what the indexed route assumed."""
+    if final:
+        return last and (bit + 7) >> 3 == len(sh)
+    n = 8 * len(sh)
+    bits = hinf._BitCursor(sh, bit)
+    try:
+        while bits.pos < n:
+            bfinal = bits.read(1)
+            if bits.read(2) != 0:
+                return False
+            bits.align_to_byte()
+            if bits.read(16) != 0 or bits.read(16) != 0xFFFF:
+                return False
+            if bfinal:
+                return last and bits.pos == n
+    except EndOfStream:
+        return False
+    return not last
 
 
 def decompress_member_device(data: bytes, offset: int,
@@ -822,13 +867,19 @@ def decompress_member_device(data: bytes, offset: int,
     carries no usable FLT1 index.  Members with segmented shards
     (intra-shard stored/coded block mix) re-decode through
     device/anyinflate.py's chained path on the same device, with the
-    index's shard offsets as exact chain entries."""
+    index's shard offsets as exact chain entries.
+
+    The index is a hint, not the truth: whatever fails on the indexed
+    route (a shard's plan, its decode, bits of a shard the index does not
+    count, the footer at the index's end) re-routes the member, once, to
+    the chained path, which reads the body as the serial decode does and
+    raises its verdict.  A member the index holds for is decoded once."""
     dev = resolve_device(device)
     walk = walk_mode(walk)
     try:
         return _decompress_member_indexed(data, offset, container, batch,
                                           dev, walk, verify)
-    except _Segmented:
+    except (_Reroute, FlateError):
         from . import anyinflate
         STATS["segmented_reroutes"] += 1
         hdr_len, meta = parse_header(container, data[offset:])
@@ -924,49 +975,59 @@ def _decompress_member_indexed(data: bytes, offset: int,
         while j < nb:
             p, sh = plans[j]
             if p.kind == "stored":
-                buf = bytearray()
-                for off, ln in p.stored_spans:
-                    buf += sh[off:off + ln]
-                r = bytes(buf[:p.out_len])
-                out += r
-                hasher.update(r)
+                buf = b"".join(sh[off:off + ln] for off, ln in p.stored_spans)
+                if len(buf) != p.out_len or p.end_bit > 8 * len(sh) \
+                        or not _tail_ok(sh, p.end_bit, p.end_final,
+                                        i + j == n - 1):
+                    raise _Reroute()
+                out += buf
+                hasher.update(buf)
                 j += 1
                 continue
             if p.kind == "mixed":
-                raise _Segmented()
+                raise _Reroute()
             k = j
             while k < nb and plans[k][0].kind == "coded":
                 k += 1
             run = plans[j:k]
             hist = bytes(out[-CTX:])
             args = pack_coded_run(run, hist, dev)
+
+            def serial():
+                """The run by the exact serial walk: (output, err, end
+                bits), the last two fetched in one go."""
+                dev_out, err, _, end = decode_batch(
+                    *args, S=S, NS=NS, hist_len=len(hist), end_bit=True)
+                return (dev_out, *_pack_flags(err, end).cpu().numpy())
+
             if walk == "serial":
-                dev_out, err, _ = decode_batch(*args, S=S, NS=NS,
-                                               hist_len=len(hist))
-                spec_np = np.zeros(len(run), bool)
-                err_np = err.cpu().numpy().astype(bool)
+                dev_out, err_np, end_np = serial()
             else:
-                dev_out, err, _, spec_fail = decode_batch2(
-                    *args, S=S, NS=NS, hist_len=len(hist))
-                flags = _pack_flags(err, spec_fail).cpu().numpy()
-                err_np, spec_np = flags[0].astype(bool), flags[1].astype(bool)
-            if spec_np.any():
-                # lane speculation unproven for some shard — most often
-                # the lane that holds the EOB, when the block ends before
-                # that lane's chains meet.  Walk the run again with the
-                # exact serial walk, on the same device: correctness
-                # never depends on the speculative path
-                STATS["serial_retries"] += 1
-                dev_out, err, _ = decode_batch(*args, S=S, NS=NS,
-                                               hist_len=len(hist))
-                err_np = err.cpu().numpy().astype(bool)
-            if err_np.any():
-                # a coded-first shard with MORE blocks after its first
-                # EOB (segmented) decodes short and poisons in-batch
-                # back-references; re-decode the member on the chained
-                # device path — genuinely corrupt streams (a match before
-                # the member's start too) raise the exact taxonomy there
-                raise _Segmented()
+                dev_out, err, _, spec_fail, end = decode_batch2(
+                    *args, S=S, NS=NS, hist_len=len(hist), end_bit=True)
+                err_np, spec_np, end_np = _pack_flags(
+                    err, spec_fail, end).cpu().numpy()
+                if spec_np.any():
+                    # lane speculation unproven for some shard — most
+                    # often the lane that holds the EOB, when the block
+                    # ends before that lane's chains meet.  Walk the run
+                    # again with the exact serial walk, on the same
+                    # device: correctness never depends on the
+                    # speculative path
+                    STATS["serial_retries"] += 1
+                    dev_out, err_np, end_np = serial()
+            # a coded-first shard with MORE blocks after its first EOB
+            # (segmented) decodes short and poisons in-batch
+            # back-references, and a shard may hold bits after its block
+            # that the index does not count: re-decode the member on the
+            # chained device path, which raises the exact taxonomy of a
+            # genuinely corrupt stream (a match before the member's start
+            # too)
+            if err_np.any() or not all(
+                    _tail_ok(sh2, int(end_np[bi]), p2.final,
+                             i + j + bi == n - 1)
+                    for bi, (p2, sh2) in enumerate(run)):
+                raise _Reroute()
             out_np = dev_out.cpu().numpy().reshape(len(run), S)
             for bi, (p2, _) in enumerate(run):
                 r = out_np[bi, :p2.out_len].tobytes()

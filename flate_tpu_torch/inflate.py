@@ -199,38 +199,48 @@ def decode_dynamic_header_lens(bits: _BitCursor):
     return lit_lens, dst_lens
 
 
+def read_symbol(bits: _BitCursor, ll_table, d_table) -> tuple:
+    """Read one symbol of a coded block at the cursor: (litlen symbol,
+    match length, distance), the last two 0 unless it is a match.  Raises
+    what the block loop raises there, in its order: InvalidCode for a code
+    the tables do not hold, EndOfStream for bits past the end (peeks read
+    zeros there, consuming does not)."""
+    ll_sym, ll_bits = ll_table
+    d_sym, d_bits = d_table
+    code = bits.peek(15)
+    s = int(ll_sym[code])
+    if s < 0:
+        raise InvalidCode()
+    bits.consume(int(ll_bits[code]))
+    if s <= 256:
+        return s, 0, 0
+    li = s - 257
+    if li > 28:
+        raise InvalidCode()
+    length = int(tables.LENGTH_BASE[li]) + bits.read(
+        int(tables.LENGTH_EXTRA_BITS[li]))
+    dcode = bits.peek(15)
+    ds = int(d_sym[dcode])
+    if ds < 0:
+        raise InvalidCode()
+    bits.consume(int(d_bits[dcode]))
+    if ds > 29:
+        raise InvalidCode()
+    dist = int(tables.DIST_BASE[ds]) + bits.read(
+        int(tables.DIST_EXTRA_BITS[ds]))
+    return s, length, dist
+
+
 def _decode_coded_block(bits: _BitCursor, out: bytearray,
                         ll_table, d_table) -> None:
     """The serial symbol decode loop of one coded block."""
-    ll_sym, ll_bits = ll_table
-    d_sym, d_bits = d_table
-    lbase = tables.LENGTH_BASE
-    lextra = tables.LENGTH_EXTRA_BITS
-    dbase = tables.DIST_BASE
-    dextra = tables.DIST_EXTRA_BITS
     while True:
-        code = bits.peek(15)
-        s = int(ll_sym[code])
-        if s < 0:
-            raise InvalidCode()
-        bits.consume(int(ll_bits[code]))
+        s, length, dist = read_symbol(bits, ll_table, d_table)
         if s < 256:
             out.append(s)
         elif s == 256:
             return
         else:
-            li = s - 257
-            if li > 28:
-                raise InvalidCode()
-            length = int(lbase[li]) + bits.read(int(lextra[li]))
-            dcode = bits.peek(15)
-            ds = int(d_sym[dcode])
-            if ds < 0:
-                raise InvalidCode()
-            bits.consume(int(d_bits[dcode]))
-            if ds > 29:
-                raise InvalidCode()
-            dist = int(dbase[ds]) + bits.read(int(dextra[ds]))
             if dist > len(out):
                 raise InvalidMatch()
             # overlapping copies replicate (LZ77 semantics)

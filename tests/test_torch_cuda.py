@@ -1053,3 +1053,32 @@ def test_sub_modes_decode_on_cuda(cuda, mode):
     data = corpus("mixed", 300_000, seed=64)
     blob = getattr(api.gzip, mode).compress(data)
     assert api.gzip.decompress(blob) == data
+
+
+def test_malformed_cuda_verdicts_equal_cpu(cuda):
+    """The reference's 40 malformed streams (tests/data/fuzz) and 100 raw
+    mutations (chip_smoke.py mutants over fuzz_seeds, the port's own raw
+    member made on the card) through the one-shot and the streaming decode:
+    the same bytes or error class on the card as on the CPU, the corpus
+    also the table's.  The JAX package's verdicts are held on the CPU by
+    tests/test_torch_malformed.py and tests/test_torch_mutation.py."""
+    import io
+    import chip_smoke as cs
+    cases = []
+    for name, expect, cls in cs.FUZZ_CASES:
+        data, expect = cs.fuzz_case(name, expect)
+        cases.append((name, data, (expect, cls)))
+    seeds = cs.fuzz_seeds("RAW", cs.own_member("RAW", cuda))
+    cases += [(f"mutation {i}", d, None)
+              for i, d in enumerate(cs.mutants(seeds, 100))]
+    bad = []
+    for name, data, want in cases:
+        got = {}
+        for dev in (cuda, "cpu"):
+            got[dev] = (
+                cs.verdict(lambda: api.flate.decompress(data, device=dev)),
+                cs.verdict(lambda: api.flate.decompressor(
+                    io.BytesIO(data), device=dev).read_all()))
+        if got[cuda] != got["cpu"] or (want and got["cpu"] != (want, want)):
+            bad.append(name)
+    assert not bad, bad
