@@ -65,9 +65,10 @@ Phases, one line each:
      on 8 MiB; sizes against zlib at the same level (must be <= 1.0), with
      the text and 8 MiB mixed ratios at levels 6 and 9 beside the JAX
      package's (BENCH_r05.json: sizes, a property of the bytes); CUDA
-     bytes against the port's CPU bytes at levels 6 and 9 on 8 shards,
-     with the count of greedy code lengths (ll_bits, d_bits: rounded
-     float32 -log2) that differ between card and CPU; and one batch
+     bytes against the port's CPU bytes at levels 6 and 9 on 8 shards
+     (any difference raises), with the count of greedy code lengths
+     (ll_bits, d_bits: rounded -log2) that differ between card and CPU;
+     and one batch
      through find_matches_fused(fp=True) -> parse -> fields -> pack ->
      compaction, decoded by zlib, with parse_walk held against
      parse_doubling on the same matches;
@@ -193,7 +194,9 @@ Phases, one line each:
      reference's 40-stream corpus (tests/data/fuzz) against FUZZ_CASES,
      the pinned streams of pinned_malformed against their verdicts, 300
      raw, 100 zlib and 100 gzip mutations (mutants over fuzz_seeds, the
-     port's own members made on the card; gzip also with walk="serial")
+     port's own members made on the card, whose length and sha256 are
+     printed beside the CPU's and must equal them; gzip also with
+     walk="serial")
      against the port's verdicts on the CPU and, where CPython's zlib or
      gzip accepts a stream, against its bytes, four 3 MiB streams of
      large_malformed_streams against their error, and decompress_cli on
@@ -216,6 +219,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import hashlib
 import io
 import json
 import os
@@ -1235,11 +1239,8 @@ def main() -> int:
                      f"{cpu_s:.1f} s), ll_bits/d_bits entries of the 8 MiB "
                      f"batch that differ between card and CPU: {flips}")
             if gpu != cpu:
-                if flips == 0:
-                    raise AssertionError(f"level {L}: cuda bytes != cpu "
-                                         f"bytes with equal code lengths")
-                if zlib.decompress(gpu, 31) != mixed1:
-                    raise AssertionError(f"level {L}: 8-shard round trip")
+                raise AssertionError(f"level {L}: cuda bytes != cpu bytes "
+                                     f"({flips} code lengths differ)")
         print(line, flush=True)
 
     # one batch through the fp/top-2 matcher to a stream
@@ -2193,8 +2194,17 @@ def phase17(api, _build, inflate2, device: str = "cuda") -> None:
     names = {"RAW": "flate", "ZLIB": "zlib", "GZIP": "gzip"}
     t0 = time.time()
     # the port's own seed members, made on the card before the counters
-    # are set to 0
+    # are set to 0, and on the CPU: the same bytes
     own = {c: own_member(c, device) for c in names}
+    for c in names:
+        cpu = own_member(c, "cpu")
+        print(f"[17] own {c} member at shard_len 2048, ctx 1024, batch 2: "
+              f"{device} {len(own[c])} B sha256 "
+              f"{hashlib.sha256(own[c]).hexdigest()}, cpu {len(cpu)} B "
+              f"sha256 {hashlib.sha256(cpu).hexdigest()}", flush=True)
+        if own[c] != cpu:
+            raise AssertionError(f"phase 17: the own {c} member made on "
+                                 f"{device} differs from the CPU's")
     sets = [(c, m) for c, n in (("RAW", 300), ("ZLIB", 100), ("GZIP", 100))
             for m in mutants(fuzz_seeds(c, own[c]), n)]
     nthreads = torch.get_num_threads()

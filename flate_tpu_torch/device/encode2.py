@@ -13,9 +13,12 @@ per shard by exact cost); stored runs merge into stored blocks of up to
 marker, or the BFINAL block of the last shard.
 
 u32 values are carried as int64, and the field values leave as int32 u32
-bit patterns, the packer's width.  The stored/coded estimate is float32
-with the JAX formula; sums run in another order than XLA's, so a near tie
-could pick the other (equally valid) representation.
+bit patterns, the packer's width.  The stored/coded estimate is the JAX
+formula, computed so that it is the same on every device and in every
+order of the symbols: log2 is taken in float64 and rounded once to
+float32 (squeeze's rule), and a segment's sum of counts times those
+float32 lengths is exact in float64 and rounded once to float32 before
+the comparison.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from . import encode as enc
 from . import header as hdr
 from . import huff
 from . import onehot
+from . import squeeze as sq
 
 MAX_STORED = consts.MAX_STORED_BLOCK            # 65535
 
@@ -74,15 +78,29 @@ def slot_count(S: int, seg: int | None = None) -> int:
     return -(-raw // 512) * 512
 
 
-def _entropy_bits(h: torch.Tensor) -> torch.Tensor:
-    """Approximate code lengths from a histogram (B, n): -log2(p) + 0.35
-    clipped to [1, 15], 0 where absent (float32).  Used only for the
-    stored/coded decision; emission uses exact package-merge tables."""
-    total = torch.clamp(h.sum(dim=1, keepdim=True), min=1).to(torch.float32)
-    p = h.to(torch.float32) / total
-    bits = torch.clamp(-torch.log2(torch.clamp(p, min=1e-9)) + 0.35,
-                       1.0, 15.0)
-    return torch.where(h > 0, bits, 0.0)
+# Approximate code lengths from a histogram (B, n), for the stored/coded
+# decision only (emission uses exact package-merge tables): the JAX
+# _entropy_bits is the formula of the squeeze's estimate, and the port
+# computes both by squeeze's device-independent rule.
+_entropy_bits = sq._entropy_lens
+
+
+def _coded_est(hll_seg: torch.Tensor, hdd_seg: torch.Tensor,
+               extras_seg: torch.Tensor) -> torch.Tensor:
+    """(B, nseg, 286) and (B, nseg, 30) segment histograms, (B, nseg)
+    extra bits -> (B, nseg) float32 estimated coded bits of each segment:
+    its counts times the shard's _entropy_bits, plus its extra bits.  A
+    product of a count (at most 65,535) and a float32 length in [1, 15]
+    is exact in float64, and so is their sum over a segment (below 2^21,
+    on a grid of 2^-23), so the sum has one value in any order of the
+    symbols and on any device; it is rounded to float32 once."""
+    f64 = torch.float64
+    ll_ebits = _entropy_bits(hll_seg.sum(dim=1)).to(f64)      # (B, 286)
+    d_ebits = _entropy_bits(hdd_seg.sum(dim=1)).to(f64)
+    est = ((hll_seg.to(f64) * ll_ebits[:, None, :]).sum(dim=2)
+           + (hdd_seg.to(f64) * d_ebits[:, None, :]).sum(dim=2)
+           + extras_seg.to(f64))
+    return est.to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,12 +188,7 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     live_seg = live_bytes > 0
 
     # ---- pass 1: entropy-estimated coded cost -> stored decision ----
-    ll_ebits = _entropy_bits(hll_seg.sum(dim=1))          # (B, 286)
-    d_ebits = _entropy_bits(hdd_seg.sum(dim=1))
-    coded_est = (
-        torch.einsum("bjs,bs->bj", hll_seg.to(torch.float32), ll_ebits)
-        + torch.einsum("bjs,bs->bj", hdd_seg.to(torch.float32), d_ebits)
-        + extras_seg.to(torch.float32))
+    coded_est = _coded_est(hll_seg, hdd_seg, extras_seg)
     stored_est = (8 * live_bytes + 40).to(torch.float32)
     want_stored = coded_est > stored_est + _HYST
 

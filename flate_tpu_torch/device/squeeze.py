@@ -265,12 +265,13 @@ def greedy_code_lengths(window_tail: torch.Tensor, mlen: torch.Tensor,
 def _entropy_lens(h: torch.Tensor) -> torch.Tensor:
     """-log2(p) + 0.35 clipped to [1, 15], 0 where absent (float32).
 
-    The callers round this to a code length, so a value within an ulp of
-    k + 0.5 depends on the library's log2.  p is formed in float32 as the
-    reference forms it; log2 is then taken in float64 and rounded to
-    float32 once (the correctly rounded float32 log2, the same on the CPU
-    and on the card), and the add, clip and half-to-even round are float32
-    again."""
+    The squeeze rounds this to a code length, so a value within an ulp of
+    k + 0.5 depends on the library's log2; encode2 (as its _entropy_bits)
+    weighs segment counts with it for the stored/coded decision.  p is
+    formed in float32 as the reference forms it; log2 is then taken in
+    float64 and rounded to float32 once (the correctly rounded float32
+    log2, the same on the CPU and on the card), and the add, clip and
+    half-to-even round are float32 again."""
     total = torch.clamp(h.sum(dim=1, keepdim=True), min=1).to(torch.float32)
     p = torch.clamp(h.to(torch.float32) / total, min=1e-9)
     lg = torch.log2(p.to(torch.float64)).to(torch.float32)

@@ -7,6 +7,7 @@ so the JAX package and the port see the same bytes.
 
 from __future__ import annotations
 
+import hashlib
 import pathlib
 import zlib
 
@@ -605,3 +606,268 @@ def c12_stream() -> bytes:
                                               dtype=np.uint8).tobytes()
     c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_HUFFMAN_ONLY)
     return (c.compress(data) + c.flush())[:-3] + b"\xff" * 3
+
+
+def _batches(data: bytes, shard_len: int, ctx: int, batch: int):
+    """compress_device2's batches of `data`: (shards (batch, S) uint8, ctx0
+    (ctx,) uint8, meta (3 batch + 1,) int32 = [ctx_lens | valid | finals |
+    nb]) numpy arrays, the context carried from the input bytes as the
+    device carry gives it."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    n, S = arr.size, shard_len
+    nshards = max(1, -(-n // S))
+    for base in range(0, nshards, batch):
+        nb = min(batch, nshards - base)
+        lo0 = base * S
+        shards = np.zeros(batch * S, dtype=np.uint8)
+        take_n = max(0, min(n - lo0, batch * S))
+        shards[:take_n] = arr[lo0:lo0 + take_n]
+        ctx0 = np.zeros(ctx, dtype=np.uint8)
+        c0 = min(ctx, lo0)
+        if c0:
+            ctx0[ctx - c0:] = arr[lo0 - c0:lo0]
+        meta = np.zeros(3 * batch + 1, dtype=np.int32)
+        meta[:batch] = np.minimum(ctx, lo0 + np.arange(batch) * S)
+        for i in range(nb):
+            meta[batch + i] = max(0, min(S, n - (base + i) * S))
+        if base + nb == nshards:
+            meta[2 * batch + nb - 1] = 1
+        meta[3 * batch] = nb
+        yield shards.reshape(batch, S), ctx0, meta
+
+
+def encode_stages(data: bytes, level: int, shard_len: int, ctx: int,
+                  batch: int, device, container: str = "GZIP") -> list:
+    """Every batch of compress_device2(data, level, container, shard_len,
+    ctx, batch) through encode_core's stages in order, on `device`: a list
+    of (batch index, stage name, tensor) — the primed windows, B1's keys
+    and fingerprints, the key sort, B2's best (len << 16) - dist (and the
+    3-byte pass's, from level 7), B3's runs, B4's extended matches, the
+    truncated matches, decide's take, B9's token starts, the squeeze's
+    greedy code lengths and parse, build_fields' vals / bits / total_bits
+    / kind, B5's words and bit counts, and the compacted bytes with the
+    container's device checksum (CRC32 of the padded rows for GZIP, Adler
+    sums for ZLIB).  Imports only the port."""
+    from flate_tpu_torch.device import (encode2, match2, pack, parse,
+                                        pipeline2, runs, squeeze)
+    hash_kind = {"GZIP": pipeline2.HASH_CRC32, "ZLIB": pipeline2.HASH_ADLER32
+                 }.get(container, pipeline2.HASH_NONE)
+    kn = pipeline2.level_params(level, shard_len)
+    S, blk = shard_len, kn["blk"]
+    out = []
+    for j, (sh, c0, mt) in enumerate(_batches(data, S, ctx, batch)):
+        def put(name, t):
+            out.append((j, name, t))
+        shards = torch.from_numpy(sh).to(device)
+        meta = torch.from_numpy(mt).to(device)
+        ctx_lens, valid, finals, nb = pipeline2._split_meta(meta)
+        win = pipeline2._prime_windows(shards, torch.from_numpy(c0).to(
+            device), ctx)
+        put("prime_windows", win)
+        min_src = (ctx - ctx_lens).to(torch.int32)
+        limit = (ctx + valid).to(torch.int32)
+        W = win.shape[1]
+        passes = [("", kn["K"], kn["nw"], 4, 32768)]
+        if kn["K3"]:
+            passes.append(("k3_", kn["K3"], 1, 3, 4096))
+        best = []
+        for tag, K, nw, hb, md in passes:
+            key, fps = match2._prep(win, nw, hb)
+            put(f"{tag}prep_keys", key)
+            put(f"{tag}prep_fps", fps)
+            skey, order = torch.sort(key, dim=1)
+            put(f"{tag}key_sort", skey)
+            ld = match2._run_matcher(skey, order, win, fps, min_src, limit,
+                                     W, K, md, nw, hb)
+            put(f"{tag}matcher", ld)
+            best.append(ld)
+        mlen, mdist = best[0] >> 16, best[0] & 0xFFFF
+        if kn["K3"]:
+            l3 = torch.clamp(best[1] >> 16, max=3)
+            d3 = best[1] & 0xFFFF
+            upd3 = match2._score(l3, d3) > match2._score(mlen, mdist)
+            mlen, mdist = torch.where(upd3, l3, mlen), torch.where(
+                upd3, d3, mdist)
+        rlen, rdist = runs.small_dist_runs(win, limit, min_src)
+        put("small_runs", torch.stack([rlen, rdist]))
+        upd = match2._score(rlen, rdist) > match2._score(mlen, mdist)
+        mlen = torch.where(upd, rlen, mlen).contiguous()
+        mdist = torch.where(upd, rdist, mdist).contiguous()
+        mlen = runs.extend_chains(mlen, mdist, limit, cap=4 * kn["nw"])
+        drop = (mlen == 3) & (mdist > 4096)
+        mlen, mdist = torch.where(drop, 0, mlen), torch.where(drop, 0, mdist)
+        put("extend", torch.stack([mlen, mdist]))
+        ref = match2.find_matches_fused(win, ctx_lens, valid, K=kn["K"],
+                                        nw=kn["nw"], ctx=ctx, K3=kn["K3"])
+        if not (torch.equal(ref[0], mlen) and torch.equal(ref[1], mdist)):
+            raise AssertionError("encode_stages: the matcher stages no "
+                                 "longer compose to find_matches_fused")
+        mlen, mdist = parse.truncate_matches(mlen, mdist, ctx, blk)
+        put("truncate", torch.stack([mlen, mdist]))
+        take, _ = parse.decide(mlen, mdist, kn["lazy"], kn["max_lazy"])
+        put("decide", take)
+        starts = parse.parse_blocks(mlen, mdist, start=ctx, lazy=kn["lazy"],
+                                    max_lazy=kn["max_lazy"], blk=blk)
+        put("parse_blocks", starts)
+        tail = win[:, ctx:]
+        m_r, d_r = mlen[:, ctx:], mdist[:, ctx:]
+        take_r, starts_r = take[:, ctx:], starts[:, ctx:]
+        if kn["squeeze"]:
+            ll_bits, d_bits = squeeze.greedy_code_lengths(
+                tail, m_r, d_r, starts_r, take_r, valid)
+            put("greedy_ll_bits", ll_bits)
+            put("greedy_d_bits", d_bits)
+            take_r, starts_r, sel = squeeze.squeeze_parse(
+                tail, m_r, d_r, ll_bits, d_bits, blk=blk,
+                grid_only=squeeze.grid_only_default())
+            m_r = torch.where(take_r, sel, 0)
+            put("squeeze_parse", torch.stack([take_r.to(torch.int32),
+                                              starts_r.to(torch.int32),
+                                              m_r.to(torch.int32)]))
+        seg = encode2.seg_size(S, blk)
+        vals, bits, total, kind = encode2.build_fields(
+            tail, m_r, d_r, starts_r, take_r, valid, finals, S, seg)
+        put("build_fields_vals", vals)
+        put("build_fields_bits", bits)
+        put("build_fields_total_bits", total)
+        put("build_fields_kind", kind)
+        words, tbits = pack.pack_fields(vals, bits, pipeline2._nwr(S, seg))
+        put("pack_words", words)
+        put("pack_tbits", tbits)
+        buf, meta_out = pipeline2._compact_stage(words, tbits, shards, valid,
+                                                 nb, hash_kind=hash_kind)
+        put("compact_bytes", buf[:int(meta_out[0])])
+        put("compact_meta", meta_out)
+    return out
+
+
+def first_stage_difference(data: bytes, level: int, shard_len: int,
+                           ctx: int, batch: int, device,
+                           container: str = "GZIP") -> str | None:
+    """The first stage of encode_stages whose tensor on `device` differs
+    from the CPU's, named with its batch and the count of differing
+    entries, or None where every stage agrees."""
+    a = encode_stages(data, level, shard_len, ctx, batch, device, container)
+    b = encode_stages(data, level, shard_len, ctx, batch, "cpu", container)
+    for (j, name, x), (_, _, y) in zip(a, b):
+        x = x.cpu()
+        if x.shape != y.shape:
+            return f"batch {j} {name}: shape {tuple(x.shape)} != " \
+                   f"{tuple(y.shape)}"
+        ne = int((x.to(torch.int64) != y.to(torch.int64)).sum())
+        if ne:
+            return f"batch {j} {name}: {ne} of {x.numel()} entries differ"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the encode's shard-shape sweep: the shapes of the JAX package's own tests
+# ---------------------------------------------------------------------------
+
+SWEEP_SHARDS = (1024, 2048, 4096, 7168, 16384, 131072)
+SWEEP_CTX = (512, 1024, 4096, 8192, 32768)
+SWEEP_BATCH = (1, 2, 3, 8)
+SWEEP_LEVELS = tuple(range(1, 10))
+CONTAINERS = ("RAW", "ZLIB", "GZIP")
+SWEEP_INPUTS = ("fuzz_mixed", "mixed", "text", "zeros", "random", "empty",
+                "one", "hundred")
+WBITS = {"GZIP": 31, "ZLIB": 15, "RAW": -15}
+
+
+def sweep_input(name: str, level: int, shard_len: int, batch: int) -> bytes:
+    """A sweep case's input: chip_smoke.py fuzz_mixed() (5,568 B: text,
+    2,048 random bytes, text), the mixed corpus (20,000 B) or rfc1951 text
+    (12,000 B), each cut to two batches and a third of a shard so a case
+    stays a few batches, 5 KiB of zeros, 3 KiB of random bytes (every
+    shard stored), 0, 1 or 100 bytes; "legacy" is the mixed corpus the
+    level-sweep at 4096 / 512 / 2 always used (5 shards less 77 bytes,
+    seeded by the level)."""
+    cap = 2 * shard_len * batch + shard_len // 3
+    if name == "fuzz_mixed":
+        from chip_smoke import fuzz_mixed
+        return fuzz_mixed()
+    if name == "mixed":
+        return corpus("mixed", min(20_000, cap), seed=17)
+    if name == "text":
+        return corpus("text", min(12_000, cap), seed=17)
+    if name == "legacy":
+        return corpus("mixed", 5 * S - 77, seed=level)
+    return {"zeros": bytes(5 << 10),
+            "random": corpus("random", 3 << 10, seed=17),
+            "empty": b"", "one": b"\x07",
+            "hundred": corpus("text", 100, seed=18)}[name]
+
+
+# (level, shard_len, ctx, batch, container, input): the port's own seed
+# members of chip_smoke.py phase 17 (own_member)
+OWN_SHAPES = tuple((6, 2048, 1024, 2, c, "fuzz_mixed") for c in CONTAINERS)
+
+# sha256 of flate_tpu.jx.pipeline2.compress_device2(interpret=True) on
+# these cases (tests/test_torch_shapes.py computes them): the own members,
+# ctx above the shard (8192 / 7168 at levels 1 and 6, 32768 / 2048) and a
+# shard_len that is no power of two (7168)
+PINNED = {
+    (6, 2048, 1024, 2, "RAW", "fuzz_mixed"):
+        "21301af851e2d6deabe80a6a99c50d91696afc0d73c42292b848e938aed97357",
+    (6, 2048, 1024, 2, "ZLIB", "fuzz_mixed"):
+        "6bc0ae08abf2105f3044e9a99fb26b4a1de94eafad30fd233b50585b1e1cf95b",
+    (6, 2048, 1024, 2, "GZIP", "fuzz_mixed"):
+        "08fa335f877d47ddc477386cc96c4695965697223f479ff2a24e0aa3cf740b57",
+    (1, 7168, 8192, 2, "GZIP", "mixed"):
+        "cebb0ecacce6273fc8a378943f31fe872452cb3be01ccd2ae57b2c500db9056e",
+    (6, 7168, 8192, 2, "RAW", "mixed"):
+        "ef25ecec4e07b00959eb98977e56103374bb8028196dad67af80b300f0fca44b",
+    (1, 2048, 32768, 1, "GZIP", "text"):
+        "134810fd4dc680a71dd74797926ad5adc7e481f67904bf27958d069365f7414b",
+}
+
+
+def sweep_cases(n: int = 60, seed: int = 17) -> list:
+    """The shape sweep: OWN_SHAPES, then n - 3 combinations of the grid
+    (SWEEP_SHARDS x SWEEP_CTX x SWEEP_BATCH x levels 1-9 x CONTAINERS, an
+    input of SWEEP_INPUTS beside each) drawn with a seeded generator so
+    that every value of every axis comes up about equally often (each
+    axis a shuffled run of its values), then the other PINNED cases and
+    the level sweep at 4096 / 512 / 2 on the "legacy" input.  Each case is
+    (level, shard_len, ctx, batch, container, input)."""
+    rng = np.random.default_rng(seed)
+    k = n - len(OWN_SHAPES)
+    cols = []
+    for axis in (SWEEP_LEVELS, SWEEP_SHARDS, SWEEP_CTX, SWEEP_BATCH,
+                 CONTAINERS, SWEEP_INPUTS):
+        idx = np.resize(np.arange(len(axis)), k)
+        rng.shuffle(idx)
+        cols.append([axis[int(i)] for i in idx])
+    drawn = [tuple(c) for c in zip(*cols)]
+    pinned = [c for c in PINNED if c not in OWN_SHAPES]
+    legacy = [(lv, S, CTX, 2, "GZIP", "legacy") for lv in SWEEP_LEVELS]
+    return list(OWN_SHAPES) + drawn + pinned + legacy
+
+
+def sweep_id(case) -> str:
+    level, shard_len, ctx, batch, container, name = case
+    return f"l{level}-s{shard_len}-c{ctx}-b{batch}-{container}-{name}"
+
+
+def sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def stream_encode(case, data: bytes, device) -> bytes:
+    """`data` through the container's streaming compressor at the case's
+    shape on `device`: the first half written, a flush, the rest, the
+    finish."""
+    import io
+    from flate_tpu_torch import api
+    level, shard_len, ctx, batch, container, _ = case
+    ns = getattr(api, {"RAW": "flate", "ZLIB": "zlib", "GZIP": "gzip"}[
+        container])
+    out = io.BytesIO()
+    c = ns.compressor(out, level, shard_len=shard_len, ctx=ctx, batch=batch,
+                      device=device)
+    half = len(data) // 2
+    c.write(data[:half])
+    c.flush()
+    c.write(data[half:])
+    c.finish()
+    return out.getvalue()

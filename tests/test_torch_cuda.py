@@ -20,10 +20,13 @@ from flate_tpu_torch.device import checksum, graphs, match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, scan
 from flate_tpu_torch.device import squeeze
 
-from _torch_corpora import (CTX, KINDS, S, big_block_streams, corpus,
-                            lane_edge_rows, long_block_streams,
-                            pack_edge_rows, parse_edge_rows,
-                            scan_cases, small_blocks, small_run_edge_rows,
+from _torch_corpora import (CTX, KINDS, PINNED, S, WBITS,
+                            big_block_streams, corpus,
+                            first_stage_difference, lane_edge_rows,
+                            long_block_streams, pack_edge_rows,
+                            parse_edge_rows, scan_cases, sha256,
+                            small_blocks, small_run_edge_rows, stream_encode,
+                            sweep_cases, sweep_id, sweep_input,
                             too_far_streams, trap_stream, walk_edge_rows,
                             windows)
 
@@ -233,16 +236,42 @@ def test_prep_equal_plain(cuda, W, hb, ne, nf):
         _eq(k[1], p[1])
 
 
-@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6, 7, 8, 9])
-def test_cuda_bytes_equal_cpu(cuda, level):
-    data = corpus("mixed", 5 * S - 77, seed=level)
-    kw = dict(level=level, shard_len=S, ctx=CTX, batch=2)
+@pytest.mark.parametrize("case", sweep_cases(), ids=sweep_id)
+def test_cuda_bytes_equal_cpu(cuda, case):
+    """The shape sweep (tests/_torch_corpora.py sweep_cases: the own
+    members of chip_smoke.py phase 17, 57 seeded combinations of shard_len
+    1024-131072, ctx 512-32768 (above the shard too), batch 1-8, levels
+    1-9 and the three containers, the pinned cases, the level sweep at
+    4096 / 512 / 2): the card's bytes equal the CPU's, staged, fused (one
+    CUDA graph a batch) and through the streaming compressor with a flush
+    in the middle, each decodes with zlib, and on the PINNED cases they
+    are the JAX package's bytes (their sha256).  On a difference the
+    message names the first stage of encode_stages that differs."""
+    level, shard_len, ctx, batch, container, name = case
+    data = sweep_input(name, level, shard_len, batch)
+    kw = dict(level=level, container=Container[container],
+              shard_len=shard_len, ctx=ctx, batch=batch)
     _build.LAUNCHES.clear()
     out = pipeline2.compress_device2(data, device=cuda, **kw)
     assert all(_build.LAUNCHES[n] > 0 for n in _build.ENCODE_KERNELS
                if n != "flate_extend2")          # B8: fp=True only
-    assert out == pipeline2.compress_device2(data, device="cpu", **kw)
-    assert zlib.decompress(out, 31) == data
+    cpu = pipeline2.compress_device2(data, device="cpu", **kw)
+    if out != cpu:
+        pytest.fail(f"staged: {len(out)} != {len(cpu)} bytes; first "
+                    + str(first_stage_difference(data, level, shard_len, ctx,
+                                                 batch, cuda, container)))
+    assert zlib.decompress(out, WBITS[container]) == data
+    if case in PINNED:
+        assert sha256(out) == PINNED[case]
+    try:
+        fused = pipeline2.compress_device2(data, device=cuda, fused=True,
+                                           **kw)
+    finally:
+        graphs.clear()
+    assert fused == cpu
+    streamed = stream_encode(case, data, cuda)
+    assert streamed == stream_encode(case, data, "cpu")
+    assert zlib.decompress(streamed, WBITS[container]) == data
 
 
 def _bounds(cuda):

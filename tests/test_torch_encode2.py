@@ -364,3 +364,44 @@ def test_compact_bound_holds(case, seg):
         assert zlib.decompressobj(-15).decompress(raws[0]) == \
             parts[0][0].tobytes()
     assert zlib.decompress(raws[1], -15) == parts[0][1, :valid[1]].tobytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_coded_est_symbol_order_invariant(seed):
+    """The stored/coded estimate (encode2._coded_est) and the decision
+    built on it are bit for bit the same under any permutation of the
+    symbol axes, and equal the exact sum rounded once to float32: segment
+    histograms of up to 65,535 tokens, and segments placed a few ulp
+    around the threshold 8 * live + 40 + 192 so the decision is close."""
+    rng = np.random.default_rng(seed)
+    B, nseg = 3, 12
+    hll = rng.integers(0, 400, (B, nseg, 286)) * (
+        rng.random((B, nseg, 286)) < 0.3)
+    hll[0, 0, 65] = 65535 - hll[0, 0].sum() + hll[0, 0, 65]
+    hdd = rng.integers(0, 200, (B, nseg, 30)) * (
+        rng.random((B, nseg, 30)) < 0.5)
+    extras = rng.integers(0, 3000, (B, nseg))
+    hll_t, hdd_t, ex_t = (torch.from_numpy(x) for x in (hll, hdd, extras))
+    est = encode2._coded_est(hll_t, hdd_t, ex_t)
+    assert est.dtype == torch.float32
+    ll = encode2._entropy_bits(hll_t.sum(dim=1)).numpy().astype(np.float64)
+    dd = encode2._entropy_bits(hdd_t.sum(dim=1)).numpy().astype(np.float64)
+    exact = ((hll * ll[:, None, :]).sum(axis=2)
+             + (hdd * dd[:, None, :]).sum(axis=2) + extras)
+    np.testing.assert_array_equal(est.numpy(), exact.astype(np.float32))
+    # live byte counts that put the threshold within a few bits of each
+    # estimate: every segment a near tie
+    live = torch.from_numpy(np.floor(
+        (exact - 40 - encode2._HYST + rng.integers(-2, 3, (B, nseg))) / 8)
+        .astype(np.int64))
+
+    def want_stored(e):
+        return e > (8 * live + 40).to(torch.float32) + encode2._HYST
+
+    want = want_stored(est)
+    assert want.any() and not want.all()
+    for _ in range(4):
+        pl, pd = rng.permutation(286), rng.permutation(30)
+        e2 = encode2._coded_est(hll_t[:, :, pl], hdd_t[:, :, pd], ex_t)
+        assert torch.equal(e2.view(torch.int32), est.view(torch.int32))
+        assert torch.equal(want_stored(e2), want)
