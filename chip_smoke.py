@@ -66,9 +66,15 @@ Phases, one line each:
      the text and 8 MiB mixed ratios at levels 6 and 9 beside the JAX
      package's (BENCH_r05.json: sizes, a property of the bytes); CUDA
      bytes against the port's CPU bytes at levels 6 and 9 on 8 shards
-     (any difference raises), with the count of greedy code lengths
-     (ll_bits, d_bits: rounded -log2) that differ between card and CPU;
-     and one batch
+     (any difference raises); at every squeeze level (2, 4-9) the count of
+     greedy code lengths (ll_bits, d_bits) of the 8 MiB batch that differ
+     between card and CPU (any raises); the squeeze's rounded code lengths
+     of every count pair near a step (length_step_pairs: 8,638,909 pairs,
+     totals up to 131,073) on the card against the CPU in one call each
+     (any difference raises), beside the pairs where a correctly rounded
+     log2 rounds to another length; the shards of 32 MiB mixed and 8 MiB
+     text whose greedy histogram holds such a pair, by squeeze level; and
+     one batch
      through find_matches_fused(fp=True) -> parse -> fields -> pack ->
      compaction, decoded by zlib, with parse_walk held against
      parse_doubling on the same matches;
@@ -258,6 +264,23 @@ def text_corpus(size: int) -> bytes:
     with open(path, "rb") as fh:
         t = fh.read()
     return (t * (size // len(t) + 1))[:size]
+
+
+def length_step_pairs(max_total: int = 131_073) -> tuple:
+    """(h, total) int64 arrays: every count pair 1 <= h < total <=
+    max_total within two counts of a step of the squeeze's rounded code
+    length, h = total * 2^-(k + 0.15) for k = 1..14, each pair once
+    (8,638,909 at the default: a 128 KiB shard's tokens and its EOB)."""
+    t = np.arange(2, max_total + 1, dtype=np.int64)
+    keys = []
+    for k in range(1, 15):
+        h0 = np.rint(t * 2.0 ** -(k + 0.15)).astype(np.int64)
+        for d in range(-2, 3):
+            h = h0 + d
+            ok = (h >= 1) & (h < t)
+            keys.append(t[ok] << 20 | h[ok])
+    key = np.unique(np.concatenate(keys))
+    return key & ((1 << 20) - 1), key >> 20
 
 
 def mixed_corpus(size: int) -> bytes:
@@ -1173,7 +1196,7 @@ def main() -> int:
     def code_length_flips(L):
         """Entries of the greedy pass's (ll_bits, d_bits) on the 8 MiB
         batch that differ between the card and the CPU, from the same
-        parse: only the float32 -log2 and its rounding can differ."""
+        parse: only the lengths from the histograms could differ."""
         lvl = pipeline2.level_params(L, S)
         shards, ctx0, meta = batch_of(data8)
         window = pipeline2._prime_windows(shards, ctx0, CTX)
@@ -1229,19 +1252,73 @@ def main() -> int:
                 line += (f"; {cname} {len(sized[cname])} bytes = "
                          f"{ratio(sized[cname], cdata, L):.4f} of zlib "
                          f"(JAX package {JAX_RATIOS[L][cname]})")
-            # card against CPU: bytes, and the rounded -log2 code lengths
+            # card against CPU: bytes
             t = time.time()
             cpu = api.gzip.compress(mixed1, level=L, device="cpu", batch=8)
             cpu_s = time.time() - t
             gpu = api.gzip.compress(mixed1, level=L, batch=8)
-            flips = code_length_flips(L)
             line += (f"; 8 shards: cuda == cpu bytes {gpu == cpu} (cpu twin "
-                     f"{cpu_s:.1f} s), ll_bits/d_bits entries of the 8 MiB "
-                     f"batch that differ between card and CPU: {flips}")
+                     f"{cpu_s:.1f} s)")
             if gpu != cpu:
-                raise AssertionError(f"level {L}: cuda bytes != cpu bytes "
-                                     f"({flips} code lengths differ)")
+                raise AssertionError(f"level {L}: cuda bytes != cpu bytes")
+        if pipeline2.level_params(L)["squeeze"]:
+            flips = code_length_flips(L)
+            line += (f"; ll_bits/d_bits entries of the 8 MiB batch that "
+                     f"differ between card and CPU: {flips}")
+            if flips:
+                raise AssertionError(f"level {L}: {flips} greedy code "
+                                     f"lengths differ between card and CPU")
         print(line, flush=True)
+
+    # the squeeze's rounded code lengths near every step, card against CPU
+    ph, pt = length_step_pairs()
+    rows = torch.from_numpy(np.stack([ph, pt - ph], 1).astype(np.int32))
+    t = time.time()
+    on_card = squeeze._entropy_code_lens(rows.to(dev))
+    torch.cuda.synchronize()
+    card_s = time.time() - t
+    log2_lens = torch.round(squeeze._entropy_lens(rows.to(dev)))
+    other = int((log2_lens != on_card)[:, 0].sum())
+    on_card = on_card.cpu()
+    differ = int((on_card != squeeze._entropy_code_lens(rows)).sum())
+    print(f"[8] squeeze code lengths of {len(ph)} count pairs near a step "
+          f"(totals up to {int(pt.max())}), one call: card == CPU on "
+          f"{on_card.numel() - differ} of {on_card.numel()} lengths "
+          f"({card_s:.4f} s on the card); a correctly rounded log2 gives "
+          f"another length than the JAX pipeline's on {other} pairs",
+          flush=True)
+    if differ:
+        raise AssertionError(f"squeeze code lengths: {differ} differ "
+                             f"between card and CPU")
+
+    def flip_shards(data, L):
+        """Shards of data's level-L encode whose greedy histograms hold a
+        count pair where a correctly rounded log2 rounds to another code
+        length than the JAX pipeline's (squeeze._entropy_code_lens)."""
+        real, hits = squeeze._entropy_code_lens, []
+
+        def spy(h):
+            lens = real(h)
+            other = torch.round(squeeze._entropy_lens(h)).to(lens.dtype)
+            hits.append((lens != other).any(dim=1))
+            return lens
+
+        squeeze._entropy_code_lens = spy
+        try:
+            api.gzip.compress(data, level=L)
+        finally:
+            squeeze._entropy_code_lens = real
+        # a batch's calls: its literal/length, then its distance histograms
+        return sum(int((a | b).sum()) for a, b in zip(hits[::2], hits[1::2]))
+
+    text8 = text_corpus(B * S)
+    hit = {L: (flip_shards(data32, L), flip_shards(text8, L))
+           for L in range(1, 10) if pipeline2.level_params(L)["squeeze"]}
+    print(f"[8] shards whose greedy histogram holds such a pair, by squeeze "
+          f"level (of {len(data32) // S} shards of 32 MiB mixed, "
+          f"{len(text8) // S} of 8 MiB text): "
+          + ", ".join(f"level {L} {m} / {t}" for L, (m, t) in hit.items()),
+          flush=True)
 
     # one batch through the fp/top-2 matcher to a stream
     _build.LAUNCHES.clear()

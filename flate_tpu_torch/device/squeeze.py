@@ -10,10 +10,12 @@ length, a match at one of a coarse grid of lengths}:
                   min_l match_bits(l, d_i) + cost[i + l])
 
 Bit costs come from the code lengths of a first greedy pass's token
-histogram.  All blocks run as lanes of one tensor; cost[i + l] is read
-from a ring of the next WIN costs.  The JAX function is plain XLA (no
-Pallas kernel), so this is plain PyTorch on either device; only the final
-token-start walk is a kernel (parse._parse_walk, B9).
+histogram (_entropy_code_lens: the JAX pipeline's rounded -log2 p + 0.35
+as a step function of p).  All blocks run as lanes of one tensor;
+cost[i + l] is read from a ring of the next WIN costs.  The JAX function
+is plain XLA (no Pallas kernel), so this is plain PyTorch on either
+device; only the final token-start walk is a kernel (parse._parse_walk,
+B9).
 
 The options of a step are stacked (O, L) and added to one indexed read of
 the ring, so a step is six launches whatever the grid's size.  The JAX
@@ -226,10 +228,10 @@ def greedy_code_lengths(window_tail: torch.Tensor, mlen: torch.Tensor,
     model.  Returns (ll_bits (B, 286), d_bits (B, 30)) int32.
 
     The DP only ranks parses — emission builds exact tables later — so the
-    default is the rounded entropy estimate (-log2 p + 0.35); exact=True
-    gives package-merge lengths.  stride > 1 samples every stride-th
-    position into the histograms; None reads
-    FLATE_TPU_SQUEEZE_HIST_STRIDE when called."""
+    default is the rounded entropy estimate (-log2 p + 0.35,
+    _entropy_code_lens); exact=True gives package-merge lengths.
+    stride > 1 samples every stride-th position into the histograms; None
+    reads FLATE_TPU_SQUEEZE_HIST_STRIDE when called."""
     if stride is None:
         stride = hist_stride_default()
     valid_len = valid_len.to(torch.int64)
@@ -254,24 +256,65 @@ def greedy_code_lengths(window_tail: torch.Tensor, mlen: torch.Tensor,
         ll_lens = huff.pm_lengths(hll, consts.MAX_CODE_BITS)
         d_lens = huff.pm_lengths(hdd, consts.MAX_CODE_BITS)
     else:
-        ll_lens = torch.round(_entropy_lens(hll))
-        d_lens = torch.round(_entropy_lens(hdd))
+        ll_lens = _entropy_code_lens(hll)
+        d_lens = _entropy_code_lens(hdd)
     # unseen symbols cost a pessimistic 15 bits
     ll_bits = torch.where(ll_lens > 0, ll_lens, 15).to(torch.int32)
     d_bits = torch.where(d_lens > 0, d_lens, 15).to(torch.int32)
     return ll_bits, d_bits
 
 
+# P_k for k = 1..14 as float32 bit patterns: the largest float32 p to which
+# the JAX pipeline gives the rounded code length k + 1.  Under jax.jit, XLA
+# computes -log2 p + 0.35 as -(log(p) * f32(1 / ln 2)) + 0.35 (the division
+# by ln 2 of jnp.log2 becomes a product), which differs from the correctly
+# rounded value by an ulp at some p, so round() gives another length
+# there.  Derived by evaluating the jitted flate_tpu.jx.squeeze
+# ._entropy_lens, rounded, on every float32 within 3,000 ulps of each
+# 2 ** -(k + 0.15) (rows [p, 1 - p], whose float32 sum is 1): the length
+# falls as p rises, one step at each P_k; tests/test_torch_entropy.py
+# derives them again and checks them on histograms.
+_LEN_STEPS = (0x3EE6B85A, 0x3E66B858, 0x3DE6B859, 0x3D66B856, 0x3CE6B85D,
+              0x3C66B857, 0x3BE6B857, 0x3B66B850, 0x3AE6B85E, 0x3A66B850,
+              0x39E6B85E, 0x3966B84C, 0x38E6B862, 0x3866B84C)
+
+
+@functools.lru_cache(maxsize=None)
+def _len_steps(device: torch.device) -> torch.Tensor:
+    """_LEN_STEPS as float32 (14,) in ascending order on `device`, made
+    once per device (a CUDA graph captures no copy from host memory)."""
+    bits = torch.tensor(_LEN_STEPS[::-1], dtype=torch.int32)
+    return bits.view(torch.float32).to(device)
+
+
+def _entropy_code_lens(h: torch.Tensor) -> torch.Tensor:
+    """round(clip(-log2 p + 0.35, 1, 15)) as the JAX pipeline computes it
+    under jit, 0 where absent: (B, n) counts -> (B, n) int64 code lengths.
+
+    p = f32(h) / f32(max(1, total)) as both packages form it (IEEE
+    division: the same on the CPU and on the card), and the length is
+    1 + #{k : p <= P_k}: no log, so no library's log2 can round it another
+    way.  Domain: a shard's literal/length total is at most its length
+    plus the EOB, 131,073 at the largest shard the API is tested at
+    (128 KiB); fewer with FLATE_TPU_SQUEEZE_HIST_STRIDE > 1; the distance
+    total is the match count.  Every total below 2^24 is exact in float32,
+    and the steps are those of every float32 p, so they hold there too."""
+    total = torch.clamp(h.sum(dim=1, keepdim=True), min=1).to(torch.float32)
+    p = h.to(torch.float32) / total
+    # 1 + #{k : p <= P_k} = 15 - #{k : P_k < p}
+    below = torch.bucketize(p, _len_steps(h.device))
+    return torch.where(h > 0, 15 - below, 0)
+
+
 def _entropy_lens(h: torch.Tensor) -> torch.Tensor:
     """-log2(p) + 0.35 clipped to [1, 15], 0 where absent (float32).
 
-    The squeeze rounds this to a code length, so a value within an ulp of
-    k + 0.5 depends on the library's log2; encode2 (as its _entropy_bits)
-    weighs segment counts with it for the stored/coded decision.  p is
-    formed in float32 as the reference forms it; log2 is then taken in
-    float64 and rounded to float32 once (the correctly rounded float32
-    log2, the same on the CPU and on the card), and the add, clip and
-    half-to-even round are float32 again."""
+    encode2 (as its _entropy_bits) weighs segment counts with it for the
+    stored/coded decision; the squeeze's rounded lengths come from
+    _entropy_code_lens.  p is formed in float32 as the reference forms it;
+    log2 is then taken in float64 and rounded to float32 once (the
+    correctly rounded float32 log2, the same on the CPU and on the card),
+    and the add and clip are float32 again."""
     total = torch.clamp(h.sum(dim=1, keepdim=True), min=1).to(torch.float32)
     p = torch.clamp(h.to(torch.float32) / total, min=1e-9)
     lg = torch.log2(p.to(torch.float64)).to(torch.float32)

@@ -774,6 +774,53 @@ SWEEP_INPUTS = ("fuzz_mixed", "mixed", "text", "zeros", "random", "empty",
 WBITS = {"GZIP": 31, "ZLIB": 15, "RAW": -15}
 
 
+def squeeze_flip() -> bytes:
+    """22,762 bytes on which the squeeze's code lengths decide the level-6
+    bytes (ROADMAP C.18): in one shard of 32,768 the greedy parse has
+    22,723 tokens (total 22,724 with the EOB) and 0x7E 5 times among its
+    literals, a pair where the jitted JAX code length is 12 bits and the
+    correctly rounded log2's 13.  At 20,000, "\x7eeta" repeats at distance
+    20: a match of 4 that costs 15 + 3 + 3 bits (its length code seen
+    once, its distance code one of 5 matches, 3 extra bits), against 12 +
+    3 + 3 + 3 for its literals (e, t, a are a sixth of the bytes each).
+    At 12 bits the DP keeps the literals (the first of equal costs), at 13
+    it takes the match.  The other bytes repeat no 3-gram, so the only
+    other matches are four 10-byte copies at distances 100, 300, 700 and
+    1,500; a byte next to a planted run is drawn so as not to lengthen
+    its match."""
+    rng = np.random.default_rng(18)
+    x, common = 0x7E, (0x65, 0x74, 0x61)
+    lits = {p: (x,) for p in (2_000, 11_000, 14_000, 17_000)}
+    lits[19_980] = (x,) + common
+    copies = {20_000: (20, 4)}            # position: (distance, length)
+    for i, d in enumerate((100, 300, 700, 1_500)):
+        copies[3_500 + 1_500 * i] = (d, 10)
+    out, seen = [], set()
+
+    def planted(p):
+        if p in copies:
+            d, n = copies[p]
+            return out[p - d:p - d + n]
+        return list(lits.get(p, ()))
+
+    while len(out) < 22_762:
+        run = planted(len(out))
+        if not run:
+            c = (int(rng.integers(0, 256)) if rng.random() < 0.5
+                 else common[int(rng.integers(0, 3))])
+            # every 3-gram that c makes, with the run planted after it
+            w = out[-2:] + [c] + planted(len(out) + 1)[:2]
+            if c == x or any(tuple(w[i:i + 3]) in seen
+                             for i in range(len(w) - 2)):
+                continue
+            run = [c]
+        for c in run:
+            out.append(c)
+            if len(out) >= 3:
+                seen.add(tuple(out[-3:]))
+    return bytes(out)
+
+
 def sweep_input(name: str, level: int, shard_len: int, batch: int) -> bytes:
     """A sweep case's input: chip_smoke.py fuzz_mixed() (5,568 B: text,
     2,048 random bytes, text), the mixed corpus (20,000 B) or rfc1951 text
@@ -781,7 +828,7 @@ def sweep_input(name: str, level: int, shard_len: int, batch: int) -> bytes:
     stays a few batches, 5 KiB of zeros, 3 KiB of random bytes (every
     shard stored), 0, 1 or 100 bytes; "legacy" is the mixed corpus the
     level-sweep at 4096 / 512 / 2 always used (5 shards less 77 bytes,
-    seeded by the level)."""
+    seeded by the level); "squeeze_flip" is squeeze_flip()."""
     cap = 2 * shard_len * batch + shard_len // 3
     if name == "fuzz_mixed":
         from chip_smoke import fuzz_mixed
@@ -792,6 +839,8 @@ def sweep_input(name: str, level: int, shard_len: int, batch: int) -> bytes:
         return corpus("text", min(12_000, cap), seed=17)
     if name == "legacy":
         return corpus("mixed", 5 * S - 77, seed=level)
+    if name == "squeeze_flip":
+        return squeeze_flip()
     return {"zeros": bytes(5 << 10),
             "random": corpus("random", 3 << 10, seed=17),
             "empty": b"", "one": b"\x07",
@@ -804,8 +853,9 @@ OWN_SHAPES = tuple((6, 2048, 1024, 2, c, "fuzz_mixed") for c in CONTAINERS)
 
 # sha256 of flate_tpu.jx.pipeline2.compress_device2(interpret=True) on
 # these cases (tests/test_torch_shapes.py computes them): the own members,
-# ctx above the shard (8192 / 7168 at levels 1 and 6, 32768 / 2048) and a
-# shard_len that is no power of two (7168)
+# ctx above the shard (8192 / 7168 at levels 1 and 6, 32768 / 2048), a
+# shard_len that is no power of two (7168), and a squeeze whose rounded code
+# lengths decide the bytes (squeeze_flip)
 PINNED = {
     (6, 2048, 1024, 2, "RAW", "fuzz_mixed"):
         "21301af851e2d6deabe80a6a99c50d91696afc0d73c42292b848e938aed97357",
@@ -819,6 +869,8 @@ PINNED = {
         "ef25ecec4e07b00959eb98977e56103374bb8028196dad67af80b300f0fca44b",
     (1, 2048, 32768, 1, "GZIP", "text"):
         "134810fd4dc680a71dd74797926ad5adc7e481f67904bf27958d069365f7414b",
+    (6, 32768, 1024, 1, "RAW", "squeeze_flip"):
+        "2f416ed5d19b6e0f696a94d8a4fde615b12961fea6c9f330fe75f79e1abc4d90",
 }
 
 

@@ -391,8 +391,8 @@ def test_parse_entry_points_equal_cpu(cuda, lazy, max_lazy, blk):
 @pytest.mark.parametrize("grid_only", [False, True])
 @pytest.mark.parametrize("blk", [1024, 4096])
 def test_squeeze_equal_cpu(cuda, blk, grid_only):
-    """The cost DP on the card against the CPU: code lengths (the float32
-    log2 rounds to the same lengths), chosen lengths and masks."""
+    """The cost DP on the card against the CPU: code lengths (the same
+    step function of the same float32 p), chosen lengths and masks."""
     win = torch.from_numpy(windows("text", seed=2))
     ctx_len, valid = torch.tensor([CTX, 0]), torch.tensor([S, 3000])
     ml, md = match2.find_matches_fused(win, ctx_len, valid, K=12, nw=4,
@@ -410,6 +410,18 @@ def test_squeeze_equal_cpu(cuda, blk, grid_only):
     for a, b in zip(run(cuda), run("cpu")):
         _eq(a, b)
     assert _build.LAUNCHES["flate_parse_walk"] == 1
+
+
+def test_entropy_code_lens_equal_cpu(cuda):
+    """The squeeze's rounded code lengths on the card against the CPU on
+    every count pair near a step (chip_smoke.length_step_pairs: totals up
+    to 131,073), at the distance histogram's width."""
+    from chip_smoke import length_step_pairs
+    h, t = length_step_pairs()
+    rows = torch.zeros((len(h), 30), dtype=torch.int32)
+    rows[:, 0], rows[:, 1] = torch.from_numpy(h), torch.from_numpy(t - h)
+    _eq(squeeze._entropy_code_lens(rows.to(cuda)),
+        squeeze._entropy_code_lens(rows))
 
 
 def test_wrappers_reject_bad_tensors(cuda):

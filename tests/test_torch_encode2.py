@@ -24,6 +24,7 @@ from flate_tpu.jx import parse as j_parse
 from flate_tpu_torch.device import encode2, header, huff, onehot, pack
 
 from _torch_corpora import CTX, KINDS, S, rfc_text, tt, u32, windows
+from _torch_estimate_ties import fields, margins, tie_shard
 
 
 def _hists(seed, B=6, n=286):
@@ -405,3 +406,23 @@ def test_coded_est_symbol_order_invariant(seed):
         e2 = encode2._coded_est(hll_t[:, :, pl], hdd_t[:, :, pd], ex_t)
         assert torch.equal(e2.view(torch.int32), est.view(torch.int32))
         assert torch.equal(want_stored(e2), want)
+
+
+@pytest.mark.parametrize("index, jax_batch", [(649, 2), (2970, 1)])
+def test_estimate_near_tie_follows_the_shard(index, jax_batch):
+    """A literal-only shard with a segment's coded estimate within 0.01
+    bits of the stored/coded threshold (tests/_torch_estimate_ties.py
+    tie_shard(3, index)).  The jitted JAX build_fields gives it other
+    fields alone than in a batch of two (its float32 einsum sums in another
+    order), so no rule of the shard alone can give both (ROADMAP C.18).
+    The port gives the same fields alone and in a batch: the JAX package's
+    fields in a batch of `jax_batch` rows."""
+    row = tie_shard(3, index)[None, :]
+    two = np.concatenate([row, np.zeros_like(row)])
+    assert np.abs(margins(row)).min() < 0.01
+    j1, j2 = fields(row, True), fields(two, True)
+    assert j1[1][0] != j2[1][0]
+    want = (j1, j2)[jax_batch - 1]
+    for got in (fields(row, False), fields(two, False)):
+        np.testing.assert_array_equal(got[0][0], want[0][0])
+        assert got[1][0] == want[1][0]

@@ -1,6 +1,9 @@
 """Port squeeze (greedy_code_lengths, _entropy_lens, squeeze_parse) against
 flate_tpu.jx.squeeze, fed with the JAX matcher's outputs on the four
-corpora and with synthetic matches that force cost ties.
+corpora and with synthetic matches that force cost ties.  The code lengths
+are held to the JAX functions called eagerly and under jax.jit, as the JAX
+pipeline runs them (tests/test_torch_entropy.py: the rounding where the
+two differ).
 
 Tolerance: exact for every integer array.  The one float array,
 _entropy_lens, to 1e-6, with the count of code lengths that round
@@ -8,6 +11,7 @@ differently asserted to be 0 on these corpora: a value within an ulp of
 k + 0.5 could round the other way under another float32 log2.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,12 +59,19 @@ def _t(xs):
     return tuple(tt(x) for x in xs)
 
 
-@pytest.mark.parametrize("mode", ["default", "exact", "stride4"])
+_jit_greedy = jax.jit(j_squeeze.greedy_code_lengths,
+                      static_argnames=("exact", "stride"))
+
+
+@pytest.mark.parametrize("mode", ["default", "exact", "stride4",
+                                  "jit_default", "jit_exact", "jit_stride4"])
 def test_greedy_code_lengths_equal(greedy, mode):
     kw = {"default": {}, "exact": {"exact": True},
-          "stride4": {"stride": 4}}[mode]
+          "stride4": {"stride": 4}}[mode.removeprefix("jit_")]
     args = greedy[1024]
-    jl, jd = j_squeeze.greedy_code_lengths(*_j(args), **kw)
+    ref = _jit_greedy if mode.startswith("jit_") else \
+        j_squeeze.greedy_code_lengths
+    jl, jd = ref(*_j(args), **kw)
     tl, td = squeeze.greedy_code_lengths(*_t(args), **kw)
     assert int((tl.numpy() != np.asarray(jl)).sum()) == 0
     assert int((td.numpy() != np.asarray(jd)).sum()) == 0
