@@ -68,7 +68,13 @@ Phases, one line each:
      bytes against the port's CPU bytes at levels 6 and 9 on 8 shards
      (any difference raises); at every squeeze level (2, 4-9) the count of
      greedy code lengths (ll_bits, d_bits) of the 8 MiB batch that differ
-     between card and CPU (any raises); the squeeze's rounded code lengths
+     between card and CPU (any raises); every PROD_PINNED case (levels 1-9
+     at 128 KiB shards with 32 KiB context: one full shard and a tail of
+     the mixed corpus, ZLIB and RAW at 1, 6, 9, text at 6 and 9, two full
+     shards in one batch, and the headline's first 8 MiB batch) encoded
+     staged, fused and through api.<ns>.compress, each sha256 equal to the
+     JAX package's pin (any other raises), a line a case with its bytes
+     and sha256 prefix; the squeeze's rounded code lengths
      of every count pair near a step (length_step_pairs: 8,638,909 pairs,
      totals up to 131,073) on the card against the CPU in one call each
      (any difference raises), beside the pairs where a correctly rounded
@@ -256,6 +262,55 @@ KERNEL_LEVELS = (1, 3, 6, 9)     # knobs at which B1-B5 and B9 are held to plain
 # (BENCH_r05.json size_vs_zlib_corpora): byte counts, equal on any hardware
 JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
               9: {"text": 0.9787, "mixed 8 MiB": 0.9365}}
+# The headline's shard shape held to the JAX package's bytes: (level,
+# shard_len, ctx, batch, container, input) -> sha256 of
+# flate_tpu.jx.pipeline2.compress_device2(interpret=True) on
+# prod_input(input) (index on for gzip).  One full shard and a tail in
+# batches of 1 carry the context from batch 1 to batch 2; "mixed2" puts two
+# full shards in one batch; "mixed8M" is the headline's first batch.  Phase
+# 8 encodes each on the card; tests/test_torch_prodshape.py holds the
+# port's CPU bytes to them and recomputes them with the JAX package (slow).
+PROD_TAIL = 12_345
+PROD_PINNED = {
+    (1, S, CTX, 1, "GZIP", "mixed"):
+        "aa473072938afa5ab9a3738076cdd03093dcffa1fda7f5663616e3fdd77c4fc0",
+    (2, S, CTX, 1, "GZIP", "mixed"):
+        "a4b060c11940380563d7f2419ce93449e6320ae7f3604a08287ae4450142c291",
+    (3, S, CTX, 1, "GZIP", "mixed"):
+        "7ac1ceaba9c43a2c59fefc23aa2c3da69f731b43a83ace65d4db6b0ca355294a",
+    (4, S, CTX, 1, "GZIP", "mixed"):
+        "12e3457b40b95063cf5cac7264578bc23869263f2d114dd7ea7994cc622eee33",
+    (5, S, CTX, 1, "GZIP", "mixed"):
+        "716beb4fe20159434d64d79b784652b279a407a25e46c55b62c38aa7beb5f1c4",
+    (6, S, CTX, 1, "GZIP", "mixed"):
+        "fc37dc04c930eb5a5382c980dfc2e1ba0859e568fa792a2b69f10175b903986b",
+    (7, S, CTX, 1, "GZIP", "mixed"):
+        "7a9135137b218af9afe5e0d5f71c1fabb55feb69b162362940de896a60dbf891",
+    (8, S, CTX, 1, "GZIP", "mixed"):
+        "2a836a9b48a56b7a5e50183bedc823fb5d4ce67612c1e0d02047488a340a2c7f",
+    (9, S, CTX, 1, "GZIP", "mixed"):
+        "2e7786d8f208f814d4f66ac53ad7664082c7a42f5ac1d22f95db34d63b847968",
+    (1, S, CTX, 1, "ZLIB", "mixed"):
+        "5cac693b8b6bd5cbce90213ee1001d619b5704e02d6fe1842a460214f933d601",
+    (6, S, CTX, 1, "ZLIB", "mixed"):
+        "0e7c2b9b0ca70843ef1db1457fd94b8ec1cbbf8df612c21de52ca9be6fe57d5b",
+    (9, S, CTX, 1, "ZLIB", "mixed"):
+        "9b17f94aa94e6e05e1523864b4b9d29a9f7325a58be78d386aa219f4da621aea",
+    (1, S, CTX, 1, "RAW", "mixed"):
+        "18ed449bf35db8a0059e60e7551cc9da074f56f21e10c5dd65855ab623edd929",
+    (6, S, CTX, 1, "RAW", "mixed"):
+        "6da9ceecf54a82484fceead38e4fae925bcd9fa74acd86c1663fe9cb295621c7",
+    (9, S, CTX, 1, "RAW", "mixed"):
+        "79d0c47d8d5ea5d285d8799655f843d50b3a3ccaf75834d91dac2c3f440cd4c8",
+    (6, S, CTX, 1, "GZIP", "text"):
+        "52597f74e2383e038bd1f95ad2587c2d8ee3addbb113a60439c85202c7514ebe",
+    (9, S, CTX, 1, "GZIP", "text"):
+        "06649e50d1eb3d8ceccbe606d11378dcee6de3bd8cb4dc821f3422576a360a3c",
+    (6, S, CTX, 2, "GZIP", "mixed2"):
+        "06db386c63021a874e08b5b9fb91d13d76b4edb410ff0eff5fb8d73e0d51decc",
+    (6, S, CTX, 64, "GZIP", "mixed8M"):
+        "b37c793cf797673ffe675a800815962fadb3762590cb0b9e7be46a2503668296",
+}
 
 
 def text_corpus(size: int) -> bytes:
@@ -295,6 +350,21 @@ def mixed_corpus(size: int) -> bytes:
         blocks.append(r)
         n += len(t) + len(r)
     return b"".join(blocks)[:size]
+
+
+def prod_input(name: str) -> bytes:
+    """A PROD_PINNED case's input: bench.py's mixed or text corpus cut to
+    one full shard and PROD_TAIL bytes ("mixed", "text"), the mixed corpus
+    cut to two full shards and the tail ("mixed2") or to the first 8 MiB
+    batch ("mixed8M")."""
+    n = {"mixed": S + PROD_TAIL, "text": S + PROD_TAIL,
+         "mixed2": 2 * S + PROD_TAIL, "mixed8M": B * S}[name]
+    return (text_corpus if name == "text" else mixed_corpus)(n)
+
+
+def prod_id(case) -> str:
+    level, shard_len, ctx, batch, container, name = case
+    return f"l{level}-b{batch}-{container}-{name}"
 
 
 def smi() -> str:
@@ -1270,6 +1340,8 @@ def main() -> int:
                                      f"lengths differ between card and CPU")
         print(line, flush=True)
 
+    prod_pins(api, pipeline2, graphs, Container, dev, data8)
+
     # the squeeze's rounded code lengths near every step, card against CPU
     ph, pt = length_step_pairs()
     rows = torch.from_numpy(np.stack([ph, pt - ph], 1).astype(np.int32))
@@ -1814,6 +1886,40 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def prod_pins(api, pipeline2, graphs, Container, dev, data8) -> None:
+    """Phase 8: every PROD_PINNED case encoded on the card staged, fused
+    and through api.<ns>.compress; each sha256 must be the JAX package's
+    pin and the member must decode with zlib."""
+    t = time.time()
+    for case, pin in PROD_PINNED.items():
+        L, shard_len, ctx, batch, container, name = case
+        data = data8 if name == "mixed8M" else prod_input(name)
+        kw = dict(shard_len=shard_len, ctx=ctx, batch=batch)
+        ns = getattr(api, {"RAW": "flate", "ZLIB": "zlib",
+                           "GZIP": "gzip"}[container])
+        outs = {"staged": pipeline2.compress_device2(
+                    data, L, Container[container], device=dev, **kw),
+                "fused": pipeline2.compress_device2(
+                    data, L, Container[container], device=dev, fused=True,
+                    **kw),
+                "api": ns.compress(data, level=L, **kw)}
+        shas = {r: hashlib.sha256(o).hexdigest() for r, o in outs.items()}
+        wbits = {"RAW": -15, "ZLIB": 15, "GZIP": 31}[container]
+        print(f"[8] JAX pin {prod_id(case)} ({len(data)} B, shard_len "
+              f"{shard_len}, ctx {ctx}): {len(outs['staged'])} bytes, sha256 "
+              f"{shas['staged'][:12]} (pin {pin[:12]}); staged / fused / api "
+              f"== pin: {[shas[r] == pin for r in outs]}", flush=True)
+        if any(h != pin for h in shas.values()):
+            raise AssertionError(f"{prod_id(case)}: sha256 {shas} != the JAX "
+                                 f"package's {pin}")
+        if zlib.decompress(outs["staged"], wbits) != data:
+            raise AssertionError(f"{prod_id(case)}: zlib round trip")
+    graphs.clear()
+    print(f"[8] {len(PROD_PINNED)} cases at shard_len {S}, ctx {CTX} equal "
+          f"the JAX package's sha256 staged, fused and through the public "
+          f"entry point ({time.time() - t:.1f} s)", flush=True)
 
 
 def phase14_long(api, _build, inflate2, anyinflate) -> None:

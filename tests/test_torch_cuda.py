@@ -29,6 +29,7 @@ from _torch_corpora import (CTX, KINDS, PINNED, S, WBITS,
                             sweep_cases, sweep_id, sweep_input,
                             too_far_streams, trap_stream, walk_edge_rows,
                             windows)
+from chip_smoke import PROD_PINNED, prod_id, prod_input
 
 pytestmark = pytest.mark.cuda
 
@@ -272,6 +273,26 @@ def test_cuda_bytes_equal_cpu(cuda, case):
     streamed = stream_encode(case, data, cuda)
     assert streamed == stream_encode(case, data, "cpu")
     assert zlib.decompress(streamed, WBITS[container]) == data
+
+
+@pytest.mark.parametrize("case", list(PROD_PINNED), ids=prod_id)
+def test_cuda_prodshape_bytes_equal_pin(cuda, case):
+    """The headline's shard shape (chip_smoke.py PROD_PINNED: 128 KiB shards,
+    32 KiB context, levels 1-9): the card's bytes, staged and fused, are the
+    JAX package's (their sha256) and decode with zlib."""
+    level, shard_len, ctx, batch, container, name = case
+    data = prod_input(name)
+    kw = dict(level=level, container=Container[container],
+              shard_len=shard_len, ctx=ctx, batch=batch)
+    out = pipeline2.compress_device2(data, device=cuda, **kw)
+    assert sha256(out) == PROD_PINNED[case], len(out)
+    assert zlib.decompress(out, WBITS[container]) == data
+    try:
+        fused = pipeline2.compress_device2(data, device=cuda, fused=True,
+                                           **kw)
+    finally:
+        graphs.clear()
+    assert fused == out
 
 
 def _bounds(cuda):

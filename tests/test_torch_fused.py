@@ -7,9 +7,11 @@ helpers of the fused loop, and the public device checksums against the JAX
 package's and zlib's.  Tolerance: exact everywhere.
 
 The JAX single-jit references are made once, in a process of their own
-(tests/_torch_fused_ref.py: ~55 s at levels 1 and 6); levels 7-9 are
-marked slow."""
+(tests/_torch_fused_ref.py: ~55 s at levels 1 and 6); levels 7-9 take
+minutes each and are marked slow, and the port is held to the sha256 of
+their JAX outputs (HIGH_PINS) in the fast tier."""
 
+import hashlib
 import pathlib
 import subprocess
 import sys
@@ -33,6 +35,29 @@ HERE = pathlib.Path(__file__).resolve().parent
 WBITS = {"GZIP": 31, "ZLIB": 15, "RAW": -15}
 
 torch.set_num_threads(1)         # the squeeze DP is thousands of tiny ops
+
+
+# level -> (_batch_digest of the JAX encode_batch outputs on batch_inputs(),
+# sha256 of the JAX compress_device2(fused=True) gzip bytes on
+# fused_corpus()), made by tests/_torch_fused_ref.py
+HIGH_PINS = {
+    7: ("3e13aaf91795477c562bfceb3036eb8d40ff15eeabbcadcc46cfa9111f5cd8a6",
+        "e4ae85370fa63aeffca1e8bb4b7504748e5ef11759abd9f72d773f3a1e4405d8"),
+    8: ("13ddaedb6f96be83960e7b61482228d9719ec42aec7a1aa94bbb8b001026cfb2",
+        "4636e3731503d66cfe346fc73a4b6e8367fc4d6dea83a9eb6fd0d45a3d340640"),
+    9: ("433b71410b973ce69aaa0952811a393ea4519095b0ad3a20eaa1a771e5e6db87",
+        "a967f99d133d7b1c63b0cb38c7ca292b4534c49ec088fabebd41b0b08b4d1286"),
+}
+
+
+def _batch_digest(words, tbits, kind) -> str:
+    """sha256 of (words as u32, tbits, kind), each as int64 behind its
+    shape."""
+    h = hashlib.sha256()
+    for a in (words, tbits, kind):
+        a = np.asarray(a).astype(np.int64)
+        h.update(repr(a.shape).encode() + a.tobytes())
+    return h.hexdigest()
 
 
 def _jax_refs(tmp_path, levels):
@@ -217,3 +242,23 @@ def test_encode_batch_equal_jax_high_levels(tmp_path, level):
         fused_corpus(), level=level, shard_len=S, ctx=CTX, batch=B,
         device="cpu", fused=True)
     assert out == ref[f"gzip{level}"].tobytes()
+    assert HIGH_PINS[level] == (
+        _batch_digest(*(ref[f"{k}{level}"] for k in ("words", "tbits",
+                                                     "kind"))),
+        hashlib.sha256(out).hexdigest())
+
+
+@pytest.mark.parametrize("level", [7, 8, 9])
+def test_high_levels_equal_pin(level):
+    """Levels 7-9 against the pinned JAX outputs: encode_batch, and the
+    member of compress_device2 fused and staged."""
+    batch, member = HIGH_PINS[level]
+    words, tbits, kind = _port_batch(level)
+    assert _batch_digest(_u32(words), tbits.numpy(), kind.numpy()) == batch
+    data = fused_corpus()
+    for fused in (True, False):
+        out = pipeline2.compress_device2(
+            data, level=level, shard_len=S, ctx=CTX, batch=B, device="cpu",
+            fused=fused)
+        assert hashlib.sha256(out).hexdigest() == member, fused
+    assert zlib.decompress(out, 31) == data

@@ -4,8 +4,11 @@ every level, and zlib decodes it back to the input.
 
 Levels 8 and 9 (K = 96 / 160 with 16 carry words) take minutes each to
 trace in interpret mode and are marked slow; level 7 holds their code path
-(4 KiB parse blocks, the 3-byte K3 pass) in the fast tier."""
+(4 KiB parse blocks, the 3-byte K3 pass) in the fast tier, and the port's
+bytes of the slow cases are held there to the sha256 of the JAX bytes
+(SQUEEZE_PINS)."""
 
+import hashlib
 import zlib
 
 import numpy as np
@@ -60,6 +63,15 @@ def test_corpora_equal(level, kind):
     _check(data, ref, out)
 
 
+# sha256 of the JAX bytes of test_squeeze_levels_equal's slow cases
+SQUEEZE_PINS = {
+    (8, "mixed"):
+        "d26238f0ed74ffc587eb757f225cb93b9b13e96696363af2486f2cb3a9d300e7",
+    (9, "text"):
+        "5cf67b5eb9ebfec50d10361ce754b88c5a204510ee1ba3cd08a60d7af80fbe9e",
+}
+
+
 @pytest.mark.parametrize("level,kind", [
     (2, "text"), (4, "mixed"), (5, "runs"), (7, "text"),
     pytest.param(8, "mixed", marks=pytest.mark.slow),
@@ -70,6 +82,17 @@ def test_squeeze_levels_equal(level, kind):
     data = corpus(kind, 3 * S + 333, seed=level)
     ref, out = _both(data, level)
     _check(data, ref, out)
+    if (level, kind) in SQUEEZE_PINS:
+        assert hashlib.sha256(ref).hexdigest() == SQUEEZE_PINS[level, kind]
+
+
+@pytest.mark.parametrize("level,kind", list(SQUEEZE_PINS))
+def test_squeeze_levels_equal_pin(level, kind):
+    data = corpus(kind, 3 * S + 333, seed=level)
+    out = pipeline2.compress_device2(data, level=level, shard_len=S, ctx=CTX,
+                                     batch=2, device="cpu")
+    assert hashlib.sha256(out).hexdigest() == SQUEEZE_PINS[level, kind]
+    assert zlib.decompress(out, 31) == data
 
 
 def test_squeeze_knobs_follow_the_environment(monkeypatch):

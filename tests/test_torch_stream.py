@@ -3,10 +3,15 @@ byte: pipeline2.DeviceEncoder, the streaming compressor of every container
 (write / flush / finish / reset / set_writer, gzip metadata, a preset
 dictionary), compress(reader | data, writer=, meta=, dictionary=), the
 zlib FDICT header and the gzip CLI.  Small shapes (shards of 2048 bytes,
-512 bytes of context, batches of 3), levels 1 and 6; the JAX side runs its
-Pallas kernels in interpret mode, as tests/test_api_device.py does."""
+512 bytes of context, batches of 3), levels 1 and 6, and the compressor and
+the dictionary split of the DeviceEncoder at every other level; the JAX side
+runs its Pallas kernels in interpret mode, as tests/test_api_device.py
+does.  At levels 7-9 its traces take minutes: there the port is held to the
+sha256 of the JAX bytes (STREAM_PINS, ENCODER_PINS), which the slow cases
+recompute."""
 
 import gzip as pygz
+import hashlib
 import io
 import zlib
 
@@ -28,6 +33,10 @@ from _torch_corpora import corpus
 
 S, CTX, BATCH = 2048, 512, 3
 LEVELS = (1, 6)
+JAX_LEVELS = (2, 3, 4, 5)    # the other levels whose JAX traces fit tier 1
+PIN_LEVELS = (7, 8, 9)       # ... and those held to STREAM_PINS, ENCODER_PINS
+MORE_LEVELS = [*JAX_LEVELS,
+               *(pytest.param(L, marks=pytest.mark.slow) for L in PIN_LEVELS)]
 WBITS = {"gzip": 31, "zlib": 15, "flate": -15}
 J_NS = {"gzip": ft.gzip, "zlib": ft.zlib, "flate": ft.flate}
 
@@ -42,6 +51,44 @@ def _opts(level):
 PORT_KW = dict(shard_len=S, ctx=CTX, batch=BATCH, device="cpu")
 DATA = corpus("mixed", 7 * S + 333, seed=1)       # three batches: 3, 3, 2
 DICT = corpus("text", 700, seed=2)
+
+
+def _digest(parts) -> str:
+    """sha256 of a list of byte strings, each behind its length."""
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(len(p).to_bytes(8, "little") + p)
+    return h.hexdigest()
+
+
+# _digest of the JAX package's outputs at PIN_LEVELS: the streaming
+# compressor's SCRIPT snapshots by namespace, and the "dictionary" split of
+# the DeviceEncoder (its pieces, then repr((comp_lens, out_lens)))
+STREAM_PINS = {
+    ("gzip", 7):
+        "26ea5f8b6247b777442d180c422db868b68f2631fd948383c648781f19fca8b3",
+    ("zlib", 7):
+        "a03a14300f063bbc1fd443fcaf528245f9cf01541bafe599ea1d0d9774183a5b",
+    ("flate", 7):
+        "a4d3d7efd7e309a85c7e7841300272adf0470ae14b417a4c7f2f4696cc2ef20b",
+    ("gzip", 8):
+        "5a18aafbf1f71cf5bcfd386fe920f43b088804858876f817d212d2b81f1ba778",
+    ("zlib", 8):
+        "d04fac850f4f0354c70e4aeb0ef916c8fa1d282db451db0e8a471b590428dfac",
+    ("flate", 8):
+        "3f8d6fcd72499231e6027f4cff28b25ac0893e689520ad3d75c6f6d3df5bba7b",
+    ("gzip", 9):
+        "2781c6ac492532543276b8b6dbae1898b8f43fa50de8c422f1f70f7b5e6d27c1",
+    ("zlib", 9):
+        "1048c6ec208422879947854622f5bb7f496169b1cb4e1cf14a4d04bd41bf4bc1",
+    ("flate", 9):
+        "8802761a695c1dbb4831785af4fdefba6f7e04c7b12d0531d8d82c36b346f2a8",
+}
+ENCODER_PINS = {
+    7: "3d27536d2496908b9211bf0b4dfcc4f29e460b01c0510fb4171063819e990757",
+    8: "e3cc2de20ee7ea32496e4f8814b349b3011656d3a650b9c064a0e52cc339015b",
+    9: "d8442d46df6d73bfa2e7aab102709158c17ca4ae0b0a4e612a0d76571a9b7885",
+}
 
 
 def _j_meta(**kw):
@@ -90,6 +137,38 @@ def test_device_encoder_equal(level, case):
     assert dec.decompress(b"".join(got)) == DATA
 
 
+def _dictionary_split(level, device):
+    """The "dictionary" split through the port's DeviceEncoder (a device)
+    or the JAX package's (None): its pieces and their _digest, the
+    lengths after them."""
+    cuts, d = SPLITS["dictionary"]
+    kw = dict(level=level, shard_len=S, ctx=CTX, batch=BATCH, dictionary=d)
+    enc = (j_pipeline2.DeviceEncoder(interpret=True, **kw) if device is None
+           else pipeline2.DeviceEncoder(device=device, **kw))
+    outs = _encode_calls(enc, cuts)
+    lens = ([int(x) for x in enc.comp_lens], [int(x) for x in enc.out_lens])
+    dec = zlib.decompressobj(-15, zdict=d)
+    assert dec.decompress(b"".join(outs)) == DATA
+    assert sum(lens[1]) == len(DATA)
+    return outs, _digest(outs + [repr(lens).encode()])
+
+
+@pytest.mark.parametrize("level", MORE_LEVELS)
+def test_device_encoder_dictionary_levels(level):
+    """The dictionary split at every other level; at PIN_LEVELS the JAX
+    outputs also equal their pin."""
+    want, pin = _dictionary_split(level, None)
+    got, digest = _dictionary_split(level, "cpu")
+    assert got == want and digest == pin
+    if level in ENCODER_PINS:
+        assert pin == ENCODER_PINS[level]
+
+
+@pytest.mark.parametrize("level", PIN_LEVELS)
+def test_device_encoder_dictionary_pin(level):
+    assert _dictionary_split(level, "cpu")[1] == ENCODER_PINS[level]
+
+
 def test_device_encoder_closed_after_final():
     enc = pipeline2.DeviceEncoder(level=1, device="cpu", shard_len=S,
                                   ctx=CTX, batch=BATCH)
@@ -127,21 +206,23 @@ SCRIPT = [("w", 1000), ("w", 3 * S + 17), ("f",), ("f",), ("w", 2 * S + 5),
           ("w", 1500), ("x",), ("r",), ("w", 4 * S), ("x",)]
 
 
+def _port_stream(ns, level, meta=None, **kw):
+    po = io.BytesIO()
+    pc = getattr(ftt, ns).compressor(po, level, meta=meta, **kw, **PORT_KW)
+    return _drive(pc, po, SCRIPT)
+
+
 def _streams(ns, level, **kw):
-    jo, po = io.BytesIO(), io.BytesIO()
+    jo = io.BytesIO()
     jmeta = kw.pop("j_meta", None)
     pmeta = kw.pop("meta", None)
     jc = J_NS[ns].compressor(jo, level=level, opts=_opts(level),
                              device=True, meta=jmeta, **kw)
-    pc = getattr(ftt, ns).compressor(po, level, meta=pmeta, **kw, **PORT_KW)
-    return _drive(jc, jo, SCRIPT), _drive(pc, po, SCRIPT)
+    return _drive(jc, jo, SCRIPT), _port_stream(ns, level, pmeta, **kw)
 
 
-@pytest.mark.parametrize("ns", ["gzip", "zlib", "flate"])
-@pytest.mark.parametrize("level", LEVELS)
-def test_compressor_equal(ns, level):
-    want, got = _streams(ns, level)
-    assert got == want
+def _check_stream(ns, got):
+    """What SCRIPT's snapshots of a stream must hold."""
     # after the flush the writer holds a decodable prefix of the input
     after_flush = got[SCRIPT.index(("f",))]
     dec = zlib.decompressobj(WBITS[ns])
@@ -154,6 +235,25 @@ def test_compressor_equal(ns, level):
     assert zlib.decompress(first, WBITS[ns]) == DATA[:n1]
     second = got[-1][len(first):]
     assert zlib.decompress(second, WBITS[ns]) == DATA[n1:n1 + 4 * S]
+
+
+@pytest.mark.parametrize("ns", ["gzip", "zlib", "flate"])
+@pytest.mark.parametrize("level", [*LEVELS, *MORE_LEVELS])
+def test_compressor_equal(ns, level):
+    """At PIN_LEVELS the JAX streams also equal their pin."""
+    want, got = _streams(ns, level)
+    assert got == want
+    if (ns, level) in STREAM_PINS:
+        assert _digest(want) == STREAM_PINS[ns, level]
+    _check_stream(ns, got)
+
+
+@pytest.mark.parametrize("ns", ["gzip", "zlib", "flate"])
+@pytest.mark.parametrize("level", PIN_LEVELS)
+def test_compressor_equal_pin(ns, level):
+    got = _port_stream(ns, level)
+    assert _digest(got) == STREAM_PINS[ns, level]
+    _check_stream(ns, got)
 
 
 def test_compressor_gzip_meta_equal():
