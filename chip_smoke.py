@@ -158,8 +158,13 @@ Phases, one line each:
      final block, with MAX_SPAN untouched: each must equal its input with
      a walk kernel launched and at least as many continuation rows as
      its block needs past its first row; each beside the same input cut
-     into blocks of 2 MiB of input (GB/s, rounds, launches), and the
-     Huffman one also through zlib.decompressor at the 8 MiB window.
+     into blocks of 2 MiB of input (GB/s, rounds, launches); and each
+     through its container's decompressor (io.BytesIO) at a quarter of
+     the Decompressor's WINDOW (2 MiB), the Huffman one also at WINDOW:
+     each must equal its input with at least as many continuation rows as
+     its block needs past its first row, and a peak input of at most
+     TRIM + window + FETCH (7,340,032 bytes at 2 MiB): the block is
+     carried from window to window, the window does not grow.
  15. the round-1 encoder (device/pipeline.compress_device, the JAX
      package's jx/pipeline) at its defaults (shard_len 128 KiB, ctx 32
      KiB, batch 8) at levels 1, 6 and 9 on 8 MiB + 12,345 bytes of the
@@ -193,14 +198,24 @@ Phases, one line each:
      counters and decode stats set to 0 just before and read just after:
      S1, B6 and B7 must launch on the foreign stream; seconds and GB/s
      beside the one-shot's of phases 13 and 8, steps, chain heads and
-     rounds a step, false heads, window grows, peak input and output
-     buffer bytes; phase 8's 8 MiB member followed by a foreign gzip
+     rounds a step, false heads, peak input (at most TRIM + window +
+     FETCH at every window read, or the phase fails) and output buffer
+     bytes; phase 8's 8 MiB member followed by a foreign gzip
      member, whose routes (metrics records) must be indexed then chained;
      phase 10's FDICT member and zlib.compressobj(zdict=32 KiB) over 8 MiB
      decoded with dictionary= (one-shot and streamed); the two streams of
      too_far_streams must raise InvalidMatch; gzip.huffman and gzip.store
      round trips of 8 MiB; roundtrip_cli and decompress_cli in this
-     process (exit codes 0, 0, 1, 1); metrics.summary().
+     process (exit codes 0, 0, 1, 1); metrics.summary().  Last, the JAX
+     package's reader -> writer memory bounds (memory_child, each in a
+     process of its own: `python3 chip_smoke.py --memory encode|decode`):
+     64 MiB of text through gzip.compress(ChunkReader(.., 1 << 17),
+     writer=, level=1) after one 8 MiB batch, and zlib.compress(64 MiB, 1)
+     through zlib.decompress(ChunkReader(..), writer=) after a 16 MiB
+     stream of the same text; the bytes must come out right, the host's
+     ru_maxrss grow less than 24 MiB over the run, and the run's
+     torch.cuda.max_memory_allocated be at most the warm-up's + WINDOW;
+     prints both, seconds and GB/s.
  17. malformed streams, through api.<ns>.decompress and
      api.<ns>.decompressor(io.BytesIO(...)).read_all() on the card: the
      reference's 40-stream corpus (tests/data/fuzz) against FUZZ_CASES,
@@ -220,11 +235,12 @@ Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
 exits non-zero without the last line.  Imports nothing of JAX or flate_tpu.
-About 320-390 s on an H100 (the kernel build ~6 s, the CPU twins of
+About 450-550 s on an H100 (the kernel build ~6 s, the CPU twins of
 phases 8 and 10 ~30-55 s, the plain versions' host loops ~25 s, phase 13
-~15 s, phase 14 ~60 s, most of it the host writer's long blocks and their
-cut twins, phase 15 ~15 s with its CPU twins, phase 16 ~35 s; phase 17
-~45 s, half of it its CPU twins).
+~15 s, phase 14 ~65 s, most of it the host writer's long blocks and their
+cut twins, phase 15 ~15 s with its CPU twins, phase 16 ~80 s, of which
+the two memory checks' processes ~45 s; phase 17 ~45 s, half of it its
+CPU twins).
 """
 
 from __future__ import annotations
@@ -1974,20 +1990,32 @@ def phase14_long(api, _build, inflate2, anyinflate) -> None:
               f"{secs2:.4f} s = {len(want) / secs2 / 1e9:.4f} GB/s, rounds "
               f"{stats2.get('chained_rounds')}, launches {counts2}",
               flush=True)
+        windows = [api.Decompressor.WINDOW // 4]
         if name.startswith("huffman"):
+            windows.insert(0, api.Decompressor.WINDOW)
+        for w in windows:
+            # stream_read holds the peak input to TRIM + w + FETCH
             out, ssecs, dstats, scounts, sstats = stream_read(
-                api, _build, inflate2, "zlib", blob,
-                api.Decompressor.WINDOW)
+                api, _build, inflate2, container.lower(), blob, w)
             if out != want:
-                raise AssertionError(f"{name}: zlib.decompressor's output "
-                                     f"differs from the input")
-            print(f"[14] {name} through zlib.decompressor at the "
-                  f"{api.Decompressor.WINDOW >> 20} MiB window: == input in "
-                  f"{ssecs:.4f} s = {len(want) / ssecs / 1e9:.4f} GB/s, "
-                  f"steps {dstats.get('steps')}, window grows "
-                  f"{dstats.get('window_grows', 0)}, continuation rows "
-                  f"{sstats.get('continuation_rows', 0)}, peak input "
-                  f"{dstats.get('input_peak')} B, launches {scounts}",
+                raise AssertionError(f"{name}: {container.lower()}."
+                                     f"decompressor's output at a {w}-byte "
+                                     f"window differs from the input")
+            conts = sstats.get("continuation_rows", 0)
+            if conts < rows - 1:
+                raise AssertionError(f"{name} at a {w}-byte window: {conts} "
+                                     f"continuation rows, the block needs "
+                                     f"at least {rows - 1}")
+            bound = api.Decompressor.TRIM + w + api.Decompressor.FETCH
+            print(f"[14] {name} through {container.lower()}.decompressor at "
+                  f"a {w}-byte window: == input in {ssecs:.4f} s = "
+                  f"{len(want) / ssecs / 1e9:.4f} GB/s, steps "
+                  f"{dstats.get('steps')}, continuation rows {conts} (at "
+                  f"least {rows - 1}), rounds "
+                  f"{sstats.get('chained_rounds')}, peak input "
+                  f"{dstats.get('input_peak')} B (bound TRIM + WINDOW + "
+                  f"FETCH = {bound}), peak output buffer "
+                  f"{dstats.get('output_peak')} B, launches {scounts}",
                   flush=True)
 
 
@@ -2223,8 +2251,134 @@ def stream_read(api, _build, inflate2, container: str, blob: bytes,
     while chunk := d.read(piece):
         parts.append(chunk)
     secs = time.time() - t
+    bound = d.TRIM + window + d.FETCH
+    if d.stats["input_peak"] > bound:
+        raise AssertionError(f"{container}.decompressor at a {window}-byte "
+                             f"window: peak input {d.stats['input_peak']} "
+                             f"bytes > TRIM + WINDOW + FETCH = {bound}")
     return (b"".join(parts), secs, dict(d.stats), dict(_build.LAUNCHES),
             dict(inflate2.STATS))
+
+
+class ChunkReader(io.RawIOBase):
+    """A pipe-like reader: at most `max_chunk` bytes a read."""
+
+    def __init__(self, data: bytes, max_chunk: int):
+        self._data, self._pos, self._max = data, 0, max_chunk
+
+    def read(self, n: int = -1) -> bytes:
+        n = self._max if n < 0 or n > self._max else n
+        chunk = self._data[self._pos:self._pos + n]
+        self._pos += len(chunk)
+        return chunk
+
+
+class CheckWriter:
+    """A writer that keeps nothing: it counts the bytes and takes their
+    CRC-32, or (inflate=True, the bytes a gzip member) inflates them 64 KiB
+    at a time and takes the CRC-32 of what comes out."""
+
+    def __init__(self, inflate: bool = False):
+        self.n, self.crc = 0, 0
+        self._z = zlib.decompressobj(31) if inflate else None
+
+    def _take(self, b: bytes) -> None:
+        self.n += len(b)
+        self.crc = zlib.crc32(b, self.crc)
+
+    def write(self, b) -> None:
+        if self._z is None:
+            self._take(b)
+            return
+        b = bytes(b)
+        while b:
+            self._take(self._z.decompress(b, 1 << 16))
+            b = self._z.unconsumed_tail
+
+
+def reader_writer_memory(kind: str, size: int = 64 << 20) -> dict:
+    """The JAX package's reader->writer memory bounds
+    (tests/test_streaming_io.py test_compress_rss_bounded,
+    test_decompress_rss_bounded) on the card, in this process: `size`
+    bytes of the text corpus through
+    api.gzip.compress(ChunkReader(data, 1 << 17), writer=, level=1)
+    ("encode") or api.zlib.decompress(ChunkReader(zlib.compress(data, 1),
+    1 << 17), writer=) ("decode"), each after a warm-up through the same
+    call (one full 8 MiB batch; a 16 MiB stream of the same text).
+    Returns the host's ru_maxrss growth over the run (KiB), the device's
+    max_memory_allocated over the warm-up and over the run (peaks reset
+    before each), seconds and GB/s of input (encode) or output (decode),
+    and whether the bytes came out right (the encode's member inflated to
+    the input's CRC-32, the decode's output the input's)."""
+    import resource
+    sys.path.insert(0, HERE)
+    from flate_tpu_torch import api
+    data = text_corpus(size)
+    # what each call must give: (bytes, CRC-32), taken before any RSS is
+    # read and without a copy of the input
+    wants = [(n, zlib.crc32(memoryview(data)[:n])) for n in (
+        B * S if kind == "encode" else 16 << 20, size)]
+    if kind == "encode":
+        inputs = (data[:B * S], data)
+
+        def run(x):
+            w = CheckWriter(inflate=True)
+            api.gzip.compress(ChunkReader(x, 1 << 17), writer=w, level=1)
+            return w
+    else:
+        inputs = (zlib.compress(data[:16 << 20], 1), zlib.compress(data, 1))
+
+        def run(x):
+            w = CheckWriter()
+            api.zlib.decompress(ChunkReader(x, 1 << 17), writer=w)
+            return w
+    out = {"kind": kind, "size": size, "stream": len(inputs[1])}
+    for tag, x, want in zip(("warm", "run"), inputs, wants):
+        torch.cuda.synchronize()
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        w = run(x)
+        torch.cuda.synchronize()
+        out[f"{tag}_secs"] = time.time() - t
+        out[f"{tag}_peak"] = torch.cuda.max_memory_allocated()
+        out[f"{tag}_rss_growth_kib"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss - rss0
+        out[f"{tag}_ok"] = (w.n, w.crc) == want
+    out["gbps"] = size / out["run_secs"] / 1e9
+    out["window"] = api.Decompressor.WINDOW
+    return out
+
+
+RSS_GROWTH_KIB = 24 * 1024       # tests/test_streaming_io.py's bound
+
+
+def memory_child(kind: str) -> dict:
+    """reader_writer_memory(kind) in a process of its own, with the bounds
+    checked: host RSS growth under RSS_GROWTH_KIB and the run's device
+    peak at most the warm-up's + WINDOW; raises AssertionError past
+    either, or when the bytes are wrong.  A shell forks the process: one
+    exec'd from this one would start from this process's ru_maxrss (Linux
+    keeps it across exec), which the check's own memory never passes."""
+    r = subprocess.run(["/bin/sh", "-c", '"$@"; exit $?', "sh",
+                        sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                        "--memory", kind], capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"memory check {kind}: exit {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    if not (res["warm_ok"] and res["run_ok"]):
+        raise AssertionError(f"memory check {kind}: wrong bytes: {res}")
+    if res["run_rss_growth_kib"] >= RSS_GROWTH_KIB:
+        raise AssertionError(f"memory check {kind}: host RSS grew "
+                             f"{res['run_rss_growth_kib']} KiB >= "
+                             f"{RSS_GROWTH_KIB}: {res}")
+    if res["run_peak"] > res["warm_peak"] + res["window"]:
+        raise AssertionError(f"memory check {kind}: device peak "
+                             f"{res['run_peak']} B > the warm-up's "
+                             f"{res['warm_peak']} + WINDOW: {res}")
+    return res
 
 
 def run_cli(main, data: bytes, argv) -> int:
@@ -2267,6 +2421,7 @@ def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
                 raise AssertionError(f"stream {name}: a chain head off the "
                                      f"chain, or a scan: {stats} {counts}")
             steps = dstats["steps"]
+            bound = api.Decompressor.TRIM + w + api.Decompressor.FETCH
             print(f"[16] {container}.decompressor(io.BytesIO({name}, "
                   f"{len(blob)} bytes)) at a {w}-byte window, reads of "
                   f"(1 << 20) + 17: == input in {secs:.4f} s = "
@@ -2275,9 +2430,9 @@ def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
                   f"GB/s); {steps} steps, chain heads a step "
                   f"{stats.get('chain_heads', 0) / steps:.2f}, rounds a step "
                   f"{stats.get('chained_rounds', 0) / steps:.2f}, false "
-                  f"heads {stats.get('false_heads', 0)}, window grows "
-                  f"{dstats.get('window_grows', 0)}; peak input "
-                  f"{dstats['input_peak']} bytes, peak output buffer "
+                  f"heads {stats.get('false_heads', 0)}; peak input "
+                  f"{dstats['input_peak']} bytes (bound TRIM + WINDOW + "
+                  f"FETCH = {bound}), peak output buffer "
                   f"{dstats['output_peak']} bytes; launches S1 "
                   f"{counts.get('flate_scan_headers', 0)}, B6 "
                   f"{counts.get('flate_lane_walk', 0)}, B7 "
@@ -2366,6 +2521,24 @@ def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
           f"{json.dumps(metrics.summary())}", flush=True)
     metrics.disable()
     metrics.reset()
+
+    for kind in ("encode", "decode"):
+        r = memory_child(kind)
+        what = ("gzip.compress(ChunkReader(64 MiB text, 1 << 17), writer=, "
+                "level=1)" if kind == "encode" else
+                f"zlib.decompress(ChunkReader(zlib.compress(64 MiB text, 1) "
+                f"= {r['stream']} B, 1 << 17), writer=)")
+        warm = "one 8 MiB batch" if kind == "encode" else \
+            "the 16 MiB stream"
+        print(f"[16] reader -> writer memory, {what} in a process of its "
+              f"own: == input in {r['run_secs']:.4f} s = {r['gbps']:.4f} "
+              f"GB/s of {'input' if kind == 'encode' else 'output'}; host "
+              f"ru_maxrss growth {r['run_rss_growth_kib']} KiB (bound < "
+              f"{RSS_GROWTH_KIB}); device peak {r['run_peak']} B beside "
+              f"{warm}'s {r['warm_peak']} B (bound that + WINDOW = "
+              f"{r['warm_peak'] + r['window']}; warm-up "
+              f"{r['warm_secs']:.4f} s, its RSS growth "
+              f"{r['warm_rss_growth_kib']} KiB)", flush=True)
 
 
 def phase17(api, _build, inflate2, device: str = "cuda") -> None:
@@ -2497,4 +2670,9 @@ def python_accepts(container: str, data: bytes):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--memory"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: torch.cuda.is_available() is False")
+        print(json.dumps(reader_writer_memory(sys.argv[2])))
+        sys.exit(0)
     sys.exit(main())

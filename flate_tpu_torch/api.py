@@ -195,14 +195,16 @@ class Compressor:
 class _Member:
     """Where the streaming decode of one member stands."""
 
-    __slots__ = ("body", "bit", "hist", "entries", "window", "done")
+    __slots__ = ("body", "bit", "hist", "entries", "carry", "done")
 
-    def __init__(self, body: int, hist: bytes, entries, window: int):
+    def __init__(self, body: int, hist: bytes, entries):
         self.body = body             # stream offset of the member body
-        self.bit = 0                 # next block's bit in the body
+        self.bit = 0                 # the next step's bit in the body
         self.hist = hist             # last CTX bytes of history
         self.entries = entries       # FLT1 shard starts (body bits) or None
-        self.window = window         # compressed bytes the next step covers
+        # the block the next step goes on with at `bit` (an
+        # anyinflate.BlockPlan), or None at a block boundary
+        self.carry = None
         self.done = False            # the final block is decoded
 
 
@@ -211,21 +213,29 @@ class Decompressor:
     reset(), at_end(), set_reader().
 
     A reader is pulled FETCH bytes at a time and the consumed prefix is
-    dropped past TRIM, so input memory stays bounded whatever the stream's
-    size.  Each step decodes the member's blocks in the next WINDOW
-    compressed bytes, from the block boundary where the last step stopped,
-    on the device (anyinflate.decode_step): chains from that bit and from
-    the scanner's entry in each eighth of the window (at most
-    anyinflate.CHUNK_BYTES apart), or from the FLT1 shard offsets where the
-    gzip header has them, with the member's last 32 KiB of output (or its
-    preset dictionary) as history.  A step resolves at most OUT_CAP bytes.
-    A block that runs off the window waits for the next step; the window
-    grows only while one block does not fit it, and only at the end of the
-    input does a block that runs off it raise EndOfStream.
+    dropped past TRIM.  Each step decodes the member's next WINDOW
+    compressed bytes on the device (anyinflate.decode_step): chains from
+    the bit where the last step stopped and from the scanner's entry in
+    each eighth of a whole window (at most anyinflate.CHUNK_BYTES apart;
+    a shorter window, at the end of the input, is cut into as many
+    chunks of at least anyinflate.SPAN0), or from the FLT1 shard offsets
+    where the gzip header has them, with the member's last 32 KiB of
+    output (or its preset dictionary) as history.
+    A block that runs past the window is decoded up to the window's end
+    and handed on to the next step, which starts inside it (a coded
+    block's tables, or the rest of a stored block's length), so input
+    memory stays at most TRIM + WINDOW + FETCH bytes whatever the stream's
+    size and its blocks' lengths, as the JAX package's Decompressor keeps
+    its input at O(TRIM).  Only at the end of the input does a block that
+    runs off it raise its error (EndOfStream for a block cut short).
 
-    Payload is served from an output buffer and checksummed as it is
-    served; the footer is checked on the read after the last payload byte.
-    reset() goes on with the next concatenated member."""
+    Output is not bounded the same way: a step resolves its window's
+    blocks until it holds OUT_CAP bytes at a block's end, so it holds at
+    most OUT_CAP bytes plus one block's output in the window (where the
+    JAX package's native stream holds O(64 KiB)).  Payload is served from
+    the steps' output parts and checksummed as it is served; the footer
+    is checked on the read after the last payload byte.  reset() goes on
+    with the next concatenated member."""
 
     CHUNK = 1 << 16              # decompress(writer)'s read size
     FETCH = 1 << 20              # reader pull granularity
@@ -240,17 +250,26 @@ class Decompressor:
         self._container = container
         self._verify = verify
         self._dictionary = dictionary
+        # the input not yet dropped, as fetched: whole chunks, so that
+        # dropping a prefix or adding a fetch copies nothing
+        self._chunks: collections.deque = collections.deque()
+        self._held = 0           # bytes in self._chunks
         if isinstance(reader, _BYTES):
-            self._src, self._data, self._eof = None, bytearray(reader), True
+            self._src, self._eof = None, True
+            self._add(bytes(reader))
         else:
-            self._src, self._data, self._eof = reader, bytearray(), False
-        self._base = 0           # stream offset of self._data[0]
+            self._src, self._eof = reader, False
+        self._base = 0           # stream offset of the first chunk
         self._pos = 0            # stream offset of the member (or its end)
-        # steps, window_grows, input_peak, output_peak
+        # steps, input_peak, output_peak
         self.stats: collections.Counter = collections.Counter()
         self.reset()
 
     # -- input ------------------------------------------------------------
+    def _add(self, chunk: bytes) -> None:
+        self._chunks.append(chunk)
+        self._held += len(chunk)
+
     def _fetch(self) -> bool:
         """Pull one chunk from the source; False at its end."""
         if self._eof:
@@ -259,30 +278,42 @@ class Decompressor:
         if not chunk:
             self._eof = True
             return False
-        self._data += chunk
-        self.stats["input_peak"] = max(self.stats["input_peak"],
-                                       len(self._data))
+        self._add(bytes(chunk))
+        self.stats["input_peak"] = max(self.stats["input_peak"], self._held)
         return True
 
     def _end(self) -> int:
-        return self._base + len(self._data)
+        return self._base + self._held
 
     def _fill(self, upto: int) -> None:
         """Fetch until the input reaches stream offset `upto` or ends."""
         while self._end() < upto and self._fetch():
             pass
 
-    def _slice(self, lo: int, hi: int) -> bytes:
-        return bytes(self._data[lo - self._base:hi - self._base])
+    def _slice(self, lo: int, hi: int) -> bytearray:
+        """The input's bytes at stream offsets [lo, hi) that it holds (a
+        bytearray, which the chunk-entry scanner takes without a copy)."""
+        parts, at = [], self._base
+        for c in self._chunks:
+            if at >= hi:
+                break
+            if at + len(c) > lo:
+                parts.append(memoryview(c)[max(lo - at, 0):hi - at])
+            at += len(c)
+        return bytearray().join(parts)
 
     def _trim(self) -> None:
-        """Drop the consumed input prefix once it passes TRIM."""
+        """Drop the chunks wholly before the input still needed once the
+        consumed prefix passes TRIM."""
         keep = self._pos
         if self._m is not None and not self._member_done:
             keep = self._m.body + (self._m.bit >> 3)
-        if keep - self._base >= self.TRIM:
-            del self._data[:keep - self._base]
-            self._base = keep
+        if keep - self._base < self.TRIM:
+            return
+        while self._chunks and self._base + len(self._chunks[0]) <= keep:
+            c = self._chunks.popleft()
+            self._base += len(c)
+            self._held -= len(c)
 
     # -- one member ---------------------------------------------------------
     def _start_member(self) -> None:
@@ -301,49 +332,45 @@ class Decompressor:
             comp_lens = idx[0]
             entries = [8 * int(s) for s in comp_lens.cumsum() - comp_lens]
         self._m = _Member(self._pos + hdr,
-                          anyinflate.history(self._dictionary), entries,
-                          self.WINDOW)
+                          anyinflate.history(self._dictionary), entries)
         self._hasher = Hasher(self._container)
 
     def _step(self) -> None:
-        """Decode the next window of the member into the output buffer."""
+        """Decode the member's next window into the output buffer."""
         m = self._m
-        while True:
-            b0 = m.body + (m.bit >> 3)
-            hi = b0 + m.window
-            self._fill(hi)
-            win = self._slice(b0, hi)
-            start = m.bit & 7
-            entries = None
-            if m.entries is not None:
-                entries = [e - 8 * (b0 - m.body) for e in m.entries]
-            kw = dict(entries=entries, device=self._dev,
-                      chunk_bytes=min(anyinflate.CHUNK_BYTES,
-                                      max(m.window // 8, 1)),
-                      out_cap=self.OUT_CAP)
-            out, stop, done, hist = anyinflate.decode_step(
-                win, start, m.hist, final_input=False, **kw)
-            if stop == start and not done:
-                if self._end() > hi or not self._eof:
-                    # one block does not fit the window: grow it
-                    m.window *= 2
-                    self.stats["window_grows"] += 1
-                    continue
-                # the input has ended: the block's own error
-                out, stop, done, hist = anyinflate.decode_step(
-                    win, start, m.hist, final_input=True, **kw)
-            break
+        b0 = m.body + (m.bit >> 3)
+        hi = b0 + self.WINDOW
+        self._fill(hi)
+        win = self._slice(b0, hi)
+        start = m.bit & 7
+        entries = None
+        if m.entries is not None:
+            entries = [e - 8 * (b0 - m.body) for e in m.entries]
+        # as many scanner chains as a whole window has, however full, but
+        # chunks no shorter than a block's first span: a stream that fits
+        # one needs no scan
+        full = min(anyinflate.CHUNK_BYTES, max(self.WINDOW // 8, 1))
+        chains = -(-self.WINDOW // full)
+        kw = dict(carry=m.carry, entries=entries, device=self._dev,
+                  chunk_bytes=max(-(-len(win) // chains),
+                                  min(full, anyinflate.SPAN0)),
+                  out_cap=self.OUT_CAP)
+        out, stop, done, hist, carry = anyinflate.decode_step(
+            win, start, m.hist, final_input=False, **kw)
+        if stop == start and not done:
+            if self._end() > hi or not self._eof:
+                raise ValueError(f"a block header does not fit the "
+                                 f"{self.WINDOW}-byte window")
+            # the input has ended inside a block: its own error
+            out, stop, done, hist, carry = anyinflate.decode_step(
+                win, start, m.hist, final_input=True, **kw)
         self.stats["steps"] += 1
         m.bit = 8 * (b0 - m.body) + stop
-        m.hist = hist
-        m.done = done
-        m.window = self.WINDOW
-        if self._out_pos:
-            del self._out[:self._out_pos]
-            self._out_pos = 0
-        self._out += out
+        m.hist, m.carry, m.done = hist, carry, done
+        self._out.extend(out)
+        self._pending += sum(len(part) for part in out)
         self.stats["output_peak"] = max(self.stats["output_peak"],
-                                        len(self._out))
+                                        self._pending)
         self._trim()
 
     def _finish_member(self) -> None:
@@ -372,17 +399,27 @@ class Decompressor:
         if self._m is None:
             self._start_member()
         m = self._m
-        while not m.done and (n < 0 or len(self._out) - self._out_pos < n):
+        while not m.done and (n < 0 or self._pending < n):
             self._step()
-        hi = len(self._out) if n < 0 else self._out_pos + n
-        chunk = bytes(self._out[self._out_pos:hi])
-        self._out_pos += len(chunk)
+        want = self._pending if n < 0 else min(n, self._pending)
+        parts = []
+        while want:
+            part = memoryview(self._out[0])
+            k = min(want, len(part) - self._out_pos)
+            parts.append(part[self._out_pos:self._out_pos + k])
+            want -= k
+            if self._out_pos + k == len(part):
+                self._out.popleft()
+                self._out_pos = 0
+            else:
+                self._out_pos += k
+        chunk = b"".join(parts)
+        self._pending -= len(chunk)
         if self._verify:
             self._hasher.update(chunk)
         else:
             self._hasher.nbytes += len(chunk)
-        if m.done and self._out_pos == len(self._out) and (n < 0
-                                                           or not chunk):
+        if m.done and not self._pending and (n < 0 or not chunk):
             self._finish_member()
         return chunk
 
@@ -399,8 +436,10 @@ class Decompressor:
         self._m: Optional[_Member] = None
         self._hasher: Optional[Hasher] = None
         self._member_done = False
-        self._out = bytearray()
+        # the steps' output parts not yet served, the first from _out_pos
+        self._out: collections.deque = collections.deque()
         self._out_pos = 0
+        self._pending = 0
 
     def at_end(self) -> bool:
         """Whether no input follows the last finished member."""
@@ -413,7 +452,7 @@ class Decompressor:
         if not isinstance(reader, _BYTES):
             self._src, self._eof = reader, False
             return
-        self._data += reader
+        self._add(bytes(reader))
         self._trim()
 
 

@@ -28,9 +28,14 @@ Counterpart of flate_tpu/jx/anyinflate.py:
    holds only real history (a preset dictionary, then the member's
    output): a match that reaches before it raises InvalidMatch.
 4. **Streaming steps** (`decode_step`): the same chained decode over a
-   window of a longer member, from a known block boundary and with the
-   history carried from the step before; it stops at the first block that
-   runs off the window, which the next step decodes (api.Decompressor).
+   window of a longer member, with the history carried from the step
+   before.  A block that runs off the window is not dropped: its rows up
+   to the window's end are decoded and resolved (a coded block up to the
+   end of its last whole symbol, a stored block's payload up to the
+   window's last byte), and the step hands the block on (a carry: its
+   decode tables, or the rest of its stored length), so the next step
+   starts inside it.  A step's input is the window, whatever the blocks'
+   lengths (api.Decompressor).
 
 Correctness never depends on speculation: join failures re-decode the
 row with the exact serial walk; a block's first span escalates from SPAN0
@@ -91,23 +96,29 @@ _EOB_WORD = i2.K_EOB << 6        # the end-of-block a resolve row ends with
 
 class BlockPlan:
     """One row of the chained decode: a block from its header at bit
-    `pos` ("stored" or "coded"), or a continuation row of a coded block
-    ("cont"), which starts at bit `pos` on a symbol boundary of the block
-    whose header is at bit `block`."""
+    `pos` ("stored" or "coded"), or a row that goes on with a block begun
+    before it: a continuation row of a coded block ("cont"), which starts
+    at bit `pos` on a symbol boundary, or the rest of a stored block's
+    payload ("rest"), from the byte at bit `pos`.  `block` is the bit of
+    the block's header, negative where it lies before the window."""
     __slots__ = ("kind", "pos", "block", "bfinal", "body_bit", "ll", "d",
                  "lens", "stored_off", "stored_len", "end_bit")
 
     def key(self):
         """The row's key in a chain: its header bit, or (bit, header bit)
-        for a continuation row, whose bit may also be a chain entry."""
-        return self.pos if self.kind != "cont" else (self.pos, self.block)
+        for a row inside a block, whose bit may also be a chain entry."""
+        return self.pos if self.kind in ("stored", "coded") \
+            else (self.pos, self.block)
 
 
-def plan_block_at(body: bytes, pos: int) -> BlockPlan:
+def plan_block_at(body: bytes, pos: int, *, partial: bool = False
+                  ) -> BlockPlan:
     """Parse ONE block header at exact bit `pos` (host, tiny).
 
     stored blocks are fully resolved here (end_bit known); coded blocks
-    get canonical decode scalars and decode on device."""
+    get canonical decode scalars and decode on device.  A stored block
+    whose payload runs past the end of `body` raises EndOfStream, unless
+    `partial` (more input may come: its end_bit then lies past the end)."""
     p = BlockPlan()
     p.pos = p.block = pos
     bits = hinf._BitCursor(body, pos)
@@ -122,7 +133,7 @@ def plan_block_at(body: bytes, pos: int) -> BlockPlan:
         p.kind = "stored"
         p.stored_off = bits.pos >> 3
         p.stored_len = ln
-        if p.stored_off + ln > len(body):
+        if p.stored_off + ln > len(body) and not partial:
             raise EndOfStream("stored block past end")
         p.end_bit = (p.stored_off + ln) * 8
         return p
@@ -156,6 +167,33 @@ def plan_continuation(p: BlockPlan, bit: int) -> BlockPlan:
     return q
 
 
+def plan_rest(p: BlockPlan, bit: int, n: int) -> BlockPlan:
+    """The last `n` bytes of stored block p's payload, from byte-aligned
+    `bit`: what a window that ends inside the payload leaves over."""
+    q = BlockPlan()
+    q.kind = "rest"
+    q.pos, q.block, q.bfinal = bit, p.block, p.bfinal
+    q.stored_off, q.stored_len = bit >> 3, n
+    q.end_bit = bit + 8 * n
+    return q
+
+
+def moved(p: BlockPlan, bits: int) -> BlockPlan:
+    """Row p inside a block ("cont" or "rest") in a window that starts
+    `bits` (a multiple of 8) later."""
+    if p.kind == "rest":
+        q = plan_rest(p, p.pos - bits, p.stored_len)
+    else:
+        q = plan_continuation(p, p.pos - bits)
+    q.block = p.block - bits
+    return q
+
+
+def _where(p: BlockPlan) -> str:
+    return f"block at bit {p.block}" if p.block >= 0 \
+        else "block begun before the window"
+
+
 def stop_error(body: bytes, p: BlockPlan, bit: int) -> FlateError:
     """The error of the symbol at `bit` of coded row `p`, where its chain
     stopped without an end-of-block at the end of the body: that one
@@ -172,9 +210,9 @@ def stop_error(body: bytes, p: BlockPlan, bit: int) -> FlateError:
     try:
         hinf.read_symbol(hinf._BitCursor(body, bit), ll, d)
     except (InvalidCode, EndOfStream) as e:
-        return type(e)(f"block at bit {p.block}: symbol at bit {bit}")
-    raise RuntimeError(f"block at bit {p.block}: the walk stopped at bit "
-                       f"{bit} on a whole symbol")
+        return type(e)(f"{_where(p)}: symbol at bit {bit}")
+    raise RuntimeError(f"{_where(p)}: the walk stopped at bit {bit} on a "
+                       f"whole symbol")
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +438,9 @@ def _decode_round(body: bytes, plans: list, span: dict,
                 _pack_meta(counts, fail, has_eob, out_len, end_bit),
                 stop[None].to(torch.int32)]).cpu().numpy()
             cn_np, fail_np, eob_np, ol_np, eb_np, stop_np = meta_np
+            # keep the rows' symbols, not their 8 C slots (a copy: a view
+            # would hold them all): a step holds its rows until the resolve
+            words = words[:, :int(cn_np.max())].clone()
             for bi, (p, byte0) in enumerate(part):
                 results[p.key()] = {
                     "words": words, "row": bi, "plan": p,
@@ -497,8 +538,8 @@ def _decompress_member_any(data: bytes, offset: int,
     if entries is None:
         entries = scan.chunk_entries(body, chunk_bytes, device=dev)
     hist = history(dictionary)
-    chain, end_bit, _done = _chain(body, entries, 0, dev,
-                                   hist_len=len(hist))
+    chain, end_bit, _done, _ = _chain(body, entries, 0, dev,
+                                      hist_len=len(hist))
     out = bytearray()
     _resolve_chain(chain, body, hist, dev, out.extend)
 
@@ -515,32 +556,45 @@ def _decompress_member_any(data: bytes, offset: int,
 
 
 def decode_step(window: bytes, start: int, hist: bytes, *,
-                final_input: bool, entries: list | None = None,
+                final_input: bool, carry: BlockPlan | None = None,
+                entries: list | None = None,
                 chunk_bytes: int = CHUNK_BYTES, out_cap: int | None = None,
                 device: str | torch.device = "cuda"):
     """One step of a streaming decode: the blocks of `window` from its
-    bit `start` (a block boundary), with `hist` the history before it (at
-    most CTX bytes, all of them real: a dictionary, or the member's
-    output so far).
+    bit `start`, with `hist` the history before it (at most CTX bytes, all
+    of them real: a dictionary, or the member's output so far).  `start`
+    is a block boundary, or, given the `carry` the step before returned,
+    a bit inside the block it hands on.
 
     Chains run from `start` and from `entries` (bit positions in the
     window; None: the scanner's entry in each `chunk_bytes` of it).  The
-    step stops at the final block, at the first block that runs off the
-    end of the window (final_input=False: more input can still come), or
-    once the chain holds `out_cap` bytes of output.  With
-    final_input=True a block that runs off the end raises EndOfStream.
+    step stops at the final block, once the chain holds `out_cap` bytes of
+    output at a block's end, or (final_input=False: more input can still
+    come) where the window ends: inside a coded block at the end of its
+    last whole symbol in the window, inside a stored block at the window's
+    last byte, or at a block header that does not fit the window.  So a
+    step reads the window and no more, however long its blocks.  With
+    final_input=True a block that runs off the end raises its error.
 
     Returns (output, stop bit in the window, whether the final block was
-    decoded, history after the step)."""
+    decoded, history after the step, carry): carry is None at a block
+    boundary, else the block that goes on at `stop` (its decode tables, or
+    the rest of its stored payload) in the bits of the window that starts
+    at byte stop >> 3 of this one, to pass to the next step.  The output
+    is the step's bytes as a list of bytes-like parts in stream order, as
+    the resolve gives them: no buffer of the whole step's output is made
+    (b"".join makes one)."""
     dev = resolve_device(device)
     if entries is None:
         entries = scan.chunk_entries(window, chunk_bytes, device=dev)
-    chain, stop, done = _chain(window, entries, start, dev,
-                               hist_len=len(hist), final_input=final_input,
-                               out_cap=out_cap)
+    chain, stop, done, carry = _chain(
+        window, entries, start, dev, hist_len=len(hist),
+        final_input=final_input, out_cap=out_cap, carry=carry)
     parts: list = []
     hist = _resolve_chain(chain, window, hist, dev, parts.append)
-    return b"".join(parts), stop, done, hist
+    if carry is not None:
+        carry = moved(carry, 8 * (stop >> 3))
+    return parts, stop, done, hist, carry
 
 
 def _bit(key) -> int:
@@ -550,12 +604,15 @@ def _bit(key) -> int:
 
 def _chain(body: bytes, entries, start: int, dev: torch.device, *,
            hist_len: int, final_input: bool = True,
-           out_cap: int | None = None):
+           out_cap: int | None = None, carry: BlockPlan | None = None):
     """Decode the chain of blocks from bit `start` of `body` in device
-    rounds, beside the chains from `entries`.  Returns (chain, stop,
-    done): the decoded rows from `start` in stream order, the bit where
-    the chain stopped (the final block's end bit when done; always a
-    block's header bit otherwise), and whether the final block is in it.
+    rounds, beside the chains from `entries`.  Returns (chain, stop, done,
+    carry): the decoded rows from `start` in stream order, the bit where
+    the chain stopped (the final block's end bit when done), whether the
+    final block is in it, and the block it stopped inside (None when it
+    stopped at a block's header).  `carry` is such a block of the step
+    before, at `start` (BlockPlan "cont" or "rest"): the chain from
+    `start` goes on with it instead of parsing a header there.
 
     A coded block's first row escalates its span from SPAN0 to MAX_SPAN
     until its end-of-block lies in it.  A row that reaches MAX_SPAN bytes
@@ -563,11 +620,17 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
     block goes on from there in a continuation row (plan_continuation) in
     the next round, so a block of any compressed length decodes in rows of
     at most MAX_SPAN bytes; the row that holds the end-of-block ends it.
+    A carried coded block's first row starts at a span near the length the
+    block already has (at most MAX_SPAN) and escalates like a first row.
 
-    A block that runs off the end of `body` raises EndOfStream once the
-    chain from `start` reaches it, or with final_input=False stops the
-    chain at its header.  out_cap stops the chain at the first block end
-    where it holds that many output bytes.
+    A block that runs off the end of `body` raises its error once the
+    chain from `start` reaches it (EndOfStream, or stop_error's verdict on
+    the symbol at the end).  With final_input=False it stops the chain
+    instead: a coded row there is kept up to the end of its last whole
+    symbol and the block is carried from there; a stored payload is kept
+    up to the body's last byte and its rest carried; a header that does
+    not fit stops the chain at the header.  out_cap stops the chain at the
+    first block end where it holds that many output bytes.
 
     Errors come in stream order, as the serial decode meets them: when the
     chain from `start` reaches a block that failed, a match before it (in
@@ -576,13 +639,19 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
     first; otherwise the block's own error is raised.  Only a failed
     chain pays for that test."""
     nbits = 8 * len(body)
-    heads = {start, *(int(e) for e in entries if start < e < nbits)}
-    frontier = set(heads)
-    i2.STATS["chain_heads"] += len(heads)
+    entries = {int(e) for e in entries if start < e < nbits}
+    first = head = start if carry is None else carry.key()
+    if carry is not None and carry.pos != start:
+        raise ValueError(f"a carry at bit {carry.pos} for a step from bit "
+                         f"{start}")
+    frontier = {head, *entries}
+    i2.STATS["chain_heads"] += len(frontier)
     decoded: dict = {}           # row key -> result/stored plan
     failed: dict = {}            # row key -> its FlateError
     partial: dict = {}           # failed row key -> its symbols before it
-    waiting: set = set()         # row keys of blocks off the end
+    # row keys the chain stops at for want of input -> the block carried
+    # there (None: a header to parse again)
+    waiting: dict = {}
     conts: dict = {}             # continuation row key -> its plan
     span: dict = {}
     serial_set: set = set()
@@ -591,7 +660,7 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
         if final_input:
             failed[key] = err
         else:
-            waiting.add(key)
+            waiting[key] = None
 
     def fail(key, r: dict, err: FlateError) -> None:
         if isinstance(err, EndOfStream):
@@ -600,10 +669,38 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
             failed[key] = err
         partial[key] = r
 
-    head, head_out, stall = start, 0, 0
+    def stored(key, p: BlockPlan) -> None:
+        """A stored block's row, or the rest of its payload's; the part of
+        a payload that runs past the body waits for more input."""
+        have = len(body) - p.stored_off
+        if p.stored_len <= have:
+            end = 8 * (p.stored_off + p.stored_len)
+            decoded[key] = {"plan": p, "end_bit": end, "next": end,
+                            "out_len": p.stored_len, "stored": True,
+                            "last": True}
+            if not p.bfinal:
+                frontier.add(end)
+        elif final_input:
+            failed[key] = EndOfStream("stored block past end")
+        elif have <= 0:
+            waiting[key] = p if p.kind == "rest" else None
+        else:
+            rest = plan_rest(p, nbits, p.stored_len - have)
+            decoded[key] = {"plan": p, "end_bit": nbits, "next": rest.key(),
+                            "out_len": have, "stored": True, "last": False}
+            waiting[rest.key()] = rest
+
+    if carry is not None and carry.kind == "rest":
+        stored(head, carry)
+    elif carry is not None:
+        conts[head] = carry
+        span[head] = min(_bucket((start - carry.block) >> 3, SPAN0),
+                         MAX_SPAN)
+
+    head_out, stall = 0, 0
     while True:
-        todo = sorted(frontier - decoded.keys() - failed.keys() - waiting,
-                      key=_bit)
+        todo = sorted(frontier - decoded.keys() - failed.keys()
+                      - waiting.keys(), key=_bit)
         frontier.clear()
         plans = []
         for pos in todo:
@@ -615,7 +712,7 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                     f"stream ends at bit {nbits} before its final block"))
                 continue
             try:
-                p = plan_block_at(body, pos)
+                p = plan_block_at(body, pos, partial=True)
             except EndOfStream as e:
                 off_the_end(pos, e)
                 continue
@@ -625,11 +722,7 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                 failed[pos] = e
                 continue
             if p.kind == "stored":
-                decoded[pos] = {"plan": p, "end_bit": p.end_bit,
-                                "next": p.end_bit, "out_len": p.stored_len,
-                                "stored": True, "last": True}
-                if not p.bfinal:
-                    frontier.add(p.end_bit)
+                stored(pos, p)
             else:
                 plans.append(p)
         if plans:
@@ -643,7 +736,7 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                     and _invalid_code_at_cut(r, span_end)
                 if not r["has_eob"] and r["span"] < MAX_SPAN \
                         and span_end < nbits and not (r["ok"] and bad):
-                    # EOB not in a first row's span: escalate and retry
+                    # EOB not in the row's span: escalate and retry
                     span[key] = r["span"] * 2
                     frontier.add(key)
                     continue
@@ -660,27 +753,30 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                         frontier.add(r["end_bit"])
                 elif bad:
                     fail(key, r, InvalidCode(
-                        f"block at bit {p.block} undecodable at bit "
-                        f"{r['end_bit']}"))
-                elif span_end == nbits:
+                        f"{_where(p)} undecodable at bit {r['end_bit']}"))
+                elif span_end == nbits and final_input:
                     # stopped within a symbol of the body's end: that
-                    # symbol's own verdict, or (more input may come) wait
-                    fail(key, r, stop_error(body, p, r["end_bit"])
-                         if final_input else EndOfStream(
-                             f"block at bit {p.block} runs past the end of "
-                             f"the window"))
+                    # symbol's own verdict
+                    fail(key, r, stop_error(body, p, r["end_bit"]))
+                elif span_end == nbits and r["counts"] == 0:
+                    # not one whole symbol left in the window: wait here
+                    waiting[key] = p if p.kind == "cont" else None
                 elif r["counts"] == 0:
                     # no progress: never a loop
                     fail(key, r, InvalidCode(
-                        f"block at bit {p.block} undecodable at bit "
-                        f"{r['end_bit']}"))
+                        f"{_where(p)} undecodable at bit {r['end_bit']}"))
                 else:
-                    # proven up to its cut: the block goes on from there
+                    # proven up to its cut: the block goes on from there,
+                    # in the next round or (at the window's end) the next
+                    # step
                     q = plan_continuation(p, r["end_bit"])
                     r["next"] = q.key()
-                    conts[r["next"]] = q
                     decoded[key] = r
-                    frontier.add(r["next"])
+                    if span_end == nbits:
+                        waiting[q.key()] = q
+                    else:
+                        conts[q.key()] = q
+                        frontier.add(q.key())
                     i2.STATS["continuation_rows"] += 1
         # walk the chain from its head through what is decoded.  The head's
         # row is always in the frontier, so every round either finishes
@@ -703,7 +799,7 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
             break
         if pos in failed:
             rows = []
-            at = start
+            at = first
             while at != pos:
                 rows.append(decoded[at])
                 at = decoded[at]["next"]
@@ -720,21 +816,20 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
             raise InvalidCode("block chain did not converge")
 
     chain = []
-    at = start
+    at = first
     while at in decoded and (done or at != pos):
         r = decoded[at]
         chain.append(r)
         at = r["next"]
         if r["last"] and r["plan"].bfinal:
             break
-    # a chain that stops inside a block (its next row waits for more
-    # input) stops at the block's header
-    while chain and not chain[-1]["last"]:
-        at = chain.pop()["plan"].block
-    on_chain = {r["plan"].pos for r in chain if r["plan"].kind != "cont"}
-    i2.STATS["false_heads"] += sum(1 for e in heads
-                                   if e < at and e not in on_chain)
-    return chain, at, done
+    carried = None if done or capped else waiting.get(at)
+    on_chain = {r["plan"].pos for r in chain
+                if r["plan"].kind in ("stored", "coded")}
+    stop = _bit(at)
+    i2.STATS["false_heads"] += sum(1 for e in entries
+                                   if e < stop and e not in on_chain)
+    return chain, stop, done, carried
 
 
 def _resolve_chain(chain: list, body: bytes, hist: bytes,
@@ -744,8 +839,8 @@ def _resolve_chain(chain: list, body: bytes, hist: bytes,
     the history before the chain, every byte of it real: a match that
     reaches before it raises InvalidMatch.  A row that does not end its
     block gets an end-of-block word of its own, as _pieces gives one.
-    Passes each resolved span to emit(bytes) and returns the history after
-    the chain."""
+    Passes each resolved span to emit (a bytes-like object) and returns
+    the history after the chain."""
     rows: list = []
 
     def flush():
@@ -768,9 +863,9 @@ def _resolve_chain(chain: list, body: bytes, hist: bytes,
             raise InvalidMatch("a match reaches before the start of the "
                                "history")
         total = sum(ol for _, _, ol in rows)
-        r = flat[:total].cpu().numpy().tobytes()
-        emit(r)
-        hist = (hist + r[-CTX:])[-CTX:]
+        r = flat[:total].cpu().numpy()
+        emit(memoryview(r))
+        hist = (hist + r[-CTX:].tobytes())[-CTX:]
         rows.clear()
 
     for r in chain:
@@ -778,7 +873,7 @@ def _resolve_chain(chain: list, body: bytes, hist: bytes,
             if rows:
                 flush()
             p = r["plan"]
-            s = body[p.stored_off:p.stored_off + p.stored_len]
+            s = body[p.stored_off:p.stored_off + r["out_len"]]
             emit(s)
             hist = (hist + s[-CTX:])[-CTX:]
             continue

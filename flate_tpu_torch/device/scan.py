@@ -127,13 +127,14 @@ def _first_per_chunk(state: torch.Tensor, nseg: int) -> list[int]:
 
 
 def _buffer(data, device) -> torch.Tensor:
-    """data as a 1-D uint8 tensor: a tensor as it is, bytes on `device`."""
+    """data as a 1-D uint8 tensor: a tensor as it is, bytes on `device`
+    (a bytearray without a copy on the host)."""
     if isinstance(data, torch.Tensor):
         if data.dtype != torch.uint8 or data.dim() != 1:
             raise ValueError("scan: expected a 1-D uint8 tensor")
         return data
     dev = resolve_device(device)
-    raw = bytearray(data)
+    raw = data if isinstance(data, bytearray) else bytearray(data)
     if not raw:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
     return torch.frombuffer(raw, dtype=torch.uint8).to(dev)

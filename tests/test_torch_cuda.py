@@ -6,6 +6,7 @@ runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import io
 import zlib
 
 import numpy as np
@@ -29,7 +30,8 @@ from _torch_corpora import (CTX, KINDS, PINNED, S, WBITS,
                             sweep_cases, sweep_id, sweep_input,
                             too_far_streams, trap_stream, walk_edge_rows,
                             windows)
-from chip_smoke import PROD_PINNED, prod_id, prod_input
+from chip_smoke import (PROD_PINNED, RSS_GROWTH_KIB, memory_child,
+                        prod_id, prod_input)
 
 pytestmark = pytest.mark.cuda
 
@@ -1089,6 +1091,47 @@ def test_decompressor_cuda_equal_cpu(cuda, case):
         assert walks > 0
     if case in ("small_blocks", "level6"):
         assert _build.LAUNCHES["flate_scan_headers"] > 0
+
+
+@pytest.mark.parametrize("name", ["huffman_12mib_text",
+                                  "level1_6mib_one_block"])
+def test_decompressor_carries_long_blocks_cuda(cuda, monkeypatch, name):
+    """The streaming Decompressor at a 32 KiB window with MAX_SPAN cut to
+    64 KiB, on the card: the 164 and 183 KB blocks run past every window
+    and are carried from step to step (continuation rows), the output is
+    the input and the CPU's, and the peak input stays at TRIM + WINDOW +
+    FETCH (chip_smoke.py phase 14 at full size)."""
+    monkeypatch.setattr(anyinflate, "MAX_SPAN", 1 << 16)
+    monkeypatch.setattr(anyinflate, "SPAN0", 1 << 14)
+    container, blob, data = long_block_streams()[name]
+
+    class Small(_SmallWindow):
+        WINDOW = 1 << 15
+
+    _build.LAUNCHES.clear()
+    inflate2.STATS.clear()
+    d = Small(blob, Container[container], device=cuda)
+    got = b"".join(iter(lambda: d.read(50_000), b""))
+    walks = _build.LAUNCHES["flate_lane_walk"] + _build.LAUNCHES["flate_walk"]
+    assert got == data == _stream_read(blob, Container[container], "cpu",
+                                       50_000, cls=Small)
+    assert walks > 0 and inflate2.STATS["continuation_rows"] >= 4
+    d = Small(io.BytesIO(blob), Container[container], device=cuda)
+    assert b"".join(iter(lambda: d.read(50_000), b"")) == data
+    assert d.stats["input_peak"] <= Small.TRIM + Small.WINDOW + Small.FETCH
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode"])
+def test_reader_writer_memory_bounded(cuda, kind):
+    """The JAX package's reader -> writer memory bounds on the card
+    (tests/test_streaming_io.py, 64 MiB of text through a pipe-like
+    reader), each in a process of its own (chip_smoke.py memory_child):
+    the bytes right, host ru_maxrss growth under 24 MiB, and the device's
+    max_memory_allocated no more than over the warm-up (one 8 MiB batch;
+    a 16 MiB stream) + WINDOW."""
+    r = memory_child(kind)
+    assert r["run_rss_growth_kib"] < RSS_GROWTH_KIB
+    assert r["run_peak"] <= r["warm_peak"] + api.Decompressor.WINDOW
 
 
 def test_dictionary_cuda_equal_cpu(cuda):

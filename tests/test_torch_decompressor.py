@@ -19,6 +19,7 @@ from flate_tpu.api import Decompressor as JDecompressor
 from flate_tpu.containers import Container as JContainer
 
 import flate_tpu_torch as ftt
+from flate_tpu_torch import inflate as hinf
 from flate_tpu_torch.api import Decompressor
 from flate_tpu_torch.containers import Container
 from flate_tpu_torch.device import anyinflate as ai
@@ -99,20 +100,92 @@ def test_input_memory_is_bounded():
     d = Decompressor(ChunkReader(blob, 1 << 20), Container.ZLIB,
                      device="cpu")
     assert _drain(d, 30_000) == data
-    assert d.stats["window_grows"] == 0
     assert d.stats["input_peak"] <= TRIM + WINDOW + FETCH < len(blob)
 
 
 def test_window_grows_for_a_block_that_does_not_fit():
-    """Stored blocks of 16 KiB do not fit an 8 KiB window: it doubles
-    until one does."""
+    """Stored blocks of 16 KiB do not fit an 8 KiB window, and the window
+    does not grow for them: a step emits the payload up to the window's
+    end and the next step copies the rest, so input memory stays at TRIM
+    + WINDOW + FETCH."""
     data = corpus("random", 40_000, seed=23)
     c = zlib.compressobj(0, zlib.DEFLATED, 15)
     blob = b"".join(c.compress(data[i:i + 16384]) + c.flush(zlib.Z_FULL_FLUSH)
                     for i in range(0, len(data), 16384)) + c.flush()
-    d = Decompressor(blob, Container.ZLIB, device="cpu")
+    d = Decompressor(ChunkReader(blob, 1 << 20), Container.ZLIB,
+                     device="cpu")
     assert _drain(d, 5000) == data
-    assert d.stats["window_grows"] >= 3
+    assert d.stats["input_peak"] <= TRIM + WINDOW + FETCH
+    assert d.stats["steps"] >= len(blob) // WINDOW
+    assert _drain(JDecompressor(blob, JContainer.ZLIB), 5000) == data
+
+
+def _block_headers(raw: bytes) -> list:
+    """(header bit, kind) of every block of a raw deflate stream, walked
+    by the port's host decode."""
+    out, bit, got = [], 0, bytearray()
+    while True:
+        p = ai.plan_block_at(raw, bit)
+        out.append((bit, p.kind))
+        if p.kind == "stored":
+            bit = p.end_bit
+        else:
+            cur = hinf._BitCursor(raw, p.body_bit)
+            if p.lens is None:
+                ll, d = hinf.fixed_tables()
+            else:
+                ll = hinf.build_decode_table(p.lens[0], 15, True)
+                d = hinf.build_decode_table(p.lens[1], 15, False)
+            hinf._decode_coded_block(cur, got, ll, d)
+            bit = cur.pos
+        if p.bfinal:
+            return out
+
+
+@pytest.mark.parametrize("cut", [3, 40, 150])
+def test_block_header_straddles_the_window(cut):
+    """A dynamic block's header that runs `cut` bits past a window's end:
+    the step stops at the header (no carry), and the next step parses it
+    whole; through the Decompressor too, at that window."""
+    data = corpus("text", 30_000, seed=28)
+    raw = small_blocks(data, -15)
+    heads = [b for b, kind in _block_headers(raw)[1:] if kind == "coded"]
+    h = heads[len(heads) // 2]
+    assert ai.plan_block_at(raw, h).lens is not None    # dynamic
+    end = (h + cut + 7) >> 3
+    kw = dict(chunk_bytes=512, device="cpu")
+    out, stop, done, hist, carry = ai.decode_step(raw[:end], 0, b"",
+                                                  final_input=False, **kw)
+    out = b"".join(out)
+    assert (stop, done, carry) == (h, False, None)
+    assert data.startswith(out)
+    rest, _, done, _, _ = ai.decode_step(raw[h >> 3:], h & 7, hist,
+                                         final_input=True, **kw)
+    assert out + b"".join(rest) == data and done
+    d = Decompressor(ChunkReader(raw, 1 << 20), Container.RAW,
+                     device="cpu")
+    d.WINDOW = end
+    assert _drain(d, 4000) == data
+    assert d.stats["input_peak"] <= TRIM + d.WINDOW + FETCH
+
+
+def test_flt1_member_at_a_window_smaller_than_its_blocks():
+    """The port's gzip member at shard_len 4096 (a block a shard, stored
+    where the mixed corpus is random) read at a 1 KiB window: the blocks
+    run past the windows and are carried, the chains start at the FLT1
+    shard offsets with no false head."""
+    data = corpus("mixed", 40_000, seed=29)
+    blob = ftt.gzip.compress(data, 1, **SMALL)
+    i2.STATS.clear()
+    d = Decompressor(ChunkReader(blob, 1 << 20), Container.GZIP,
+                     device="cpu")
+    d.WINDOW, d.FETCH, d.TRIM = 1024, 512, 2048
+    assert _drain(d, 3000) == data
+    assert d.stats["input_peak"] <= 2048 + 1024 + 512
+    assert d.stats["steps"] >= len(blob) // 1024
+    assert i2.STATS["false_heads"] == 0
+    assert i2.STATS["continuation_rows"] >= 1
+    assert _drain(JDecompressor(blob, JContainer.GZIP), 3000) == data
 
 
 def test_mid_member_set_reader():
@@ -255,15 +328,18 @@ def test_corrupt_stream_raises_as_jax():
 
 def test_step_resumes_at_byte_boundaries():
     """decode_step over the stream cut at byte k decodes a prefix of the
-    output and stops on a block boundary; the next step from there, with
-    the history it returned, decodes the rest.  Cuts every 67 bytes."""
+    output and stops at a block boundary or inside the block the cut
+    falls in; the next step from there, with the history and the carry it
+    returned, decodes the rest.  Cuts every 67 bytes."""
     data = corpus("mixed", 6000, seed=27)
     raw = small_blocks(data, -15)
     kw = dict(chunk_bytes=512, device="cpu")
     for k in range(1, len(raw) + 1, 67):
-        out, stop, done, hist = ai.decode_step(raw[:k], 0, b"",
-                                               final_input=False, **kw)
+        out, stop, done, hist, carry = ai.decode_step(
+            raw[:k], 0, b"", final_input=False, **kw)
+        out = b"".join(out)
         assert data.startswith(out) and not done
-        rest, _, done, _ = ai.decode_step(raw[stop >> 3:], stop & 7, hist,
-                                          final_input=True, **kw)
-        assert out + rest == data and done
+        rest, _, done, _, _ = ai.decode_step(
+            raw[stop >> 3:], stop & 7, hist, final_input=True, carry=carry,
+            **kw)
+        assert out + b"".join(rest) == data and done

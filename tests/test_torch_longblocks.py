@@ -240,23 +240,130 @@ def test_invalid_code_in_a_continuation_row():
     assert i2.STATS["continuation_rows"] == 1
 
 
-@pytest.mark.parametrize("name", ["huffman_zlib", "jax_l1_one_block"])
-def test_decompressor_window_smaller_than_the_block(monkeypatch, name):
-    """The streaming decompressor at a 32 KiB window: the step that meets
-    the long block stops at its header until the window has grown to hold
-    the whole block, which then decodes in continuation rows."""
-    monkeypatch.setattr(Decompressor, "WINDOW", 1 << 15)
-    monkeypatch.setattr(Decompressor, "FETCH", 1 << 14)
-    monkeypatch.setattr(Decompressor, "TRIM", 1 << 16)
+WINDOW, FETCH, TRIM = 1 << 15, 1 << 14, 1 << 16
+
+
+@pytest.fixture
+def small_window(monkeypatch):
+    """Decompressor windows of 32 KiB, less than every long block."""
+    monkeypatch.setattr(Decompressor, "WINDOW", WINDOW)
+    monkeypatch.setattr(Decompressor, "FETCH", FETCH)
+    monkeypatch.setattr(Decompressor, "TRIM", TRIM)
+
+
+def _served(d, n: int = 50_000):
+    """What d.read(n) serves until the end or an error: (bytes, the
+    error's class name or None)."""
+    got = bytearray()
+    try:
+        while chunk := d.read(n):
+            got += chunk
+    except (ft.errors.FlateError, errors.FlateError) as e:
+        return bytes(got), type(e).__name__
+    return bytes(got), None
+
+
+def _jax_decompressor(container: str, blob: bytes):
+    return getattr(ft, "flate" if container == "RAW"
+                   else container.lower()).decompressor(io.BytesIO(blob))
+
+
+@pytest.mark.parametrize("name", ["jax_l1_one_block", "jax_l6_one_block",
+                                  "huffman_zlib", "huffman_gzip",
+                                  "raw_two_long_blocks"])
+def test_decompressor_window_smaller_than_the_block(small_window, name):
+    """The streaming decompressor at a 32 KiB window, less than each long
+    block: a step decodes the block up to the window's end and hands it on,
+    the next step goes on inside it, so the window never grows and input
+    memory stays at TRIM + WINDOW + FETCH."""
     container, blob, data = _streams()[name]
     i2.STATS.clear()
     d = _port(container).decompressor(io.BytesIO(blob), device="cpu")
-    got = bytearray()
-    while chunk := d.read(50_000):
-        got += chunk
-    assert bytes(got) == data and d.at_end()
-    assert d.stats["window_grows"] >= 3
+    got, err = _served(d)
+    assert err is None and got == data and d.at_end()
+    assert d.stats["input_peak"] <= TRIM + WINDOW + FETCH
+    assert d.stats["steps"] >= len(blob) // WINDOW
     assert i2.STATS["continuation_rows"] >= 2
+    assert _served(_jax_decompressor(container, blob)) == (data, None)
+
+
+def _broken_streams() -> dict:
+    """The Huffman zlib stream (one 164,292-byte block) with one bit
+    flipped in its second and in its last 32 KiB window, and cut inside
+    its third."""
+    _, blob, _ = _streams()["huffman_zlib"]
+    out = {}
+    for name, at in (("flip_in_window_2", 2 + WINDOW + WINDOW // 2),
+                     ("flip_in_last_window", len(blob) - 3000)):
+        b = bytearray(blob)
+        b[at] ^= 0x08
+        out[name] = (bytes(b), at)
+    out["cut_in_window_3"] = (blob[:2 + 2 * WINDOW + 5000], None)
+    return out
+
+
+@pytest.mark.parametrize("case", ["flip_in_window_2", "flip_in_last_window",
+                                  "cut_in_window_3"])
+def test_broken_long_block_streams_as_jax(small_window, case):
+    """A broken long block read at a window smaller than it: the verdict of
+    the JAX Decompressor and of ft.zlib.decompress, and the JAX
+    Decompressor's bytes served before it.  A cut stream raises
+    EndOfStream having served a prefix of the input.  A flipped bit in a
+    Huffman-only block decodes on (the code resynchronises) to the
+    checksum's verdict: the bytes served before it equal the input up to
+    the output of the bits before the flipped byte, as the JAX
+    Decompressor's do."""
+    _, _, data = _streams()["huffman_zlib"]
+    bad, at = _broken_streams()[case]
+    with pytest.raises(ft.errors.FlateError) as want:
+        ft.zlib.decompress(bad)
+    jgot, jerr = _served(_jax_decompressor("ZLIB", bad))
+    got, err = _served(ftt.zlib.decompressor(io.BytesIO(bad), device="cpu"))
+    assert err == jerr == type(want.value).__name__
+    if at is None:
+        assert err == "EndOfStream"
+        assert data.startswith(got) and data.startswith(jgot)
+    else:
+        before = len(zlib.decompressobj().decompress(bad[:at]))
+        assert got == jgot and got[:before] == data[:before]
+
+
+def _fixed_too_far_then_bad(n: int = 150_000, bad_at: int = 100_000):
+    """A raw fixed block: the literal "a", a match of length 3 at distance
+    2 (before the start of the stream), `n` literals of text with the
+    invalid length code 286 in place of literal `bad_at`, and the
+    end-of-block: a match too far back in its first 32 KiB window and an
+    invalid code in its fourth."""
+    lits = np.frombuffer(text_corpus(n), np.uint8).astype(np.int64)
+    codes = np.where(lits < 144, 0x30 + lits, 0x190 + lits - 144)
+    widths = np.where(lits < 144, 8, 9)
+    codes = np.array([_rev(int(c), int(w)) for c, w in zip(codes, widths)])
+    codes[bad_at], widths[bad_at] = _rev(0xC6, 8), 8     # symbol 286
+    values = np.concatenate([[1, 1, _rev(0x91, 8), _rev(1, 7), _rev(1, 5)],
+                             codes, [0]]).astype(np.uint64)
+    nbits = np.concatenate([[1, 2, 8, 7, 5], widths, [7]]).astype(np.int64)
+    sink = BitSink()
+    sink.append_fields(values, nbits)
+    return sink.getvalue()
+
+
+def test_too_far_then_invalid_code_across_windows(small_window):
+    """A match that reaches before the stream's start in the first window
+    of a long block, an invalid code in a later one: InvalidMatch, the
+    first error in stream order, one-shot and streamed, as the JAX
+    package's public decode and Decompressor give it; nothing is served
+    before it."""
+    raw = _fixed_too_far_then_bad()
+    with pytest.raises(ft.errors.FlateError) as want:
+        ft.flate.decompress(raw)
+    jgot, jerr = _served(_jax_decompressor("RAW", raw))
+    with pytest.raises(errors.FlateError) as one:
+        ftt.flate.decompress(raw, device="cpu")
+    got, err = _served(ftt.flate.decompressor(io.BytesIO(raw),
+                                              device="cpu"))
+    assert err == jerr == type(want.value).__name__ \
+        == type(one.value).__name__ == "InvalidMatch"
+    assert got == b""
 
 
 def test_cut_stops_at_whole_symbols():
