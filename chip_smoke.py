@@ -71,7 +71,8 @@ Phases, one line each:
      between card and CPU (any raises); every PROD_PINNED case (levels 1-9
      at 128 KiB shards with 32 KiB context: one full shard and a tail of
      the mixed corpus, ZLIB and RAW at 1, 6, 9, text at 6 and 9, two full
-     shards in one batch, and the headline's first 8 MiB batch) encoded
+     shards in one batch, the headline's first 8 MiB batch and its whole
+     32 MiB at level 6) encoded
      staged, fused and through api.<ns>.compress, each sha256 equal to the
      JAX package's pin (any other raises), a line a case with its bytes
      and sha256 prefix; the squeeze's rounded code lengths
@@ -164,7 +165,9 @@ Phases, one line each:
      each must equal its input with at least as many continuation rows as
      its block needs past its first row, and a peak input of at most
      TRIM + window + FETCH (7,340,032 bytes at 2 MiB): the block is
-     carried from window to window, the window does not grow.
+     carried from window to window, the window does not grow; and a peak
+     of output held unserved of at most OUT_CAP + the read's size
+     (stream_read).
  15. the round-1 encoder (device/pipeline.compress_device, the JAX
      package's jx/pipeline) at its defaults (shard_len 128 KiB, ctx 32
      KiB, batch 8) at levels 1, 6 and 9 on 8 MiB + 12,345 bytes of the
@@ -199,8 +202,9 @@ Phases, one line each:
      S1, B6 and B7 must launch on the foreign stream; seconds and GB/s
      beside the one-shot's of phases 13 and 8, steps, chain heads and
      rounds a step, false heads, peak input (at most TRIM + window +
-     FETCH at every window read, or the phase fails) and output buffer
-     bytes; phase 8's 8 MiB member followed by a foreign gzip
+     FETCH at every window read, or the phase fails) and peak output
+     held unserved (at most OUT_CAP + the read's size, or the phase
+     fails); phase 8's 8 MiB member followed by a foreign gzip
      member, whose routes (metrics records) must be indexed then chained;
      phase 10's FDICT member and zlib.compressobj(zdict=32 KiB) over 8 MiB
      decoded with dictionary= (one-shot and streamed); the two streams of
@@ -208,14 +212,18 @@ Phases, one line each:
      round trips of 8 MiB; roundtrip_cli and decompress_cli in this
      process (exit codes 0, 0, 1, 1); metrics.summary().  Last, the JAX
      package's reader -> writer memory bounds (memory_child, each in a
-     process of its own: `python3 chip_smoke.py --memory encode|decode`):
-     64 MiB of text through gzip.compress(ChunkReader(.., 1 << 17),
-     writer=, level=1) after one 8 MiB batch, and zlib.compress(64 MiB, 1)
-     through zlib.decompress(ChunkReader(..), writer=) after a 16 MiB
-     stream of the same text; the bytes must come out right, the host's
+     process of its own: `python3 chip_smoke.py --memory
+     encode|decode|zeros`): 64 MiB of text through
+     gzip.compress(ChunkReader(.., 1 << 17), writer=, level=1) after one
+     8 MiB batch, zlib.compress(64 MiB, 1) through
+     zlib.decompress(ChunkReader(..), writer=) after a 16 MiB stream of
+     the same text, and zlib.compress(64 MiB of zeros, 6) the same way
+     after the same warm-up (a ratio of 1,000: the output a step decodes
+     is resolved a batch of OUT_CAP at a time); the bytes must come out
+     right, the host's
      ru_maxrss grow less than 24 MiB over the run, and the run's
      torch.cuda.max_memory_allocated be at most the warm-up's + WINDOW;
-     prints both, seconds and GB/s.
+     prints the three, seconds and GB/s.
  17. malformed streams, through api.<ns>.decompress and
      api.<ns>.decompressor(io.BytesIO(...)).read_all() on the card: the
      reference's 40-stream corpus (tests/data/fuzz) against FUZZ_CASES,
@@ -283,7 +291,8 @@ JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
 # flate_tpu.jx.pipeline2.compress_device2(interpret=True) on
 # prod_input(input) (index on for gzip).  One full shard and a tail in
 # batches of 1 carry the context from batch 1 to batch 2; "mixed2" puts two
-# full shards in one batch; "mixed8M" is the headline's first batch.  Phase
+# full shards in one batch; "mixed8M" is the headline's first batch and
+# "mixed32M" the headline's whole 32 MiB at level 6 (4 batches).  Phase
 # 8 encodes each on the card; tests/test_torch_prodshape.py holds the
 # port's CPU bytes to them and recomputes them with the JAX package (slow).
 PROD_TAIL = 12_345
@@ -326,6 +335,8 @@ PROD_PINNED = {
         "06db386c63021a874e08b5b9fb91d13d76b4edb410ff0eff5fb8d73e0d51decc",
     (6, S, CTX, 64, "GZIP", "mixed8M"):
         "b37c793cf797673ffe675a800815962fadb3762590cb0b9e7be46a2503668296",
+    (6, S, CTX, 64, "GZIP", "mixed32M"):
+        "b09af66f1a0015e7137c713ef2a702e2d989a26f2abe49fbebb0b7b617181ea9",
 }
 
 
@@ -371,10 +382,11 @@ def mixed_corpus(size: int) -> bytes:
 def prod_input(name: str) -> bytes:
     """A PROD_PINNED case's input: bench.py's mixed or text corpus cut to
     one full shard and PROD_TAIL bytes ("mixed", "text"), the mixed corpus
-    cut to two full shards and the tail ("mixed2") or to the first 8 MiB
-    batch ("mixed8M")."""
+    cut to two full shards and the tail ("mixed2"), to the first 8 MiB
+    batch ("mixed8M") or to the headline's 32 MiB ("mixed32M")."""
     n = {"mixed": S + PROD_TAIL, "text": S + PROD_TAIL,
-         "mixed2": 2 * S + PROD_TAIL, "mixed8M": B * S}[name]
+         "mixed2": 2 * S + PROD_TAIL, "mixed8M": B * S,
+         "mixed32M": 4 * B * S}[name]
     return (text_corpus if name == "text" else mixed_corpus)(n)
 
 
@@ -1356,7 +1368,7 @@ def main() -> int:
                                      f"lengths differ between card and CPU")
         print(line, flush=True)
 
-    prod_pins(api, pipeline2, graphs, Container, dev, data8)
+    prod_pins(api, pipeline2, graphs, Container, dev, data32)
 
     # the squeeze's rounded code lengths near every step, card against CPU
     ph, pt = length_step_pairs()
@@ -1904,14 +1916,15 @@ def main() -> int:
     return 0
 
 
-def prod_pins(api, pipeline2, graphs, Container, dev, data8) -> None:
+def prod_pins(api, pipeline2, graphs, Container, dev, data32) -> None:
     """Phase 8: every PROD_PINNED case encoded on the card staged, fused
     and through api.<ns>.compress; each sha256 must be the JAX package's
     pin and the member must decode with zlib."""
     t = time.time()
     for case, pin in PROD_PINNED.items():
         L, shard_len, ctx, batch, container, name = case
-        data = data8 if name == "mixed8M" else prod_input(name)
+        data = {"mixed8M": data32[:B * S], "mixed32M": data32}.get(name) \
+            or prod_input(name)
         kw = dict(shard_len=shard_len, ctx=ctx, batch=batch)
         ns = getattr(api, {"RAW": "flate", "ZLIB": "zlib",
                            "GZIP": "gzip"}[container])
@@ -2014,8 +2027,10 @@ def phase14_long(api, _build, inflate2, anyinflate) -> None:
                   f"least {rows - 1}), rounds "
                   f"{sstats.get('chained_rounds')}, peak input "
                   f"{dstats.get('input_peak')} B (bound TRIM + WINDOW + "
-                  f"FETCH = {bound}), peak output buffer "
-                  f"{dstats.get('output_peak')} B, launches {scounts}",
+                  f"FETCH = {bound}), peak output held "
+                  f"{dstats.get('output_peak')} B (bound OUT_CAP + read = "
+                  f"{api.Decompressor.OUT_CAP + (1 << 20) + 17}), launches "
+                  f"{scounts}",
                   flush=True)
 
 
@@ -2239,7 +2254,9 @@ def stream_read(api, _build, inflate2, container: str, blob: bytes,
     """blob through api.<container>.decompressor(io.BytesIO(blob)) at a
     decode window of `window` bytes, read `piece` bytes at a time; launch
     counters and decode stats set to 0 just before, read just after.
-    Returns (output, seconds, Decompressor.stats, launches, stats)."""
+    Raises past the input bound (TRIM + WINDOW + FETCH) or the output
+    bound (OUT_CAP + piece).  Returns (output, seconds,
+    Decompressor.stats, launches, stats)."""
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     inflate2.STATS.clear()
@@ -2256,6 +2273,11 @@ def stream_read(api, _build, inflate2, container: str, blob: bytes,
         raise AssertionError(f"{container}.decompressor at a {window}-byte "
                              f"window: peak input {d.stats['input_peak']} "
                              f"bytes > TRIM + WINDOW + FETCH = {bound}")
+    if d.stats["output_peak"] > d.OUT_CAP + piece:
+        raise AssertionError(f"{container}.decompressor at a {window}-byte "
+                             f"window: peak output held "
+                             f"{d.stats['output_peak']} bytes > OUT_CAP + "
+                             f"read = {d.OUT_CAP + piece}")
     return (b"".join(parts), secs, dict(d.stats), dict(_build.LAUNCHES),
             dict(inflate2.STATS))
 
@@ -2303,8 +2325,10 @@ def reader_writer_memory(kind: str, size: int = 64 << 20) -> dict:
     bytes of the text corpus through
     api.gzip.compress(ChunkReader(data, 1 << 17), writer=, level=1)
     ("encode") or api.zlib.decompress(ChunkReader(zlib.compress(data, 1),
-    1 << 17), writer=) ("decode"), each after a warm-up through the same
-    call (one full 8 MiB batch; a 16 MiB stream of the same text).
+    1 << 17), writer=) ("decode"), or `size` zero bytes through
+    api.zlib.decompress(ChunkReader(zlib.compress(zeros, 6), 1 << 17),
+    writer=) ("zeros"), each after a warm-up through the same call (one
+    full 8 MiB batch; a 16 MiB stream of the text).
     Returns the host's ru_maxrss growth over the run (KiB), the device's
     max_memory_allocated over the warm-up and over the run (peaks reset
     before each), seconds and GB/s of input (encode) or output (decode),
@@ -2313,11 +2337,13 @@ def reader_writer_memory(kind: str, size: int = 64 << 20) -> dict:
     import resource
     sys.path.insert(0, HERE)
     from flate_tpu_torch import api
-    data = text_corpus(size)
+    data = text_corpus(16 << 20 if kind == "zeros" else size)
     # what each call must give: (bytes, CRC-32), taken before any RSS is
     # read and without a copy of the input
     wants = [(n, zlib.crc32(memoryview(data)[:n])) for n in (
         B * S if kind == "encode" else 16 << 20, size)]
+    if kind == "zeros":
+        wants[1] = (size, zlib.crc32(bytes(size)))
     if kind == "encode":
         inputs = (data[:B * S], data)
 
@@ -2326,7 +2352,9 @@ def reader_writer_memory(kind: str, size: int = 64 << 20) -> dict:
             api.gzip.compress(ChunkReader(x, 1 << 17), writer=w, level=1)
             return w
     else:
-        inputs = (zlib.compress(data[:16 << 20], 1), zlib.compress(data, 1))
+        inputs = (zlib.compress(data[:16 << 20], 1),
+                  zlib.compress(bytes(size), 6) if kind == "zeros"
+                  else zlib.compress(data, 1))
 
         def run(x):
             w = CheckWriter()
@@ -2432,8 +2460,9 @@ def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
                   f"{stats.get('chained_rounds', 0) / steps:.2f}, false "
                   f"heads {stats.get('false_heads', 0)}; peak input "
                   f"{dstats['input_peak']} bytes (bound TRIM + WINDOW + "
-                  f"FETCH = {bound}), peak output buffer "
-                  f"{dstats['output_peak']} bytes; launches S1 "
+                  f"FETCH = {bound}), peak output held "
+                  f"{dstats['output_peak']} bytes (bound OUT_CAP + read = "
+                  f"{api.Decompressor.OUT_CAP + (1 << 20) + 17}); launches S1 "
                   f"{counts.get('flate_scan_headers', 0)}, B6 "
                   f"{counts.get('flate_lane_walk', 0)}, B7 "
                   f"{counts.get('flate_walk', 0)} ({counts}); stats {stats}",
@@ -2522,11 +2551,12 @@ def phase16(api, _build, inflate2, data32, foreign, foreign_secs, member6,
     metrics.disable()
     metrics.reset()
 
-    for kind in ("encode", "decode"):
+    for kind in ("encode", "decode", "zeros"):
         r = memory_child(kind)
         what = ("gzip.compress(ChunkReader(64 MiB text, 1 << 17), writer=, "
                 "level=1)" if kind == "encode" else
-                f"zlib.decompress(ChunkReader(zlib.compress(64 MiB text, 1) "
+                f"zlib.decompress(ChunkReader(zlib.compress(64 MiB "
+                f"{'text, 1' if kind == 'decode' else 'of zeros, 6'}) "
                 f"= {r['stream']} B, 1 << 17), writer=)")
         warm = "one 8 MiB batch" if kind == "encode" else \
             "the 16 MiB stream"

@@ -229,19 +229,29 @@ class Decompressor:
     its input at O(TRIM).  Only at the end of the input does a block that
     runs off it raise its error (EndOfStream for a block cut short).
 
-    Output is not bounded the same way: a step resolves its window's
-    blocks until it holds OUT_CAP bytes at a block's end, so it holds at
-    most OUT_CAP bytes plus one block's output in the window (where the
-    JAX package's native stream holds O(64 KiB)).  Payload is served from
-    the steps' output parts and checksummed as it is served; the footer
-    is checked on the read after the last payload byte.  reset() goes on
-    with the next concatenated member."""
+    Output is bounded too: a step decodes its window's chain on the
+    device and leaves its symbols unresolved there (at most CHAIN_CAP
+    bytes of output at a block's end); read(n) resolves them in stream
+    order one batch of at most OUT_CAP bytes at a time, only while it
+    holds fewer than n bytes, and the next step starts once the chain is
+    drained.  So the decoder holds at most OUT_CAP bytes of output that
+    it has not served plus the n bytes a read asks for (decompress(writer)
+    OUT_CAP + CHUNK), whatever the member's size and ratio, as the JAX
+    package's native stream holds O(64 KiB); `stats["output_peak"]` is
+    the most it held.  A match that reaches before the history raises
+    when its batch is resolved, after the bytes before it were served.
+    Payload is checksummed as it is served; the footer is checked on the
+    read after the last payload byte.  reset() goes on with the next
+    concatenated member."""
 
     CHUNK = 1 << 16              # decompress(writer)'s read size
     FETCH = 1 << 20              # reader pull granularity
     TRIM = 1 << 22               # drop the consumed prefix beyond this
     WINDOW = 8 << 20             # compressed bytes a decode step covers
-    OUT_CAP = 64 << 20           # output bytes a step resolves at most
+    OUT_CAP = anyinflate.MAX_S   # resolved output held unserved at most
+    # output bytes a step's chain decodes at most: bounds the symbol words
+    # it holds on the device for a window of a high ratio
+    CHAIN_CAP = 64 << 20
 
     def __init__(self, reader, container: Container = Container.RAW,
                  verify: bool = True, dictionary: Optional[bytes] = None, *,
@@ -354,24 +364,43 @@ class Decompressor:
         kw = dict(carry=m.carry, entries=entries, device=self._dev,
                   chunk_bytes=max(-(-len(win) // chains),
                                   min(full, anyinflate.SPAN0)),
-                  out_cap=self.OUT_CAP)
-        out, stop, done, hist, carry = anyinflate.decode_step(
+                  chain_cap=self.CHAIN_CAP, out_cap=self.OUT_CAP)
+        res, stop, done, carry = anyinflate.decode_step(
             win, start, m.hist, final_input=False, **kw)
         if stop == start and not done:
             if self._end() > hi or not self._eof:
                 raise ValueError(f"a block header does not fit the "
                                  f"{self.WINDOW}-byte window")
             # the input has ended inside a block: its own error
-            out, stop, done, hist, carry = anyinflate.decode_step(
+            res, stop, done, carry = anyinflate.decode_step(
                 win, start, m.hist, final_input=True, **kw)
         self.stats["steps"] += 1
         m.bit = 8 * (b0 - m.body) + stop
-        m.hist, m.carry, m.done = hist, carry, done
-        self._out.extend(out)
-        self._pending += sum(len(part) for part in out)
+        m.carry, m.done = carry, done
+        self._res = res
+        self._trim()
+
+    def _resolve(self) -> bool:
+        """Resolve the next batch of the step's chain into the output, the
+        member's next step first where the chain is drained (its history
+        is then the chain's last CTX bytes); False once the member's whole
+        output is resolved."""
+        m = self._m
+        while True:
+            if self._res is None:
+                if m.done:
+                    return False
+                self._step()
+            part = next(self._res, None)
+            if part is not None:
+                break
+            m.hist = self._res.hist
+            self._res = None
+        self._out.append(part)
+        self._pending += len(part)
         self.stats["output_peak"] = max(self.stats["output_peak"],
                                         self._pending)
-        self._trim()
+        return True
 
     def _finish_member(self) -> None:
         """Check the footer and move past it."""
@@ -398,9 +427,8 @@ class Decompressor:
             return b""
         if self._m is None:
             self._start_member()
-        m = self._m
-        while not m.done and (n < 0 or self._pending < n):
-            self._step()
+        while (n < 0 or self._pending < n) and self._resolve():
+            pass
         want = self._pending if n < 0 else min(n, self._pending)
         parts = []
         while want:
@@ -419,7 +447,8 @@ class Decompressor:
             self._hasher.update(chunk)
         else:
             self._hasher.nbytes += len(chunk)
-        if m.done and not self._pending and (n < 0 or not chunk):
+        if self._m.done and self._res is None and not self._pending \
+                and (n < 0 or not chunk):
             self._finish_member()
         return chunk
 
@@ -440,6 +469,9 @@ class Decompressor:
         self._out: collections.deque = collections.deque()
         self._out_pos = 0
         self._pending = 0
+        # the resolve of the last step's chain (anyinflate.Resolve) until
+        # it is drained
+        self._res = None
 
     def at_end(self) -> bool:
         """Whether no input follows the last finished member."""

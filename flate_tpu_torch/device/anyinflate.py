@@ -35,7 +35,10 @@ Counterpart of flate_tpu/jx/anyinflate.py:
    window's last byte), and the step hands the block on (a carry: its
    decode tables, or the rest of its stored length), so the next step
    starts inside it.  A step's input is the window, whatever the blocks'
-   lengths (api.Decompressor).
+   lengths (api.Decompressor).  Its resolve is lazy (Resolve): the
+   chain's symbols wait on the device and are resolved a batch of at most
+   `out_cap` output bytes at a time, as the reader takes them, so the
+   output a step holds is one batch, whatever the member's ratio.
 
 Correctness never depends on speculation: join failures re-decode the
 row with the exact serial walk; a block's first span escalates from SPAN0
@@ -329,24 +332,26 @@ def resolve_compact(words, counts, out_lens, ctx0, *, S: int,
     return out.to(torch.uint8), err
 
 
-def _pieces(words: torch.Tensor, out_len: int) -> list:
+def _pieces(words: torch.Tensor, out_len: int, cap: int | None = None
+            ) -> list:
     """One block's symbols (words (counts,), the end-of-block last) as
-    resolve rows (words, counts, out_len) of at most MAX_S output bytes
-    each, cut at symbol boundaries: the symbols that start in each
-    MAX_S - 257 bytes of the block's output, so a row holds at most
-    MAX_S - 258 + 258 bytes.  A row that does not end at the block's end
-    gets an end-of-block word of its own (symbol_fields wants one at
+    resolve rows (words, counts, out_len) of at most `cap` (default
+    MAX_S) output bytes each, cut at symbol boundaries: the symbols that
+    start in each cap - 257 bytes of the block's output, so a row holds at
+    most cap - 258 + 258 bytes.  A row that does not end at the block's
+    end gets an end-of-block word of its own (symbol_fields wants one at
     counts - 1).  A match of a later row reaches back into the earlier
     rows of its batch or into the context carried from the batch
     before, like a match across blocks."""
+    cap = MAX_S if cap is None else cap
     n = words.shape[0]
-    if out_len <= MAX_S:
+    if out_len <= cap:
         return [(words, n, out_len)]
     kind = (words >> 6) & 3
     olen = torch.where(kind == i2.K_MATCH, ((words >> 8) & 0xFF) + 3,
                        (kind == i2.K_LIT).to(torch.int32))
     starts = torch.cumsum(olen, dim=0) - olen
-    targets = torch.arange(MAX_S - 257, out_len, MAX_S - 257,
+    targets = torch.arange(cap - 257, out_len, cap - 257,
                            dtype=starts.dtype, device=words.device)
     cuts = torch.searchsorted(starts, targets)
     cut_np, at_np = torch.stack([cuts, starts[cuts]]).cpu().numpy()
@@ -541,7 +546,8 @@ def _decompress_member_any(data: bytes, offset: int,
     chain, end_bit, _done, _ = _chain(body, entries, 0, dev,
                                       hist_len=len(hist))
     out = bytearray()
-    _resolve_chain(chain, body, hist, dev, out.extend)
+    for part in Resolve(chain, body, hist, dev):
+        out += part
 
     foot_off = offset + hdr_len + ((end_bit + 7) // 8)
     hasher = Hasher(container)
@@ -558,7 +564,8 @@ def _decompress_member_any(data: bytes, offset: int,
 def decode_step(window: bytes, start: int, hist: bytes, *,
                 final_input: bool, carry: BlockPlan | None = None,
                 entries: list | None = None,
-                chunk_bytes: int = CHUNK_BYTES, out_cap: int | None = None,
+                chunk_bytes: int = CHUNK_BYTES, chain_cap: int | None = None,
+                out_cap: int | None = None,
                 device: str | torch.device = "cuda"):
     """One step of a streaming decode: the blocks of `window` from its
     bit `start`, with `hist` the history before it (at most CTX bytes, all
@@ -568,33 +575,32 @@ def decode_step(window: bytes, start: int, hist: bytes, *,
 
     Chains run from `start` and from `entries` (bit positions in the
     window; None: the scanner's entry in each `chunk_bytes` of it).  The
-    step stops at the final block, once the chain holds `out_cap` bytes of
-    output at a block's end, or (final_input=False: more input can still
-    come) where the window ends: inside a coded block at the end of its
-    last whole symbol in the window, inside a stored block at the window's
-    last byte, or at a block header that does not fit the window.  So a
-    step reads the window and no more, however long its blocks.  With
+    step stops at the final block, once the chain holds `chain_cap` bytes
+    of output at a block's end (a bound on the symbol words it holds on
+    the device), or (final_input=False: more input can still come) where
+    the window ends: inside a coded block at the end of its last whole
+    symbol in the window, inside a stored block at the window's last
+    byte, or at a block header that does not fit the window.  So a step
+    reads the window and no more, however long its blocks.  With
     final_input=True a block that runs off the end raises its error.
 
-    Returns (output, stop bit in the window, whether the final block was
-    decoded, history after the step, carry): carry is None at a block
-    boundary, else the block that goes on at `stop` (its decode tables, or
-    the rest of its stored payload) in the bits of the window that starts
-    at byte stop >> 3 of this one, to pass to the next step.  The output
-    is the step's bytes as a list of bytes-like parts in stream order, as
-    the resolve gives them: no buffer of the whole step's output is made
-    (b"".join makes one)."""
+    The chain is decoded here, its symbols left unresolved on the device.
+    Returns (resolve, stop bit in the window, whether the final block was
+    decoded, carry): `resolve` gives the step's output in stream order, a
+    batch of at most `out_cap` bytes at a time (Resolve), and its `hist`
+    is the history after the step once it is drained; carry is None at a
+    block boundary, else the block that goes on at `stop` (its decode
+    tables, or the rest of its stored payload) in the bits of the window
+    that starts at byte stop >> 3 of this one, to pass to the next step."""
     dev = resolve_device(device)
     if entries is None:
         entries = scan.chunk_entries(window, chunk_bytes, device=dev)
     chain, stop, done, carry = _chain(
         window, entries, start, dev, hist_len=len(hist),
-        final_input=final_input, out_cap=out_cap, carry=carry)
-    parts: list = []
-    hist = _resolve_chain(chain, window, hist, dev, parts.append)
+        final_input=final_input, out_cap=chain_cap, carry=carry)
     if carry is not None:
         carry = moved(carry, 8 * (stop >> 3))
-    return parts, stop, done, hist, carry
+    return Resolve(chain, window, hist, dev, out_cap), stop, done, carry
 
 
 def _bit(key) -> int:
@@ -832,19 +838,41 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
     return chain, stop, done, carried
 
 
-def _resolve_chain(chain: list, body: bytes, hist: bytes,
-                   dev: torch.device, emit) -> bytes:
-    """Resolve the chain's rows in stream order, RES_B rows a batch with
-    the last CTX bytes of output as the next batch's context.  `hist` is
-    the history before the chain, every byte of it real: a match that
-    reaches before it raises InvalidMatch.  A row that does not end its
-    block gets an end-of-block word of its own, as _pieces gives one.
-    Passes each resolved span to emit (a bytes-like object) and returns
-    the history after the chain."""
-    rows: list = []
+class Resolve:
+    """The LZ resolution of a decoded chain's rows in stream order, an
+    iterator of bytes-like parts: a batch of at most RES_B rows resolved
+    at a time, with the last CTX bytes of output as the next batch's
+    context.  `hist` is the history before the chain, every byte of it
+    real: a match that reaches before it raises InvalidMatch when its
+    batch is resolved, after the parts before it.  A row that does not
+    end its block gets an end-of-block word of its own, as _pieces gives
+    one.  A stored row is a slice of `body`.
 
-    def flush():
-        nonlocal hist
+    With `out_cap` (more than a match's 258 bytes) no part holds more
+    than out_cap bytes: rows are cut into pieces of at most
+    min(MAX_S, out_cap) bytes, a batch ends before the piece that would
+    take it past out_cap, and a stored row is given in slices of at most
+    out_cap.  Without it a batch is RES_B pieces of at most MAX_S bytes.
+    A batch is resolved only when the part before it has been taken, so
+    the output held is one part.  `hist` is the history after the parts
+    taken so far: once drained, the history after the chain."""
+
+    def __init__(self, chain: list, body: bytes, hist: bytes,
+                 dev: torch.device, out_cap: int | None = None):
+        if out_cap is not None and out_cap <= consts.MAX_MATCH_LEN:
+            raise ValueError(f"out_cap {out_cap} does not hold a match")
+        self.hist = hist
+        self._dev = dev
+        self._parts = self._run(chain, body, out_cap)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._parts)
+
+    def _flush(self, rows: list) -> memoryview:
+        dev = self._dev
         S = _bucket(max(max(ol for _, _, ol in rows), 1024), 1024)
         NSr = max(c for _, c, _ in rows)
         w = torch.stack([torch.nn.functional.pad(wr, (0, NSr - c))
@@ -854,36 +882,42 @@ def _resolve_chain(chain: list, body: bytes, hist: bytes,
         out_lens = torch.tensor([ol for _, _, ol in rows],
                                 dtype=torch.int32, device=dev)
         ctx0 = np.zeros(CTX, np.uint8)
-        if hist:
-            ctx0[CTX - len(hist):] = np.frombuffer(hist, np.uint8)
+        if self.hist:
+            ctx0[CTX - len(self.hist):] = np.frombuffer(self.hist, np.uint8)
         flat, err = resolve_compact(w, counts, out_lens,
                                     torch.from_numpy(ctx0).to(dev), S=S,
-                                    hist_len=len(hist))
+                                    hist_len=len(self.hist))
         if bool(err.any()):
             raise InvalidMatch("a match reaches before the start of the "
                                "history")
         total = sum(ol for _, _, ol in rows)
         r = flat[:total].cpu().numpy()
-        emit(memoryview(r))
-        hist = (hist + r[-CTX:].tobytes())[-CTX:]
+        self.hist = (self.hist + r[-CTX:].tobytes())[-CTX:]
         rows.clear()
+        return memoryview(r)
 
-    for r in chain:
-        if r["stored"]:
-            if rows:
-                flush()
-            p = r["plan"]
-            s = body[p.stored_off:p.stored_off + r["out_len"]]
-            emit(s)
-            hist = (hist + s[-CTX:])[-CTX:]
-            continue
-        w = r["words"][r["row"], :r["counts"]]
-        if not r["last"]:
-            w = torch.nn.functional.pad(w, (0, 1), value=_EOB_WORD)
-        for piece in _pieces(w, r["out_len"]):
-            rows.append(piece)
-            if len(rows) >= RES_B:
-                flush()
-    if rows:
-        flush()
-    return hist
+    def _run(self, chain: list, body: bytes, out_cap: int | None):
+        cap = MAX_S if out_cap is None else min(MAX_S, out_cap)
+        rows: list = []
+        for r in chain:
+            if r["stored"]:
+                if rows:
+                    yield self._flush(rows)
+                p = r["plan"]
+                s = body[p.stored_off:p.stored_off + r["out_len"]]
+                step = out_cap or max(len(s), 1)
+                for a in range(0, len(s), step):
+                    part = s[a:a + step]
+                    self.hist = (self.hist + part[-CTX:])[-CTX:]
+                    yield part
+                continue
+            w = r["words"][r["row"], :r["counts"]]
+            if not r["last"]:
+                w = torch.nn.functional.pad(w, (0, 1), value=_EOB_WORD)
+            for piece in _pieces(w, r["out_len"], cap):
+                if len(rows) == RES_B or out_cap is not None and rows and \
+                        sum(ol for _, _, ol in rows) + piece[2] > out_cap:
+                    yield self._flush(rows)
+                rows.append(piece)
+        if rows:
+            yield self._flush(rows)

@@ -1121,11 +1121,12 @@ def test_decompressor_carries_long_blocks_cuda(cuda, monkeypatch, name):
     assert d.stats["input_peak"] <= Small.TRIM + Small.WINDOW + Small.FETCH
 
 
-@pytest.mark.parametrize("kind", ["encode", "decode"])
+@pytest.mark.parametrize("kind", ["encode", "decode", "zeros"])
 def test_reader_writer_memory_bounded(cuda, kind):
     """The JAX package's reader -> writer memory bounds on the card
-    (tests/test_streaming_io.py, 64 MiB of text through a pipe-like
-    reader), each in a process of its own (chip_smoke.py memory_child):
+    (tests/test_streaming_io.py, 64 MiB of text, or of zeros decoded,
+    through a pipe-like reader), each in a process of its own
+    (chip_smoke.py memory_child):
     the bytes right, host ru_maxrss growth under 24 MiB, and the device's
     max_memory_allocated no more than over the warm-up (one 8 MiB batch;
     a 16 MiB stream) + WINDOW."""

@@ -154,13 +154,13 @@ def test_block_header_straddles_the_window(cut):
     assert ai.plan_block_at(raw, h).lens is not None    # dynamic
     end = (h + cut + 7) >> 3
     kw = dict(chunk_bytes=512, device="cpu")
-    out, stop, done, hist, carry = ai.decode_step(raw[:end], 0, b"",
-                                                  final_input=False, **kw)
-    out = b"".join(out)
+    res, stop, done, carry = ai.decode_step(raw[:end], 0, b"",
+                                            final_input=False, **kw)
+    out = b"".join(res)
     assert (stop, done, carry) == (h, False, None)
     assert data.startswith(out)
-    rest, _, done, _, _ = ai.decode_step(raw[h >> 3:], h & 7, hist,
-                                         final_input=True, **kw)
+    rest, _, done, _ = ai.decode_step(raw[h >> 3:], h & 7, res.hist,
+                                      final_input=True, **kw)
     assert out + b"".join(rest) == data and done
     d = Decompressor(ChunkReader(raw, 1 << 20), Container.RAW,
                      device="cpu")
@@ -335,11 +335,11 @@ def test_step_resumes_at_byte_boundaries():
     raw = small_blocks(data, -15)
     kw = dict(chunk_bytes=512, device="cpu")
     for k in range(1, len(raw) + 1, 67):
-        out, stop, done, hist, carry = ai.decode_step(
+        res, stop, done, carry = ai.decode_step(
             raw[:k], 0, b"", final_input=False, **kw)
-        out = b"".join(out)
+        out = b"".join(res)
         assert data.startswith(out) and not done
-        rest, _, done, _, _ = ai.decode_step(
-            raw[stop >> 3:], stop & 7, hist, final_input=True, carry=carry,
-            **kw)
+        rest, _, done, _ = ai.decode_step(
+            raw[stop >> 3:], stop & 7, res.hist, final_input=True,
+            carry=carry, **kw)
         assert out + b"".join(rest) == data and done

@@ -124,6 +124,18 @@ compare in one call.
 
     python3 tools/torch_kernel_probe.py --part scan,rounds [--tree DIR]
 
+The streaming decode, `--part stream` (not in the default parts): the
+Decompressor on chip_smoke.py phase 16's streams, zlib.compress(32 MiB
+mixed, 6) at windows of 8 and 2 MiB and the level-6 gzip member of the
+same 32 MiB (FLT1) at 8 MiB, read in (1 << 20) + 17-byte pieces, and
+zlib.compress(64 MiB of zeros, 6) through zlib.decompress(reader, writer=),
+each best of 3 on the host clock with the decoder's peak input and peak
+output held (`stats`, the last run's).  The same public calls in every
+tree that has the Decompressor, so a parent and a change compare in one
+call.
+
+    python3 tools/torch_kernel_probe.py --part stream [--tree DIR]
+
 The fused path, `--part fused` (not in the default parts): the level-1,
 -6 and -9 batch (64 x 128 KiB of the mixed corpus, as above) through
 pipeline2.encode_batch, one CUDA graph a batch: its capture and
@@ -901,6 +913,62 @@ def fused(reps: int) -> dict:
     return out
 
 
+def stream_part(reps: int) -> dict:
+    """The streaming Decompressor's seconds and peak memory on phase 16's
+    streams and on 64 MiB of zeros (best of 3)."""
+    import io
+    import zlib
+
+    from chip_smoke import ChunkReader, CheckWriter
+    data32 = mixed_corpus(4 * B * S)
+    foreign = zlib.compress(data32, 6)
+    member6 = api.gzip.compress(data32, level=6)
+    zeros = zlib.compress(bytes(64 << 20), 6)
+    zcrc = zlib.crc32(bytes(64 << 20))
+    window = api.Decompressor.WINDOW
+
+    def read(container, blob, w):
+        def run():
+            d = getattr(api, container).decompressor(io.BytesIO(blob))
+            d.WINDOW = w
+            n = 0
+            while chunk := d.read((1 << 20) + 17):
+                n += len(chunk)
+            if n != len(data32):
+                raise AssertionError(f"{container} stream: {n} bytes")
+            return d.stats
+        return run
+
+    def writer():
+        w = CheckWriter()
+        d = api.zlib.decompressor(ChunkReader(zeros, 1 << 17))
+        d.decompress(w)
+        if (w.n, w.crc) != (64 << 20, zcrc):
+            raise AssertionError("zeros: wrong bytes")
+        return d.stats
+
+    calls = {"foreign_8mib": read("zlib", foreign, window),
+             "foreign_2mib": read("zlib", foreign, window // 4),
+             "flt1_8mib": read("gzip", member6, window),
+             "zeros_64mib_writer": writer}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stats = fn()
+            best = min(best, time.perf_counter() - t)
+        out[f"stream_{name}_s"] = best
+        out[f"stream_{name}_output_peak"] = stats["output_peak"]
+        out[f"stream_{name}_input_peak"] = stats["input_peak"]
+        print(f"stream {name}: best of 3 {best:.4f} s, {stats['steps']} "
+              f"steps, peak input {stats['input_peak']} B, peak output "
+              f"held {stats['output_peak']} B", flush=True)
+    return out
+
+
 def main() -> int:
     global api, bitonic, encode2, header, inflate2, match2, pack, parse
     global pipeline2, runs
@@ -910,7 +978,7 @@ def main() -> int:
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
                          "lanes, prep, pack, compact, e2e, fused, scan, "
-                         "rounds")
+                         "rounds, stream")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -930,7 +998,8 @@ def main() -> int:
              "runs": small_runs, "lanes": lanes, "prep": prep,
              "pack": pack_part, "compact": compact_part, "e2e": e2e,
              "fused": fused,
-             "scan": scan_part, "rounds": rounds_part}
+             "scan": scan_part, "rounds": rounds_part,
+             "stream": stream_part}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
