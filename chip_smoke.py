@@ -22,8 +22,11 @@ Phases, one line each:
      mixed corpus at levels 1 and 3 with the launch counters reset just
      before each run and read just after; the output must decode with zlib,
      the 8 MiB mixed input must equal the port's own device="cpu" bytes,
-     and every kernel must have launched.  Size against zlib is printed
-     for the mixed corpus (32 and 8 MiB) and bench.py's text corpus;
+     and every kernel must have launched; the 32 MiB member and the text
+     corpus's (3,359,630 B, 26 shards in one batch) must equal the JAX
+     package's sha256 (ROUTE_PINNED mixed32M-l1/-l3, text-l1/-l3, a line
+     each).  Size against zlib is printed for the mixed corpus (32 and
+     8 MiB) and bench.py's text corpus;
   5. the decode kernels (B6 lane walk, B7 serial walk) against their plain
      PyTorch versions on the card at the decode's full width: 8 consecutive
      coded shards of 128 KiB of the text corpus as phase 4 encoded them at
@@ -64,7 +67,8 @@ Phases, one line each:
      by zlib and by the port's own gzip.decompress; levels 2, 4, 5, 7, 8, 9
      on 8 MiB; sizes against zlib at the same level (must be <= 1.0), with
      the text and 8 MiB mixed ratios at levels 6 and 9 beside the JAX
-     package's (BENCH_r05.json: sizes, a property of the bytes); CUDA
+     package's (BENCH_r05.json: sizes, a property of the bytes), the
+     text member's sha256 against ROUTE_PINNED text-l6 (and text-l9); CUDA
      bytes against the port's CPU bytes at levels 6 and 9 on 8 shards
      (any difference raises); at every squeeze level (2, 4-9) the count of
      greedy code lengths (ll_bits, d_bits) of the 8 MiB batch that differ
@@ -102,8 +106,11 @@ Phases, one line each:
      zlib, every level-6 kernel launched, and its seconds stand beside
      phase 8's one-shot level 6; api.zlib.compress(text x 4, dictionary=
      32 KiB of text) decodes with zlib's zdict and is smaller than without
-     it; a split DeviceEncoder at level 6 on 8 shards in batches of 8 gives
-     the same bytes on the card and the CPU.
+     it; the member, the bytes written by the flush and both zlib members
+     equal the JAX package's sha256 (ROUTE_PINNED stream32M-l6,
+     stream32M-l6-flushed, fdict-l6, nodict-l6); a split DeviceEncoder at
+     level 6 on 8 shards in batches of 8 gives the same bytes on the card
+     and the CPU.
  11. the fused path, compress_device2(fused=True): each batch replays one
      CUDA graph of encode_batch (captured on the first batch of a shape and
      level).  Level 6 on the 32 MiB mixed corpus (4 batches, 2 in flight)
@@ -176,8 +183,10 @@ Phases, one line each:
      (flate_extend), B9 (flate_parse_walk) and B5 (flate_pack) must each
      have launched;
      each member decodes with zlib and with the port's api.gzip.decompress
-     on the card; the CUDA bytes equal the port's device="cpu" bytes
-     (batch 2) on 2 shards + 12,345 bytes; rows 0-1 of batch 1 (row 0
+     on the card and equals the JAX package's sha256 (ROUTE_PINNED
+     round1-l1/-l6/-l9); the CUDA bytes equal the port's device="cpu"
+     bytes (batch 2) on 2 shards + 12,345 bytes and the JAX package's
+     (round1s-l1/-l6/-l9); rows 0-1 of batch 1 (row 0
      primed with 32 KiB of context) through find_matches_device,
      parse_walk, the token stages and pack_tokens on the card and on the
      CPU, equal integer for integer; seconds, GB/s, seconds a batch
@@ -191,7 +200,7 @@ Phases, one line each:
      their bounds; their launches are the level-6 run's.  Then
      parallel.pigz.compress_mesh on a one-rank NCCL group (FileStore
      under build/) on 2 MiB + 12,345 bytes at level 6 must equal
-     compress_device (batch 1).
+     compress_device (batch 1) and the JAX package's sha256 (pigz-l6).
  16. the rest of the decode API (no new kernel; S1, B6 and B7 run in every
      step): phase 13's foreign stream through zlib.decompressor(io.BytesIO
      (...)) read in (1 << 20) + 17-byte pieces at the Decompressor's
@@ -239,6 +248,14 @@ Phases, one line each:
      counters set to 0 just before and read just after: S1, B6 and B7
      must launch.  Prints the verdicts checked, mismatches (any raises),
      launches and seconds.
+The JAX pins (sha256 and length of the JAX package's bytes, computed on
+the CPU with its Pallas kernels in interpret mode; no JAX runs here):
+PROD_PINNED, the headline's shard shape at levels 1-9 through
+compress_device2 (phase 8, staged, fused and public), and ROUTE_PINNED,
+every other member the card encodes: phase 4's 32 MiB and text members,
+phase 8's text member, phase 10's stream, its flushed prefix and the zlib
+members with and without a dictionary, phase 15's round-1 members and
+the mesh's.  A difference raises.
 Then, on lines of their own: the card's name and power limit, the kernel
 JSON (every number in it measured in this run, or the bound computed from
 this run's inputs), and last `{"ok": true, "device": {...}}`.  Any failure
@@ -393,6 +410,134 @@ def prod_input(name: str) -> bytes:
 def prod_id(case) -> str:
     level, shard_len, ctx, batch, container, name = case
     return f"l{level}-b{batch}-{container}-{name}"
+
+
+# Phase 10's stream: writes of STREAM_PIECE bytes, a flush at STREAM_CUT.
+STREAM_CUT, STREAM_PIECE = 11 << 20, (3 << 20) + 17
+ROUTE_INPUTS = {
+    "mixed32M": lambda: mixed_corpus(4 * B * S),
+    "text": lambda: text_corpus(3_359_630),     # bench.py's text corpus
+    "text4": lambda: text_corpus(32 * 1024) * 4,
+    "r1": lambda: mixed_corpus((8 << 20) + PROD_TAIL),
+    "r1s": lambda: mixed_corpus(2 * S + PROD_TAIL),
+    "pigz": lambda: mixed_corpus((2 << 20) + PROD_TAIL),
+}
+# Every other member the card encodes, held to the JAX package's bytes:
+# case -> (input, the JAX call, length, sha256).  The calls run with the
+# headline's CompressOptions(level, shard_len=S, ctx=CTX, batch=B,
+# interpret=True) where they take opts; the round-1 ones
+# (flate_tpu.jx.pipeline, no Pallas) at their defaults (128 KiB shards,
+# 32 KiB context, batch 8).  Every pin is the JAX member itself: each
+# decodes with zlib, so none needs the fixed-block repair of ROADMAP C.10.
+# Phases 4, 8, 10 and 15 compare the bytes they already make with these;
+# tests/test_torch_routepins.py holds the port's CPU bytes to them and
+# recomputes them with the JAX package (slow).
+ROUTE_PINNED = {
+    "stream32M-l6": (
+        "mixed32M", "gzip.compressor(level=6, opts, device=True)",
+        14_038_353,
+        "44c6d88f9dffa27e666627821a04a35d4a31eb6d4e0f6df897be407ba91f1e03"),
+    "stream32M-l6-flushed": (
+        "mixed32M", "gzip.compressor(level=6, opts, device=True)",
+        4_818_866,
+        "7e9af3df49795da0f023b766ef130f2a64c720116f77294db01fff4d0897af16"),
+    "fdict-l6": (
+        "text4", "zlib.compress(level=6, opts, dictionary=zd, device=True)",
+        3_714,
+        "105e74b32f98c6546bc4bb768cb5d57b97186d67e07f184df70d9af88464ed79"),
+    "nodict-l6": (
+        "text4", "zlib.compress(level=6, opts, device=True)",
+        12_754,
+        "8c35c8bc3aa324db365a87970e9abb0f100553355db495df5fa67c0f79b6b794"),
+    "round1-l1": (
+        "r1", "jx.pipeline.compress_device(level=1, GZIP)",
+        3_991_929,
+        "3616b7af0e5a3aab9c3fd077bf46d406bb475ed856687d4011fb0715d1ae8c69"),
+    "round1-l6": (
+        "r1", "jx.pipeline.compress_device(level=6, GZIP)",
+        3_771_948,
+        "b553b8ccf8be0fd4ac3426b3aceacbd3becc14a1a28b7c4dc015040e75551e65"),
+    "round1-l9": (
+        "r1", "jx.pipeline.compress_device(level=9, GZIP)",
+        3_761_690,
+        "d831dc51c7afdae6daf0117a0f9b6818307c654943f60e47572692ad080f5ba6"),
+    "round1s-l1": (
+        "r1s", "jx.pipeline.compress_device(level=1, GZIP)",
+        126_445,
+        "465315ea7c480140b21c21e9a57aaace7203b1f3b7ca38c852e177e2be850f43"),
+    "round1s-l6": (
+        "r1s", "jx.pipeline.compress_device(level=6, GZIP)",
+        119_240,
+        "6f270a64f5a1952a1336e5d744a9e7909bae3047382cf89dd4def9c6fcc64b87"),
+    "round1s-l9": (
+        "r1s", "jx.pipeline.compress_device(level=9, GZIP)",
+        118_919,
+        "a9cc3286ecafc89c716180efc90ebd8ec2bd2384f1d1e5a0c776bcbf959a95ee"),
+    "pigz-l6": (
+        "pigz", "jx.pipeline.compress_device(level=6, GZIP, batch=1)",
+        939_442,
+        "5488081ecc414bfa77884b878f8680119ef0883bfa2f83f121b6a28b645ef92b"),
+    "mixed32M-l1": (
+        "mixed32M", "jx.pipeline2.compress_device2(level=1, GZIP, S, CTX, B)",
+        15_536_103,
+        "115d4ec02f2f33cd6142c7579bc30b5116f2c29a051aa08a2fdb2d77c19e605b"),
+    "mixed32M-l3": (
+        "mixed32M", "jx.pipeline2.compress_device2(level=3, GZIP, S, CTX, B)",
+        14_762_681,
+        "c496547091840e39c6131daf0e9028446db3cbd7820002415aaf8a3e20db93b6"),
+    "text-l1": (
+        "text", "jx.pipeline2.compress_device2(level=1, GZIP, S, CTX, B)",
+        1_100_757,
+        "0e30bf2bd887a5c0d98cb2b11ea7aea31535b75539be587b9261507848b9c5a0"),
+    "text-l3": (
+        "text", "jx.pipeline2.compress_device2(level=3, GZIP, S, CTX, B)",
+        1_003_409,
+        "8c1ad42e3de81c17d85744b3fb1f4f8daaa169af801227b1ef1c4ad126a21d1a"),
+    "text-l6": (
+        "text", "jx.pipeline2.compress_device2(level=6, GZIP, S, CTX, B)",
+        909_575,
+        "519fb3c16a19a9db00d875283cb8861232b59ddf5aedea1b2ab1ca98271cc42e"),
+    "text-l9": (
+        "text", "jx.pipeline2.compress_device2(level=9, GZIP, S, CTX, B)",
+        898_071,
+        "91e61d8c124febf8a2a504e7223a13aac47073a382c50d65bcf23a1468ac0d25"),
+}
+
+
+def route_input(name: str) -> bytes:
+    """A ROUTE_PINNED case's input (ROUTE_INPUTS)."""
+    return ROUTE_INPUTS[name]()
+
+
+def stream_writes(c, sink, data: bytes) -> tuple:
+    """Phase 10's writes into compressor c, which writes to sink: pieces of
+    STREAM_PIECE bytes, the one that crosses STREAM_CUT stopped there and
+    followed by a flush; returns (member, sink's bytes after the flush)."""
+    at, flushed = 0, None
+    while at < len(data):
+        end = min(at + STREAM_PIECE, len(data))
+        if flushed is None and end >= STREAM_CUT:
+            end = STREAM_CUT
+        c.write(data[at:end])
+        at = end
+        if flushed is None and at == STREAM_CUT:
+            c.flush()
+            flushed = sink.getvalue()
+    c.finish()
+    return sink.getvalue(), flushed
+
+
+def check_route_pin(case: str, blob: bytes, phase: int) -> None:
+    """Prints the case's line and raises unless blob is the pinned
+    member."""
+    _inp, _call, n, pin = ROUTE_PINNED[case]
+    sha = hashlib.sha256(blob).hexdigest()
+    print(f"[{phase}] JAX pin {case}: {len(blob)} bytes, sha256 "
+          f"{sha[:12]} (pin {n} bytes, {pin[:12]}): equal "
+          f"{sha == pin and len(blob) == n}", flush=True)
+    if sha != pin or len(blob) != n:
+        raise AssertionError(f"{case}: {len(blob)} bytes, sha256 {sha} != "
+                             f"the JAX package's {n} bytes, {pin}")
 
 
 def smi() -> str:
@@ -1109,9 +1254,9 @@ def main() -> int:
     del ld, ld2, cands, window, shards
 
     # ---- phase 4: the main path through the public entry point ----
-    data32 = mixed_corpus(4 * B * S)
+    data32 = route_input("mixed32M")
     data8 = data32[:B * S]             # bench.py's 8 MiB mixed corpus
-    text = text_corpus(3_359_630)      # bench.py's text corpus
+    text = route_input("text")         # bench.py's text corpus
     blobs = {}
     # B8 runs under find_matches_fused(fp=True) only, which no level sets
     level_kernels = [k for k in _build.ENCODE_KERNELS if k != "flate_extend2"]
@@ -1134,6 +1279,7 @@ def main() -> int:
         launches[("encode", L)] = counts
         if zlib.decompress(blob, 31) != data32:
             raise AssertionError(f"level {L}: zlib round trip differs")
+        check_route_pin(f"mixed32M-l{L}", blob, 4)
         gpu8 = api.gzip.compress(data8, level=L)
         cpu8 = api.gzip.compress(data8, level=L, device="cpu")
         if gpu8 != cpu8:
@@ -1147,13 +1293,15 @@ def main() -> int:
                 blob_c = api.gzip.compress(cd, level=L)
                 if zlib.decompress(blob_c, 31) != cd:
                     raise AssertionError(f"level {L}: {cname} round trip")
+                check_route_pin(f"text-l{L}", blob_c, 4)
             blobs[cname, L] = blob_c
             zl = len(zlib.compress(cd, L))
             ratios[cname] = (f"{len(blob_c)} bytes = {len(blob_c) / zl:.4f} "
                              f"of zlib -{L} ({zl})")
         print(f"[4] level {L}: 32 MiB mixed in {secs:.4f} s = "
               f"{len(data32) / secs / 1e9:.4f} GB/s; launches {counts}; "
-              f"8 MiB cuda == cpu; round trips ok; size: {ratios}",
+              f"8 MiB cuda == cpu; round trips ok; 32 MiB and text == JAX "
+              f"pins; size: {ratios}",
               flush=True)
 
     # ---- phase 5: the decode kernels against their plain versions ----
@@ -1344,6 +1492,7 @@ def main() -> int:
                      "mixed 8 MiB": blob if data is data8
                      else api.gzip.compress(data8, level=L)}
             blobs["mixed 8 MiB", L] = sized["mixed 8 MiB"]
+            check_route_pin(f"text-l{L}", sized["text"], 8)
             for cname, cdata in (("text", text), ("mixed 8 MiB", data8)):
                 if zlib.decompress(sized[cname], 31) != cdata:
                     raise AssertionError(f"level {L}: {cname} round trip")
@@ -1561,35 +1710,25 @@ def main() -> int:
     del kmix, omix
 
     # ---- phase 10: the streaming encoder through the public entry point ----
-    cut, piece = 11 << 20, (3 << 20) + 17
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     t = time.time()
     sink = io.BytesIO()
-    c = api.gzip.compressor(sink, level=6)
-    at, flushed = 0, None
-    while at < len(data32):
-        end = min(at + piece, len(data32))
-        if flushed is None and end >= cut:
-            end = cut
-        c.write(data32[at:end])
-        at = end
-        if flushed is None and at == cut:
-            c.flush()
-            flushed = sink.getvalue()
-    c.finish()
+    member, flushed = stream_writes(api.gzip.compressor(sink, level=6), sink,
+                                    data32)
     secs = time.time() - t
     counts = dict(_build.LAUNCHES)
     need_launched("streaming level 6", counts)
     launches[("stream", 6)] = counts
-    member = sink.getvalue()
-    if zlib.decompressobj(31).decompress(flushed) != data32[:cut]:
+    if zlib.decompressobj(31).decompress(flushed) != data32[:STREAM_CUT]:
         raise AssertionError("stream: the flushed prefix does not decode to "
                              "the first 11 MiB")
     if zlib.decompress(member, 31) != data32:
         raise AssertionError("stream: zlib round trip differs")
+    check_route_pin("stream32M-l6-flushed", flushed, 10)
+    check_route_pin("stream32M-l6", member, 10)
     print(f"[10] streaming gzip.compressor level 6: 32 MiB mixed in writes of "
-          f"{piece} bytes, flush at {cut}: {secs:.4f} s = "
+          f"{STREAM_PIECE} bytes, flush at {STREAM_CUT}: {secs:.4f} s = "
           f"{len(data32) / secs / 1e9:.4f} GB/s (one-shot level 6, phase 8: "
           f"{oneshot6:.4f} s = {len(data32) / oneshot6 / 1e9:.4f} GB/s); "
           f"launches {counts}; flushed prefix {len(flushed)} bytes decodes "
@@ -1597,8 +1736,10 @@ def main() -> int:
           f"({len(member) / len(zlib.compress(data32, 6)):.4f} of zlib -6) "
           f"decodes with zlib", flush=True)
     zd = text_corpus(32 * 1024)
-    with_d = api.zlib.compress(zd * 4, dictionary=zd)
-    without = api.zlib.compress(zd * 4)
+    with_d = api.zlib.compress(route_input("text4"), dictionary=zd)
+    without = api.zlib.compress(route_input("text4"))
+    check_route_pin("fdict-l6", with_d, 10)
+    check_route_pin("nodict-l6", without, 10)
     dobj = zlib.decompressobj(zdict=zd)
     if dobj.decompress(with_d) != zd * 4 or not dobj.eof:
         raise AssertionError("dictionary: zlib round trip differs")
@@ -2163,8 +2304,8 @@ def phase15(dev, api, _build, case, walk_case, launches) -> None:
 
     need = ("flate_small_runs", "flate_extend", "flate_parse_walk",
             "flate_pack")
-    data = mixed_corpus((8 << 20) + 12345)
-    small = data[:2 * S + 12345]
+    data = route_input("r1")
+    small = route_input("r1s")
     nbatch = -(-(len(data) // S) // 8)
     for level in (1, 6, 9):
         r1.compress_device(small, level=level)       # warm-up (allocator)
@@ -2183,6 +2324,7 @@ def phase15(dev, api, _build, case, walk_case, launches) -> None:
             raise AssertionError(f"round-1 level {level}: zlib round trip")
         if api.gzip.decompress(blob) != data:
             raise AssertionError(f"round-1 level {level}: port decode")
+        check_route_pin(f"round1-l{level}", blob, 15)
         ratio = len(blob) / len(zlib.compress(data, level))
         # the host tail encoder's share of the call, alone
         t = time.time()
@@ -2192,8 +2334,10 @@ def phase15(dev, api, _build, case, walk_case, launches) -> None:
         t = time.time()
         cpu = r1.compress_device(small, level=level, batch=2, device="cpu")
         cpu_s = time.time() - t
-        if r1.compress_device(small, level=level) != cpu:
+        gpu = r1.compress_device(small, level=level)
+        if gpu != cpu:
             raise AssertionError(f"round-1 level {level}: cuda != cpu bytes")
+        check_route_pin(f"round1s-l{level}", gpu, 15)
         # batch 0 as the pipeline builds it, its phase1 and its main
         # table's candidate loop by CUDA events
         knobs = r1.level_knobs(level)
@@ -2227,7 +2371,7 @@ def phase15(dev, api, _build, case, walk_case, launches) -> None:
         if level == 6:
             round1_cases(r1, case, walk_case, data, level)
 
-    mesh_data = data[:(2 << 20) + 12345]
+    mesh_data = route_input("pigz")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as td:
         torch.cuda.set_device(0)
         tdist.init_process_group(
@@ -2244,6 +2388,7 @@ def phase15(dev, api, _build, case, walk_case, launches) -> None:
             tdist.destroy_process_group()
     if blob != r1.compress_device(mesh_data, level=6, batch=1):
         raise AssertionError("round-1 mesh: bytes != compress_device's")
+    check_route_pin("pigz-l6", blob, 15)
     print(f"[15] pigz.compress_mesh on a one-rank NCCL mesh, 2 MiB + 12345 "
           f"at level 6: bytes == compress_device(batch=1) ({len(blob)}); "
           f"{secs:.4f} s = {len(mesh_data) / secs / 1e9:.4f} GB/s", flush=True)
