@@ -347,38 +347,39 @@ class Decompressor:
 
     def _step(self) -> None:
         """Decode the member's next window into the output buffer."""
-        m = self._m
-        b0 = m.body + (m.bit >> 3)
-        hi = b0 + self.WINDOW
-        self._fill(hi)
-        win = self._slice(b0, hi)
-        start = m.bit & 7
-        entries = None
-        if m.entries is not None:
-            entries = [e - 8 * (b0 - m.body) for e in m.entries]
-        # as many scanner chains as a whole window has, however full, but
-        # chunks no shorter than a block's first span: a stream that fits
-        # one needs no scan
-        full = min(anyinflate.CHUNK_BYTES, max(self.WINDOW // 8, 1))
-        chains = -(-self.WINDOW // full)
-        kw = dict(carry=m.carry, entries=entries, device=self._dev,
-                  chunk_bytes=max(-(-len(win) // chains),
-                                  min(full, anyinflate.SPAN0)),
-                  chain_cap=self.CHAIN_CAP, out_cap=self.OUT_CAP)
-        res, stop, done, carry = anyinflate.decode_step(
-            win, start, m.hist, final_input=False, **kw)
-        if stop == start and not done:
-            if self._end() > hi or not self._eof:
-                raise ValueError(f"a block header does not fit the "
-                                 f"{self.WINDOW}-byte window")
-            # the input has ended inside a block: its own error
+        with metrics.span("stream.step", step=self.stats["steps"]):
+            m = self._m
+            b0 = m.body + (m.bit >> 3)
+            hi = b0 + self.WINDOW
+            self._fill(hi)
+            win = self._slice(b0, hi)
+            start = m.bit & 7
+            entries = None
+            if m.entries is not None:
+                entries = [e - 8 * (b0 - m.body) for e in m.entries]
+            # as many scanner chains as a whole window has, however full, but
+            # chunks no shorter than a block's first span: a stream that fits
+            # one needs no scan
+            full = min(anyinflate.CHUNK_BYTES, max(self.WINDOW // 8, 1))
+            chains = -(-self.WINDOW // full)
+            kw = dict(carry=m.carry, entries=entries, device=self._dev,
+                      chunk_bytes=max(-(-len(win) // chains),
+                                      min(full, anyinflate.SPAN0)),
+                      chain_cap=self.CHAIN_CAP, out_cap=self.OUT_CAP)
             res, stop, done, carry = anyinflate.decode_step(
-                win, start, m.hist, final_input=True, **kw)
-        self.stats["steps"] += 1
-        m.bit = 8 * (b0 - m.body) + stop
-        m.carry, m.done = carry, done
-        self._res = res
-        self._trim()
+                win, start, m.hist, final_input=False, **kw)
+            if stop == start and not done:
+                if self._end() > hi or not self._eof:
+                    raise ValueError(f"a block header does not fit the "
+                                     f"{self.WINDOW}-byte window")
+                # the input has ended inside a block: its own error
+                res, stop, done, carry = anyinflate.decode_step(
+                    win, start, m.hist, final_input=True, **kw)
+            self.stats["steps"] += 1
+            m.bit = 8 * (b0 - m.body) + stop
+            m.carry, m.done = carry, done
+            self._res = res
+            self._trim()
 
     def _resolve(self) -> bool:
         """Resolve the next batch of the step's chain into the output, the
@@ -425,32 +426,33 @@ class Decompressor:
         the member has been served and its footer checked."""
         if self._member_done:
             return b""
-        if self._m is None:
-            self._start_member()
-        while (n < 0 or self._pending < n) and self._resolve():
-            pass
-        want = self._pending if n < 0 else min(n, self._pending)
-        parts = []
-        while want:
-            part = memoryview(self._out[0])
-            k = min(want, len(part) - self._out_pos)
-            parts.append(part[self._out_pos:self._out_pos + k])
-            want -= k
-            if self._out_pos + k == len(part):
-                self._out.popleft()
-                self._out_pos = 0
+        with metrics.span("stream.read", n=n):
+            if self._m is None:
+                self._start_member()
+            while (n < 0 or self._pending < n) and self._resolve():
+                pass
+            want = self._pending if n < 0 else min(n, self._pending)
+            parts = []
+            while want:
+                part = memoryview(self._out[0])
+                k = min(want, len(part) - self._out_pos)
+                parts.append(part[self._out_pos:self._out_pos + k])
+                want -= k
+                if self._out_pos + k == len(part):
+                    self._out.popleft()
+                    self._out_pos = 0
+                else:
+                    self._out_pos += k
+            chunk = b"".join(parts)
+            self._pending -= len(chunk)
+            if self._verify:
+                self._hasher.update(chunk)
             else:
-                self._out_pos += k
-        chunk = b"".join(parts)
-        self._pending -= len(chunk)
-        if self._verify:
-            self._hasher.update(chunk)
-        else:
-            self._hasher.nbytes += len(chunk)
-        if self._m.done and self._res is None and not self._pending \
-                and (n < 0 or not chunk):
-            self._finish_member()
-        return chunk
+                self._hasher.nbytes += len(chunk)
+            if self._m.done and self._res is None and not self._pending \
+                    and (n < 0 or not chunk):
+                self._finish_member()
+            return chunk
 
     def read_all(self) -> bytes:
         return self.read(-1)
@@ -500,22 +502,25 @@ def decode_members(data: bytes, container: Container, verify: bool = True,
     as the JAX package decodes it."""
     dev = resolve_device(device)
     if dictionary is not None:
-        out, _ = anyinflate._decompress_member_any(
-            data, 0, container, verify, dev, dictionary=dictionary)
+        with metrics.span("device.decompress_any"):
+            out, _ = anyinflate._decompress_member_any(
+                data, 0, container, verify, dev, dictionary=dictionary)
         return out
     out = bytearray()
     offset = 0
     while offset < len(data):
         t = time.perf_counter()
         try:
-            chunk, end = inflate2.decompress_member_device(
-                data, offset, container, batch, verify, device=dev,
-                walk=walk)
             op = "device.decompress_indexed"
+            with metrics.span(op, offset=offset):
+                chunk, end = inflate2.decompress_member_device(
+                    data, offset, container, batch, verify, device=dev,
+                    walk=walk)
         except LookupError:
-            chunk, end = anyinflate._decompress_member_any(
-                data, offset, container, verify, dev)
             op = "device.decompress_any"
+            with metrics.span(op, offset=offset):
+                chunk, end = anyinflate._decompress_member_any(
+                    data, offset, container, verify, dev)
         metrics.record(op, end - offset, len(chunk), time.perf_counter() - t)
         out += chunk
         offset = end

@@ -405,61 +405,63 @@ def _decode_round(body: bytes, plans: list, span: dict,
         C = _bucket(min(len(body) - byte0, cap), 8192)
         key = (C, p.key() in serial_set)
         groups.setdefault(key, []).append((p, byte0))
-    results = {}
-    for (C, serial), grp in groups.items():
-        rows = max(1, MAX_POSITIONS // (8 * C))
-        for lo in range(0, len(grp), rows):
-            part = grp[lo:lo + rows]
-            Bc = len(part)
-            comp = np.zeros((Bc, C), np.uint8)
-            clen = np.zeros(Bc, np.int32)
-            start = np.zeros(Bc, np.int32)
-            sc_ll = np.zeros((Bc, 16), np.uint32)
-            kb_ll = np.zeros((Bc, 16), np.int32)
-            sy_ll = np.zeros((Bc, 288), np.int32)
-            sc_d = np.zeros((Bc, 16), np.uint32)
-            kb_d = np.zeros((Bc, 16), np.int32)
-            sy_d = np.zeros((Bc, 32), np.int32)
-            for bi, (p, byte0) in enumerate(part):
-                sl = body[byte0:byte0 + C]
-                comp[bi, :len(sl)] = np.frombuffer(sl, np.uint8)
-                clen[bi] = len(sl)
-                start[bi] = p.body_bit - 8 * byte0
-                sc_ll[bi], kb_ll[bi], sy_ll[bi] = p.ll
-                sc_d[bi], kb_d[bi], sy_d[bi] = p.d
-            # a row without its end-of-block needs its cut only where it
-            # does not just escalate: at MAX_SPAN or the body's end
-            cut = C >= MAX_SPAN or any(byte0 + C >= len(body)
-                                       for _, byte0 in part)
-            words, counts, fail, has_eob, out_len, end_bit = symbol_batch(
-                *i2.args_from_numpy((comp, clen, start, sc_ll, kb_ll, sy_ll,
-                                     sc_d, kb_d, sy_d), dev),
-                NS=8 * C, serial=serial, cut=cut)
-            # the word at slot `counts`: what stopped a row without its
-            # end-of-block, fetched with the rest
-            stop = torch.gather(words, 1, torch.clamp(
-                counts, max=8 * C - 1).to(torch.int64)[:, None])[:, 0]
-            meta_np = torch.cat([
-                _pack_meta(counts, fail, has_eob, out_len, end_bit),
-                stop[None].to(torch.int32)]).cpu().numpy()
-            cn_np, fail_np, eob_np, ol_np, eb_np, stop_np = meta_np
-            # keep the rows' symbols, not their 8 C slots (a copy: a view
-            # would hold them all): a step holds its rows until the resolve
-            words = words[:, :int(cn_np.max())].clone()
-            for bi, (p, byte0) in enumerate(part):
-                results[p.key()] = {
-                    "words": words, "row": bi, "plan": p,
-                    "counts": int(cn_np[bi]),
-                    "out_len": int(ol_np[bi]),
-                    "end_bit": 8 * byte0 + int(eb_np[bi]),
-                    "has_eob": bool(eob_np[bi]),
-                    "ok": not bool(fail_np[bi]),
-                    "serial": serial,
-                    "span": C,
-                    "cut": cut,
-                    "stop": int(stop_np[bi]),
-                }
-    return results
+    with metrics.span("chain.round", rows=len(plans),
+                      span_c=max(C for C, _ in groups)):
+        results = {}
+        for (C, serial), grp in groups.items():
+            rows = max(1, MAX_POSITIONS // (8 * C))
+            for lo in range(0, len(grp), rows):
+                part = grp[lo:lo + rows]
+                Bc = len(part)
+                comp = np.zeros((Bc, C), np.uint8)
+                clen = np.zeros(Bc, np.int32)
+                start = np.zeros(Bc, np.int32)
+                sc_ll = np.zeros((Bc, 16), np.uint32)
+                kb_ll = np.zeros((Bc, 16), np.int32)
+                sy_ll = np.zeros((Bc, 288), np.int32)
+                sc_d = np.zeros((Bc, 16), np.uint32)
+                kb_d = np.zeros((Bc, 16), np.int32)
+                sy_d = np.zeros((Bc, 32), np.int32)
+                for bi, (p, byte0) in enumerate(part):
+                    sl = body[byte0:byte0 + C]
+                    comp[bi, :len(sl)] = np.frombuffer(sl, np.uint8)
+                    clen[bi] = len(sl)
+                    start[bi] = p.body_bit - 8 * byte0
+                    sc_ll[bi], kb_ll[bi], sy_ll[bi] = p.ll
+                    sc_d[bi], kb_d[bi], sy_d[bi] = p.d
+                # a row without its end-of-block needs its cut only where it
+                # does not just escalate: at MAX_SPAN or the body's end
+                cut = C >= MAX_SPAN or any(byte0 + C >= len(body)
+                                           for _, byte0 in part)
+                words, counts, fail, has_eob, out_len, end_bit = \
+                    symbol_batch(*i2.args_from_numpy(
+                        (comp, clen, start, sc_ll, kb_ll, sy_ll, sc_d, kb_d,
+                         sy_d), dev), NS=8 * C, serial=serial, cut=cut)
+                # the word at slot `counts`: what stopped a row without its
+                # end-of-block, fetched with the rest
+                stop = torch.gather(words, 1, torch.clamp(
+                    counts, max=8 * C - 1).to(torch.int64)[:, None])[:, 0]
+                meta_np = torch.cat([
+                    _pack_meta(counts, fail, has_eob, out_len, end_bit),
+                    stop[None].to(torch.int32)]).cpu().numpy()
+                cn_np, fail_np, eob_np, ol_np, eb_np, stop_np = meta_np
+                # keep the rows' symbols, not their 8 C slots (a copy: a view
+                # would hold them all): a step holds its rows until the resolve
+                words = words[:, :int(cn_np.max())].clone()
+                for bi, (p, byte0) in enumerate(part):
+                    results[p.key()] = {
+                        "words": words, "row": bi, "plan": p,
+                        "counts": int(cn_np[bi]),
+                        "out_len": int(ol_np[bi]),
+                        "end_bit": 8 * byte0 + int(eb_np[bi]),
+                        "has_eob": bool(eob_np[bi]),
+                        "ok": not bool(fail_np[bi]),
+                        "serial": serial,
+                        "span": C,
+                        "cut": cut,
+                        "stop": int(stop_np[bi]),
+                    }
+        return results
 
 
 def _invalid_code_at_cut(r: dict, span_end: int) -> bool:
@@ -541,7 +543,8 @@ def _decompress_member_any(data: bytes, offset: int,
                                   allow_dict=dictionary is not None)
     body = data[offset + hdr_len:]
     if entries is None:
-        entries = scan.chunk_entries(body, chunk_bytes, device=dev)
+        with metrics.span("chain.scan"):
+            entries = scan.chunk_entries(body, chunk_bytes, device=dev)
     hist = history(dictionary)
     chain, end_bit, _done, _ = _chain(body, entries, 0, dev,
                                       hist_len=len(hist))
@@ -551,13 +554,14 @@ def _decompress_member_any(data: bytes, offset: int,
 
     foot_off = offset + hdr_len + ((end_bit + 7) // 8)
     hasher = Hasher(container)
-    if verify:
-        hasher.update(bytes(out))
-        foot_len = parse_footer(container, data[foot_off:], hasher)
-    else:
-        foot_len = container.footer_size
-        if len(data) < foot_off + foot_len:
-            raise EndOfStream("footer truncated")
+    with metrics.span("decode.checksum"):
+        if verify:
+            hasher.update(bytes(out))
+            foot_len = parse_footer(container, data[foot_off:], hasher)
+        else:
+            foot_len = container.footer_size
+            if len(data) < foot_off + foot_len:
+                raise EndOfStream("footer truncated")
     return bytes(out), foot_off + foot_len
 
 
@@ -594,7 +598,8 @@ def decode_step(window: bytes, start: int, hist: bytes, *,
     that starts at byte stop >> 3 of this one, to pass to the next step."""
     dev = resolve_device(device)
     if entries is None:
-        entries = scan.chunk_entries(window, chunk_bytes, device=dev)
+        with metrics.span("chain.scan"):
+            entries = scan.chunk_entries(window, chunk_bytes, device=dev)
     chain, stop, done, carry = _chain(
         window, entries, start, dev, hist_len=len(hist),
         final_input=final_input, out_cap=chain_cap, carry=carry)
@@ -705,35 +710,38 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
 
     head_out, stall = 0, 0
     while True:
-        todo = sorted(frontier - decoded.keys() - failed.keys()
-                      - waiting.keys(), key=_bit)
-        frontier.clear()
-        plans = []
-        for pos in todo:
-            if pos in conts:
-                plans.append(conts[pos])
-                continue
-            if pos >= nbits:
-                off_the_end(pos, EndOfStream(
-                    f"stream ends at bit {nbits} before its final block"))
-                continue
-            try:
-                p = plan_block_at(body, pos, partial=True)
-            except EndOfStream as e:
-                off_the_end(pos, e)
-                continue
-            except FlateError as e:
-                # a chain from a false entry runs into garbage: an error
-                # counts only once the chain from `start` reaches it
-                failed[pos] = e
-                continue
-            if p.kind == "stored":
-                stored(pos, p)
-            else:
-                plans.append(p)
+        with metrics.span("chain.plan"):
+            todo = sorted(frontier - decoded.keys() - failed.keys()
+                          - waiting.keys(), key=_bit)
+            frontier.clear()
+            plans = []
+            for pos in todo:
+                if pos in conts:
+                    plans.append(conts[pos])
+                    continue
+                if pos >= nbits:
+                    off_the_end(pos, EndOfStream(
+                        f"stream ends at bit {nbits} before its final block"))
+                    continue
+                try:
+                    p = plan_block_at(body, pos, partial=True)
+                except EndOfStream as e:
+                    off_the_end(pos, e)
+                    continue
+                except FlateError as e:
+                    # a chain from a false entry runs into garbage: an error
+                    # counts only once the chain from `start` reaches it
+                    failed[pos] = e
+                    continue
+                if p.kind == "stored":
+                    stored(pos, p)
+                else:
+                    plans.append(p)
+        res = {}
         if plans:
             i2.STATS["chained_rounds"] += 1
             res = _decode_round(body, plans, span, serial_set, dev)
+        with metrics.span("chain.link"):
             for key, r in res.items():
                 p = r["plan"]
                 span_end = 8 * min((p.pos >> 3) + r["span"], len(body))
@@ -784,23 +792,23 @@ def _chain(body: bytes, entries, start: int, dev: torch.device, *,
                         conts[q.key()] = q
                         frontier.add(q.key())
                     i2.STATS["continuation_rows"] += 1
-        # walk the chain from its head through what is decoded.  The head's
-        # row is always in the frontier, so every round either finishes
-        # it or retries it (span escalation / serial rewalk, both bounded)
-        # — a persistent stall is a logic error, not data.  Progress is a
-        # row, so a block of many continuation rows moves the head in
-        # every round.
-        pos, done, capped = head, False, False
-        while pos in decoded:
-            r = decoded[pos]
-            if r["last"] and r["plan"].bfinal:
-                done = True
-                break
-            head_out += r["out_len"]
-            pos = r["next"]
-            if r["last"] and out_cap is not None and head_out >= out_cap:
-                capped = True
-                break
+            # walk the chain from its head through what is decoded.  The head's
+            # row is always in the frontier, so every round either finishes
+            # it or retries it (span escalation / serial rewalk, both bounded)
+            # — a persistent stall is a logic error, not data.  Progress is a
+            # row, so a block of many continuation rows moves the head in
+            # every round.
+            pos, done, capped = head, False, False
+            while pos in decoded:
+                r = decoded[pos]
+                if r["last"] and r["plan"].bfinal:
+                    done = True
+                    break
+                head_out += r["out_len"]
+                pos = r["next"]
+                if r["last"] and out_cap is not None and head_out >= out_cap:
+                    capped = True
+                    break
         if done or capped or pos in waiting:
             break
         if pos in failed:
@@ -872,29 +880,31 @@ class Resolve:
         return next(self._parts)
 
     def _flush(self, rows: list) -> memoryview:
-        dev = self._dev
-        S = _bucket(max(max(ol for _, _, ol in rows), 1024), 1024)
-        NSr = max(c for _, c, _ in rows)
-        w = torch.stack([torch.nn.functional.pad(wr, (0, NSr - c))
-                         for wr, c, _ in rows])
-        counts = torch.tensor([c for _, c, _ in rows],
-                              dtype=torch.int32, device=dev)
-        out_lens = torch.tensor([ol for _, _, ol in rows],
-                                dtype=torch.int32, device=dev)
-        ctx0 = np.zeros(CTX, np.uint8)
-        if self.hist:
-            ctx0[CTX - len(self.hist):] = np.frombuffer(self.hist, np.uint8)
-        flat, err = resolve_compact(w, counts, out_lens,
-                                    torch.from_numpy(ctx0).to(dev), S=S,
-                                    hist_len=len(self.hist))
-        if bool(err.any()):
-            raise InvalidMatch("a match reaches before the start of the "
-                               "history")
-        total = sum(ol for _, _, ol in rows)
-        r = flat[:total].cpu().numpy()
-        self.hist = (self.hist + r[-CTX:].tobytes())[-CTX:]
-        rows.clear()
-        return memoryview(r)
+        with metrics.span("chain.resolve", rows=len(rows)):
+            dev = self._dev
+            S = _bucket(max(max(ol for _, _, ol in rows), 1024), 1024)
+            NSr = max(c for _, c, _ in rows)
+            w = torch.stack([torch.nn.functional.pad(wr, (0, NSr - c))
+                             for wr, c, _ in rows])
+            counts = torch.tensor([c for _, c, _ in rows],
+                                  dtype=torch.int32, device=dev)
+            out_lens = torch.tensor([ol for _, _, ol in rows],
+                                    dtype=torch.int32, device=dev)
+            ctx0 = np.zeros(CTX, np.uint8)
+            if self.hist:
+                ctx0[CTX - len(self.hist):] = np.frombuffer(self.hist,
+                                                            np.uint8)
+            flat, err = resolve_compact(w, counts, out_lens,
+                                        torch.from_numpy(ctx0).to(dev), S=S,
+                                        hist_len=len(self.hist))
+            if bool(err.any()):
+                raise InvalidMatch("a match reaches before the start of the "
+                                   "history")
+            total = sum(ol for _, _, ol in rows)
+            r = flat[:total].cpu().numpy()
+            self.hist = (self.hist + r[-CTX:].tobytes())[-CTX:]
+            rows.clear()
+            return memoryview(r)
 
     def _run(self, chain: list, body: bytes, out_cap: int | None):
         cap = MAX_S if out_cap is None else min(MAX_S, out_cap)

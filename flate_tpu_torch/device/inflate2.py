@@ -596,11 +596,16 @@ def decode_batch2(comp, clen, start, lims_ll, kbase_ll, syms_ll,
     with end_bit=True the bit (B,) where each row's first end-of-block
     ends."""
     STATS["decode_batch2"] += 1
-    word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d)
-    mask, joined = _lane_walk(word, start, 8 * clen, G=G)
-    words, counts, spec_fail, _, _, end = _extract(word, mask, joined,
-                                                   start, NS, G)
-    out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
+    with metrics.span("decode.pass1"):
+        word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d,
+                      syms_d)
+    with metrics.span("decode.lane_walk"):
+        mask, joined = _lane_walk(word, start, 8 * clen, G=G)
+    with metrics.span("decode.extract"):
+        words, counts, spec_fail, _, _, end = _extract(word, mask, joined,
+                                                       start, NS, G)
+    with metrics.span("decode.resolve"):
+        out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
     if end_bit:
         return out, err, counts, spec_fail, end
     return out, err, counts, spec_fail
@@ -763,9 +768,13 @@ def decode_batch(comp, clen, start, lims_ll, kbase_ll, syms_ll,
     with end_bit=True the bit (B,) where each row's walk ends (after its
     first end-of-block, when it has one)."""
     STATS["decode_batch"] += 1
-    word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d, syms_d)
-    words, counts = _walk(word, start, 8 * clen, NS)
-    out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
+    with metrics.span("decode.pass1"):
+        word = _pass1(comp, lims_ll, kbase_ll, syms_ll, lims_d, kbase_d,
+                      syms_d)
+    with metrics.span("decode.walk"):
+        words, counts = _walk(word, start, 8 * clen, NS)
+    with metrics.span("decode.resolve"):
+        out, err = _resolve(words, counts, out_lens, ctx0, S, hist_len)
     if end_bit:
         slots = torch.arange(NS, dtype=torch.int32, device=words.device)
         adv = torch.where(slots[None, :] < counts[:, None], words & 63, 0)
@@ -936,12 +945,13 @@ def pack_coded_run(plans_run, hist: bytes,
 def _decompress_member_indexed(data: bytes, offset: int,
                                container: Container, batch: int,
                                dev: torch.device, walk: str, verify: bool):
-    hdr_len, meta = parse_header(container, data[offset:])
-    if meta is None or meta.extra is None:
-        raise LookupError("no FLT1 index")
-    idx = parse_index_extra(meta.extra)
-    if idx is None:
-        raise LookupError("no FLT1 index")
+    with metrics.span("decode.index"):
+        hdr_len, meta = parse_header(container, data[offset:])
+        if meta is None or meta.extra is None:
+            raise LookupError("no FLT1 index")
+        idx = parse_index_extra(meta.extra)
+        if idx is None:
+            raise LookupError("no FLT1 index")
     comp_lens, out_lens, _flags = idx
     body = offset + hdr_len
     starts = body + np.concatenate([[0], np.cumsum(comp_lens)[:-1]])
@@ -962,9 +972,10 @@ def _decompress_member_indexed(data: bytes, offset: int,
     while i < n:
         nb = min(batch, n - i)
         plans = []
-        for j in range(i, i + nb):
-            sh = data[starts[j]:starts[j] + int(comp_lens[j])]
-            plans.append((plan_shard(sh, int(out_lens[j])), sh))
+        with metrics.span("decode.plan", shards=nb):
+            for j in range(i, i + nb):
+                sh = data[starts[j]:starts[j] + int(comp_lens[j])]
+                plans.append((plan_shard(sh, int(out_lens[j])), sh))
         # process shards strictly in member order: stored shards flush
         # to `out` on host (pure memcpy); consecutive runs of coded
         # shards dispatch together with ctx0 taken from the already-
@@ -991,22 +1002,29 @@ def _decompress_member_indexed(data: bytes, offset: int,
                 k += 1
             run = plans[j:k]
             hist = bytes(out[-CTX:])
-            args = pack_coded_run(run, hist, dev)
+            run_attrs = {"shards": len(run),
+                         "coded_bytes": sum(len(sh2) for _, sh2 in run)}
+            with metrics.span("decode.upload", **run_attrs):
+                args = pack_coded_run(run, hist, dev)
 
             def serial():
                 """The run by the exact serial walk: (output, err, end
                 bits), the last two fetched in one go."""
                 dev_out, err, _, end = decode_batch(
                     *args, S=S, NS=NS, hist_len=len(hist), end_bit=True)
-                return (dev_out, *_pack_flags(err, end).cpu().numpy())
+                with metrics.span("decode.flags"):
+                    return (dev_out, *_pack_flags(err, end).cpu().numpy())
 
             if walk == "serial":
-                dev_out, err_np, end_np = serial()
+                with metrics.span("decode.batch", walk=walk, **run_attrs):
+                    dev_out, err_np, end_np = serial()
             else:
-                dev_out, err, _, spec_fail, end = decode_batch2(
-                    *args, S=S, NS=NS, hist_len=len(hist), end_bit=True)
-                err_np, spec_np, end_np = _pack_flags(
-                    err, spec_fail, end).cpu().numpy()
+                with metrics.span("decode.batch", walk=walk, **run_attrs):
+                    dev_out, err, _, spec_fail, end = decode_batch2(
+                        *args, S=S, NS=NS, hist_len=len(hist), end_bit=True)
+                with metrics.span("decode.flags"):
+                    err_np, spec_np, end_np = _pack_flags(
+                        err, spec_fail, end).cpu().numpy()
                 if spec_np.any():
                     # lane speculation unproven for some shard — most
                     # often the lane that holds the EOB, when the block
@@ -1015,7 +1033,8 @@ def _decompress_member_indexed(data: bytes, offset: int,
                     # device: correctness never depends on the
                     # speculative path
                     STATS["serial_retries"] += 1
-                    dev_out, err_np, end_np = serial()
+                    with metrics.span("decode.retry", **run_attrs):
+                        dev_out, err_np, end_np = serial()
             # a coded-first shard with MORE blocks after its first EOB
             # (segmented) decodes short and poisons in-batch
             # back-references, and a shard may hold bits after its block
@@ -1028,21 +1047,26 @@ def _decompress_member_indexed(data: bytes, offset: int,
                              i + j + bi == n - 1)
                     for bi, (p2, sh2) in enumerate(run)):
                 raise _Reroute()
-            out_np = dev_out.cpu().numpy().reshape(len(run), S)
-            for bi, (p2, _) in enumerate(run):
-                r = out_np[bi, :p2.out_len].tobytes()
-                out += r
-                hasher.update(r)
+            with metrics.span("decode.fetch", **run_attrs):
+                out_np = dev_out.cpu().numpy().reshape(len(run), S)
+                rows = [out_np[bi, :p2.out_len].tobytes()
+                        for bi, (p2, _) in enumerate(run)]
+                for r in rows:
+                    out += r
+            with metrics.span("decode.checksum"):
+                for r in rows:
+                    hasher.update(r)
             j = k
         i += nb
 
     foot_off = body + total_comp
-    if verify:
-        foot_len = parse_footer(container, data[foot_off:], hasher)
-    else:
-        foot_len = container.footer_size
-        if len(data) < foot_off + foot_len:
-            raise EndOfStream("footer truncated")
+    with metrics.span("decode.checksum"):
+        if verify:
+            foot_len = parse_footer(container, data[foot_off:], hasher)
+        else:
+            foot_len = container.footer_size
+            if len(data) < foot_off + foot_len:
+                raise EndOfStream("footer truncated")
     return bytes(out), foot_off + foot_len
 
 

@@ -158,22 +158,32 @@ def _squeeze_stage(window_tail, m_r, d_r, take_r, starts_r, valid_lens,
     called."""
     if grid_only is None:
         grid_only = sq.grid_only_default()
-    ll_bits, d_bits = sq.greedy_code_lengths(
-        window_tail, m_r, d_r, starts_r, take_r, valid_lens,
-        stride=hist_stride)
-    take2, starts2, sel = sq.squeeze_parse(
-        window_tail, m_r, d_r, ll_bits, d_bits, blk=blk, grid_only=grid_only)
-    return take2, starts2, torch.where(take2, sel, 0)
+    with metrics.span("encode.squeeze"):
+        with metrics.span("encode.squeeze.lengths"):
+            ll_bits, d_bits = sq.greedy_code_lengths(
+                window_tail, m_r, d_r, starts_r, take_r, valid_lens,
+                stride=hist_stride)
+        with metrics.span("encode.squeeze.dp"):
+            take2, starts2, sel = sq.squeeze_parse(
+                window_tail, m_r, d_r, ll_bits, d_bits, blk=blk,
+                grid_only=grid_only)
+        return take2, starts2, torch.where(take2, sel, 0)
 
 
 def _encode_stages(windows, ctx_lens, valid_lens, finals, *, S: int,
                    ctx: int, K: int, nw: int, lazy: bool, max_lazy: int,
                    K3: int, squeeze: bool, blk: int,
-                   grid_only: bool | None):
-    mlen, mdist = match2.find_matches_fused(
-        windows, ctx_lens, valid_lens, K=K, nw=nw, ctx=ctx, K3=K3)
-    take, starts, mlen, mdist = _parse_stage(
-        mlen, mdist, lazy=lazy, max_lazy=max_lazy, ctx=ctx, blk=blk)
+                   grid_only: bool | None, ctx0: torch.Tensor | None = None):
+    """encode_core's stages, each a span.  Given ctx0, `windows` are the
+    shards, primed with it in the match stage."""
+    with metrics.span("encode.match"):
+        if ctx0 is not None:
+            windows = _prime_windows(windows, ctx0, ctx)
+        mlen, mdist = match2.find_matches_fused(
+            windows, ctx_lens, valid_lens, K=K, nw=nw, ctx=ctx, K3=K3)
+    with metrics.span("encode.parse"):
+        take, starts, mlen, mdist = _parse_stage(
+            mlen, mdist, lazy=lazy, max_lazy=max_lazy, ctx=ctx, blk=blk)
     m_r, d_r = mlen[:, ctx:], mdist[:, ctx:]
     take_r, starts_r = take[:, ctx:], starts[:, ctx:]
     if squeeze:
@@ -181,10 +191,12 @@ def _encode_stages(windows, ctx_lens, valid_lens, finals, *, S: int,
             windows[:, ctx:], m_r, d_r, take_r, starts_r, valid_lens,
             blk=blk, grid_only=grid_only)
     seg = encode2.seg_size(S, blk)
-    vals, bits, _, kind = encode2.build_fields(
-        windows[:, ctx:], m_r, d_r, starts_r, take_r, valid_lens, finals,
-        S, seg)
-    words, tbits = pk.pack_fields(vals, bits, _nwr(S, seg))
+    with metrics.span("encode.fields"):
+        vals, bits, _, kind = encode2.build_fields(
+            windows[:, ctx:], m_r, d_r, starts_r, take_r, valid_lens,
+            finals, S, seg)
+    with metrics.span("encode.pack"):
+        words, tbits = pk.pack_fields(vals, bits, _nwr(S, seg))
     return words, tbits, kind
 
 
@@ -245,10 +257,10 @@ def encode_batch_staged(shards: torch.Tensor, ctx0: torch.Tensor,
     """The eager twin of encode_batch: the same stages launched one by
     one, with the squeeze's FLATE_TPU_SQUEEZE_GRID read when called (the
     JAX staged path reads it too).  Returns (words, tbits, kind)."""
-    windows = _prime_windows(shards, ctx0, ctx)
-    return _encode_stages(windows, ctx_lens, valid_lens, finals, S=S,
+    return _encode_stages(shards, ctx_lens, valid_lens, finals, S=S,
                           ctx=ctx, K=K, nw=nw, lazy=lazy, max_lazy=max_lazy,
-                          K3=K3, squeeze=squeeze, blk=blk, grid_only=None)
+                          K3=K3, squeeze=squeeze, blk=blk, grid_only=None,
+                          ctx0=ctx0)
 
 
 def encode_batch_packed(shards: torch.Tensor, ctx0: torch.Tensor,
@@ -264,8 +276,9 @@ def encode_batch_packed(shards: torch.Tensor, ctx0: torch.Tensor,
         shards, ctx0, ctx_lens, valid_lens, finals, S=S, ctx=ctx, K=K,
         nw=nw, lazy=lazy, max_lazy=max_lazy, K3=K3, squeeze=squeeze,
         blk=blk)
-    return _compact_stage(words, tbits, shards, valid_lens, nb,
-                          hash_kind=hash_kind)
+    with metrics.span("encode.compact"):
+        return _compact_stage(words, tbits, shards, valid_lens, nb,
+                              hash_kind=hash_kind)
 
 
 def _to_host(t: torch.Tensor, pinned: bool = False) -> torch.Tensor:
@@ -393,34 +406,36 @@ def _compress_device2_impl(data, kern, container, shard_len, ctx, batch,
 
     def dispatch(base_shard: int, ctx0_dev, sbuf_i: int):
         nb = min(batch, nshards - base_shard)
-        lo0 = base_shard * S
-        shards_np = staging[sbuf_i].numpy()
-        take_n = max(0, min(n - lo0, batch * S))
-        shards_np.reshape(-1)[:take_n] = arr[lo0:lo0 + take_n]
-        shards_np.reshape(-1)[take_n:] = 0
-        meta = np.zeros(3 * batch + 1, dtype=np.int32)
-        if not independent:
-            meta[:batch] = np.minimum(
-                ctx, lo0 + np.arange(batch, dtype=np.int64) * S)
-        v = meta[batch:2 * batch]
-        for i in range(nb):
-            v[i] = max(0, min(S, n - (base_shard + i) * S))
-        if base_shard + nb == nshards:
-            meta[2 * batch + nb - 1] = 1
-        meta[3 * batch] = nb
-        shards_dev = staging[sbuf_i].to(dev, non_blocking=True, copy=True)
-        meta_dev = torch.from_numpy(meta).to(dev)
-        buf, meta_out = encode_batch_packed(
-            shards_dev, ctx0_dev, meta_dev, S=S, ctx=ctx,
-            hash_kind=hash_kind, **kern)
-        if independent:
-            nxt_ctx = zeros_ctx
-        else:
-            # last ctx bytes of [carry | batch] (ctx may exceed S)
-            kc = -(-ctx // S)
-            rows = shards_dev[max(0, batch - kc):].reshape(-1)
-            nxt_ctx = torch.cat([ctx0_dev, rows])[-ctx:]
-        return nb, buf, meta_out, nxt_ctx
+        with metrics.span("encode.dispatch", batch=base_shard // batch,
+                          shards=nb):
+            lo0 = base_shard * S
+            shards_np = staging[sbuf_i].numpy()
+            take_n = max(0, min(n - lo0, batch * S))
+            shards_np.reshape(-1)[:take_n] = arr[lo0:lo0 + take_n]
+            shards_np.reshape(-1)[take_n:] = 0
+            meta = np.zeros(3 * batch + 1, dtype=np.int32)
+            if not independent:
+                meta[:batch] = np.minimum(
+                    ctx, lo0 + np.arange(batch, dtype=np.int64) * S)
+            v = meta[batch:2 * batch]
+            for i in range(nb):
+                v[i] = max(0, min(S, n - (base_shard + i) * S))
+            if base_shard + nb == nshards:
+                meta[2 * batch + nb - 1] = 1
+            meta[3 * batch] = nb
+            shards_dev = staging[sbuf_i].to(dev, non_blocking=True, copy=True)
+            meta_dev = torch.from_numpy(meta).to(dev)
+            buf, meta_out = encode_batch_packed(
+                shards_dev, ctx0_dev, meta_dev, S=S, ctx=ctx,
+                hash_kind=hash_kind, **kern)
+            if independent:
+                nxt_ctx = zeros_ctx
+            else:
+                # last ctx bytes of [carry | batch] (ctx may exceed S)
+                kc = -(-ctx // S)
+                rows = shards_dev[max(0, batch - kc):].reshape(-1)
+                nxt_ctx = torch.cat([ctx0_dev, rows])[-ctx:]
+            return nb, buf, meta_out, nxt_ctx
 
     bases = list(range(0, nshards, batch))
     # two batches in flight: the fetch of batch j overlaps the device
@@ -440,19 +455,23 @@ def _compress_device2_impl(data, kern, container, shard_len, ctx, batch,
             ctx_dev = item[3]
             queue.append(item)
             ndisp += 1
-        meta_np = meta_out.cpu().numpy()
-        total = int(meta_np[0])
-        out += buf[:total].cpu().numpy().tobytes()
+        with metrics.span("encode.fetch", batch=j, shards=nb):
+            meta_np = meta_out.cpu().numpy()
+            total = int(meta_np[0])
+            out += buf[:total].cpu().numpy().tobytes()
         comp_lens.extend(int(x) for x in meta_np[1:1 + nb])
         if hash_kind == HASH_NONE:
             continue
         valid = np.minimum(
             S, np.maximum(0, n - (bases[j] + np.arange(nb)) * S))
-        _fold_hashes(hasher, hash_kind, meta_np[1 + batch:1 + batch + nb],
-                     meta_np[1 + 2 * batch:1 + 2 * batch + nb], valid, S)
+        with metrics.span("encode.fold", batch=j, shards=nb):
+            _fold_hashes(hasher, hash_kind,
+                         meta_np[1 + batch:1 + batch + nb],
+                         meta_np[1 + 2 * batch:1 + 2 * batch + nb], valid, S)
 
-    return _assemble(container, index, independent, nshards, S, n,
-                     comp_lens, out, hasher)
+    with metrics.span("encode.assemble"):
+        return _assemble(container, index, independent, nshards, S, n,
+                         comp_lens, out, hasher)
 
 
 def _compress_fused_loop(arr, n, S, nshards, kern, ctx, batch, independent,

@@ -393,7 +393,6 @@ def test_port_imports_no_jax_and_no_flate_tpu():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/torch_stage_profile.py",
                                     "tools/lane_join_probe.py",
                                     "tools/torch_bitonic_probe.py",
                                     "tools/torch_kernel_probe.py",
