@@ -59,7 +59,11 @@ Phases, one line each:
      parse_walk entry point); and B1/B2 at K = 1024 with 20 exact words
      (rows staged with 65 words, the halo's built from the window) on
      the batch's first 4 rows, whose launches are counted around
-     find_matches_fused at those knobs.  B2 at level
+     find_matches_fused at those knobs; the squeeze's cost DP
+     (flate_squeeze_dp, D1) at levels 6 and 9 (parse blocks of 1,024 and
+     4,096, from the greedy pass's code lengths of that level's parse),
+     against the plain loop on the same card tensors, also from a CUDA
+     graph, its launches those of phase 8's call.  B2 at level
      6 is also timed with the L2 flushed before each launch, and every B2
      case prints, beside its own bound, the bound of reading ne + nf words
      a position as the TPU kernel's inputs are laid out;
@@ -1154,6 +1158,16 @@ def main() -> int:
               f"{int(mask.sum(dim=1).max())}", flush=True)
         return mask
 
+    def dp_options(m, grid_only):
+        """The options of the squeeze's DP that the positions have: the
+        literal, the full length (3 or more; not grid_only) and each grid
+        length below the match's (at most it, grid_only)."""
+        n = m.numel()
+        if grid_only:
+            return n + sum(int((m >= g).sum()) for g in squeeze.GRID)
+        return n + int((m >= 3).sum()) + sum(
+            int((m > g).sum()) for g in squeeze.GRID[:-1])
+
     for L in KERNEL_LEVELS:
         # the stages of encode_batch_packed, one kernel at a time
         lvl = pipeline2.level_params(L, S)
@@ -1202,6 +1216,20 @@ def main() -> int:
         m_r, d_r, take_r = mlen[:, CTX:], mdist[:, CTX:], take[:, CTX:]
         starts_r = mask.reshape(B, S)
         if lvl["squeeze"]:
+            wt = window[:, CTX:]
+            ll_bits, d_bits = squeeze.greedy_code_lengths(
+                wt, m_r, d_r, starts_r, take_r, valid)
+            dp_args = (wt, m_r, d_r, ll_bits, d_bits, blk,
+                       squeeze.grid_only_default())
+            case(phase, path, f"squeeze_dp_l{L}", "flate_squeeze_dp",
+                 "flate_tpu/jx/squeeze.py:73",
+                 lambda: squeeze._squeeze_dp_kernel(*dp_args),
+                 lambda: squeeze._squeeze_dp_plain(*dp_args),
+                 # byte, length and distance in, the chosen length out
+                 nbytes(wt, m_r, d_r, ll_bits, d_bits) + B * S * 4,
+                 # an add and a min for each option that a position has
+                 2 * dp_options(m_r, dp_args[-1]),
+                 graph=True)
             take_r, starts_r, m_r = pipeline2._squeeze_stage(
                 window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
         seg = encode2.seg_size(S, blk)
@@ -1258,8 +1286,10 @@ def main() -> int:
     data8 = data32[:B * S]             # bench.py's 8 MiB mixed corpus
     text = route_input("text")         # bench.py's text corpus
     blobs = {}
-    # B8 runs under find_matches_fused(fp=True) only, which no level sets
+    # B8 runs under find_matches_fused(fp=True) only, which no level sets;
+    # the squeeze's DP at levels 2 and 4-9 only
     level_kernels = [k for k in _build.ENCODE_KERNELS if k != "flate_extend2"]
+    unsqueezed = [k for k in level_kernels if k != "flate_squeeze_dp"]
 
     def need_launched(what, counts, names=level_kernels):
         for name in names:
@@ -1275,7 +1305,7 @@ def main() -> int:
         blob = api.gzip.compress(data32, level=L)
         secs = time.time() - t
         counts = dict(_build.LAUNCHES)
-        need_launched(f"level {L}", counts)
+        need_launched(f"level {L}", counts, unsqueezed)
         launches[("encode", L)] = counts
         if zlib.decompress(blob, 31) != data32:
             raise AssertionError(f"level {L}: zlib round trip differs")
@@ -1595,7 +1625,8 @@ def main() -> int:
     raw = buf[:int(mo[0])].cpu().numpy().tobytes()
     secs = time.time() - t
     counts = dict(_build.LAUNCHES)
-    need_launched("fp batch", counts, _build.ENCODE_KERNELS)
+    need_launched("fp batch", counts,
+                  [k for k in _build.ENCODE_KERNELS if k != "flate_squeeze_dp"])
     launches[("fp",)] = counts
     if zlib.decompress(raw, -15) != data8:
         raise AssertionError("fp batch: zlib round trip differs")

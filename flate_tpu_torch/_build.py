@@ -50,6 +50,8 @@ ENCODE_KERNELS = {
     "flate_extend2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "flate_parse_walk": [_P, _P, _I, _I, _P],
     "flate_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "flate_squeeze_dp": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _I,
+                         _P],
 }
 DECODE_KERNELS = {
     "flate_lane_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -212,8 +214,11 @@ def use_plain(t: torch.Tensor) -> bool:
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
-               shape: tuple) -> None:
-    """Raise unless t is a contiguous CUDA tensor of this dtype and shape."""
+               shape: tuple, *, rows: bool = False) -> int:
+    """Raise unless t is a contiguous CUDA tensor of this dtype and shape;
+    with rows=True each row of a 2-D t need only be contiguous in itself
+    (a column slice of a wider tensor passes).  Returns the stride of t's
+    first dimension."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -221,5 +226,9 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
     if t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if rows:
+        if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+            raise ValueError(f"{name}: each row must be contiguous")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+    return t.stride(0) if t.dim() else 0

@@ -1,18 +1,20 @@
 // Hand-written Hopper (sm_90a) kernels of the device gzip encode path.
 //
 // Seven kernels, each the counterpart of one Pallas kernel of the JAX
-// package.  They compute what the TPU kernels compute, not how: the TPU
-// versions tile (8, 1024) vregs, halo neighbouring tiles through extra
-// BlockSpecs and count runs by saturating doubling because VMEM rounds are
-// cheap there.  On the H100 the chain extensions (B4, B8) are one thread
-// per position, reading device memory directly; the prep (B1: a block
-// stages a tile of bytes and a thread hashes 4 positions), the matcher
-// (B2: a block stages a tile of sorted rows and their candidates), the
-// small-distance runs (B3: a block stages a tile and reads runs off stop
-// bitmaps) and the bit pack (B5: a block packs a tile of fields into its
-// words, its offset from a single-pass scan) work from shared memory, and
-// the parse walk (B9) chases one chain per row there — a warp stages a
-// parse block, a longer row streams through ring_walk.cuh.
+// package, and the squeeze's cost DP, which the JAX package leaves to XLA
+// (a half-warp a parse block: see squeeze_dp_kernel).  They compute what
+// the TPU kernels compute, not how: the TPU versions tile (8, 1024) vregs,
+// halo neighbouring tiles through extra BlockSpecs and count runs by
+// saturating doubling because VMEM rounds are cheap there.  On the H100 the
+// chain extensions (B4, B8) are one thread per position, reading device
+// memory directly; the prep (B1: a block stages a tile of bytes and a
+// thread hashes 4 positions), the matcher (B2: a block stages a tile of
+// sorted rows and their candidates), the small-distance runs (B3: a block
+// stages a tile and reads runs off stop bitmaps) and the bit pack (B5: a
+// block packs a tile of fields into its words, its offset from a
+// single-pass scan) work from shared memory, and the parse walk (B9) chases
+// one chain per row there — a warp stages a parse block, a longer row
+// streams through ring_walk.cuh.
 // B1 and B3-B5 are bound by memory traffic (a few bytes moved per
 // position, a handful of integer operations).
 //
@@ -768,6 +770,177 @@ parse_ring_kernel(const int* __restrict__ step, uint8_t* __restrict__ mask,
 }
 
 // --------------------------------------------------------------------------
+// Squeeze cost DP — replaces the step loop of flate_tpu/jx/squeeze.py:73
+// squeeze_parse, which is plain XLA there (no Pallas kernel); the port's
+// plain version is device/squeeze.py _squeeze_dp_plain.  A lane is one
+// parse block of blk positions; backward from its end,
+//     cost[i] = min over the options o of cost_o(i) + cost[i + len_o(i)]
+// with cost[blk] = 0, read from a ring of the next kDpWin costs exactly as
+// the plain version's ring (slot (h + len - 1) % kDpWin, the head h one
+// slot back a step, zeros where nothing was written).  The 16 options in
+// rank order: the literal (its code length, 15 where it is 0), the full
+// match length (its length code, extra bits and distance cost; none
+// below 3), then the grid lengths ascending (a match longer than the grid
+// length, or at least as long with GRID_ONLY, where the 15 grid lengths
+// take the full length's place).  The first minimum in that order wins,
+// and its length (literal 1) is written at the position.
+// Bound: latency — a lane is a chain of blk steps (1,024 at levels 2 and
+// 4-6, 4,096 at 7-9); the bytes (13 a position: byte, length and distance
+// in, the chosen length out) take 33 us for a level-6 batch.  A half-warp
+// takes a lane, one thread an option: a step is the option's ring read,
+// an add and one __reduce_min_sync over the half-warp, which gives every
+// thread the cost just chosen.  Only the literal reads that cost (from a
+// register); the others read costs 3 or more positions on.  Every thread
+// writes the chosen cost into the lane's ring, so a thread reads what it
+// wrote itself and no step needs a barrier.  Keys are 32 bits,
+// cost << 5 | rank: a winning cost is at most the literal path's,
+// 15 * blk <= 15 * kDpMaxBlk, so every sum of an option's cost (<= 48) and
+// a ring cost fits in 26 bits, and an option without a match costs
+// kDpNone = 2^26, whose key is above every real one.  A tile of kDpOpts
+// positions of each lane (one a thread) is loaded while the tile before
+// runs and costed into shared memory; the chosen lengths go out from there.
+// --------------------------------------------------------------------------
+constexpr int kDpWin = 264;                     // squeeze.WIN
+constexpr int kDpOpts = 16;                     // options: threads a lane
+constexpr int kDpLanes = 8;                     // lanes a block
+constexpr int kDpMaxBlk = 1 << 16;              // keeps 15 * blk < 2^26
+constexpr uint32_t kDpNone = 1u << 26;          // cost of an option with no match
+constexpr int kNumLitLen = 286;
+constexpr int kNumDist = 30;
+
+// The squeeze's grid lengths (squeeze.GRID) and a match length's DEFLATE
+// length code and extra bits.
+__host__ __device__ constexpr int dp_grid(int j) {
+  return j < 4 ? 3 + j : j == 4 ? 8 : j == 5 ? 12 : j == 6 ? 16 : j == 7 ? 24
+         : j == 8 ? 32 : j == 9 ? 48 : j == 10 ? 64 : j == 11 ? 96
+         : j == 12 ? 128 : j == 13 ? 192 : 258;
+}
+__host__ __device__ constexpr int dp_log2(int n) {
+  int e = 0;
+  while (n > 1) {
+    n >>= 1;
+    ++e;
+  }
+  return e;
+}
+__host__ __device__ constexpr int dp_length_code(int length) {
+  return length - 3 < 8 ? length - 3 : length == 258 ? 28
+         : ((dp_log2(length - 3) - 2) << 2) +
+               ((length - 3) >> (dp_log2(length - 3) - 2));
+}
+__host__ __device__ constexpr int dp_length_ebits(int length) {
+  return length - 3 < 8 || length == 258 ? 0 : (dp_length_code(length) >> 2) - 1;
+}
+static_assert(dp_length_code(12) == 8 && dp_length_ebits(12) == 1 &&
+              dp_length_code(192) == 25 && dp_length_ebits(192) == 5 &&
+              dp_length_code(258) == 28 && dp_length_code(10) == 7,
+              "DEFLATE length codes");
+
+struct DpShared {
+  int ring[kDpLanes][kDpWin];                   // the next kDpWin costs
+  int lit[kDpLanes][kDpOpts];                   // a tile's literal costs
+  int mlen[kDpLanes][kDpOpts];                  // match lengths
+  int dist[kDpLanes][kDpOpts];                  // distance costs
+  int full[kDpLanes][kDpOpts];                  // full-length costs
+  int rank[kDpLanes][kDpOpts];                  // the winners' ranks
+};
+
+template <bool GRID_ONLY>
+__global__ void __launch_bounds__(kDpLanes * kDpOpts)
+squeeze_dp_kernel(const uint8_t* __restrict__ window,
+                  const int* __restrict__ mlen, const int* __restrict__ mdist,
+                  const int* __restrict__ ll_bits,
+                  const int* __restrict__ d_bits, int* __restrict__ sel,
+                  int L, int nb, long long ldw, long long ldm, long long ldd,
+                  int blk) {
+  __shared__ DpShared sh;
+  const int ln = threadIdx.x / kDpOpts;         // the lane in the block
+  const int r = threadIdx.x % kDpOpts;          // the option; a tile's position
+  const unsigned half = 0xFFFFu << (threadIdx.x & 16);
+  const int gl = blockIdx.x * kDpLanes + ln;
+  const bool live = gl < L;
+  const int lane = live ? gl : L - 1;           // a lane past L reruns the last
+  const int b = lane / nb;
+  const long long p0 = static_cast<long long>(lane % nb) * blk;
+  const uint8_t* wrow = window + b * ldw + p0;
+  const int* mrow = mlen + b * ldm + p0;
+  const int* drow = mdist + b * ldd + p0;
+  const int* lrow = ll_bits + static_cast<long long>(b) * kNumLitLen;
+  const int* trow = d_bits + static_cast<long long>(b) * kNumDist;
+  int* ring = sh.ring[ln];
+  for (int s = r; s < kDpWin; s += kDpOpts) ring[s] = 0;
+  // this thread's option: its grid length and that length's code bits
+  const bool is_full = !GRID_ONLY && r == 1;
+  const int j = r - (GRID_ONLY ? 1 : 2);        // grid index
+  const int g = j >= 0 ? dp_grid(j) : kMinMatch;
+  const int gc = j >= 0 ? __ldg(lrow + 257 + dp_length_code(g)) +
+                              dp_length_ebits(g)
+                        : 0;
+  // the next tile's byte, length and distance at this thread's position
+  int nw = 0, nm = 0, nd = 0;
+  auto fetch = [&](int p) {
+    if (p >= 0) {
+      nw = wrow[p];
+      nm = mrow[p];
+      nd = drow[p];
+    }
+  };
+  int h = 0;                                    // ring slot of cost[i + 1]
+  uint32_t prev = 0;                            // cost[i + 1]
+  fetch(blk - kDpOpts + r);
+  for (int base = blk - kDpOpts; base > -kDpOpts; base -= kDpOpts) {
+    if (base + r >= 0) {                        // cost this thread's position
+      const int dm = max(nd, 1) - 1;
+      int dc;
+      if (dm < 4) {
+        dc = __ldg(trow + dm);
+      } else {
+        const int e = 31 - __clz(dm);
+        const int code = min((e << 1) + ((dm >> (e - 1)) & 1), kNumDist - 1);
+        dc = __ldg(trow + code) + (code >> 1) - 1;
+      }
+      const int ml = min(nm, kMaxMatch);
+      const int lb = __ldg(lrow + nw);
+      sh.lit[ln][r] = lb == 0 ? 15 : lb;        // an unseen byte: 15 bits
+      sh.mlen[ln][r] = nm;
+      sh.dist[ln][r] = dc;
+      sh.full[ln][r] = nm >= kMinMatch
+          ? __ldg(lrow + 257 + dp_length_code(ml)) + dp_length_ebits(ml) + dc
+          : static_cast<int>(kDpNone);
+    }
+    fetch(base - kDpOpts + r);                  // lands while the chain runs
+    __syncwarp();
+#pragma unroll
+    for (int k = kDpOpts - 1; k >= 0; --k) {
+      if (base + k >= 0) {                      // a ragged tile's first steps
+        const int m = sh.mlen[ln][k];
+        const bool ok = GRID_ONLY ? m >= g : m > g;
+        const int c = r == 0 ? sh.lit[ln][k]
+                      : is_full ? sh.full[ln][k]
+                      : ok ? gc + sh.dist[ln][k] : static_cast<int>(kDpNone);
+        int slot = h + (is_full ? min(max(m, kMinMatch), kMaxMatch) : g) - 1;
+        slot -= slot >= kDpWin ? kDpWin : 0;
+        const uint32_t next = r == 0 ? prev : static_cast<uint32_t>(ring[slot]);
+        const uint32_t best = __reduce_min_sync(
+            half, ((static_cast<uint32_t>(c) + next) << 5) |
+                      static_cast<uint32_t>(r));
+        prev = best >> 5;
+        h = h == 0 ? kDpWin - 1 : h - 1;
+        ring[h] = static_cast<int>(prev);
+        if (r == 0) sh.rank[ln][k] = static_cast<int>(best & 31u);
+      }
+    }
+    __syncwarp();
+    if (live && base + r >= 0) {                // the winner's length out
+      const int rk = sh.rank[ln][r];
+      sel[static_cast<long long>(gl) * blk + base + r] =
+          rk == 0 ? 1 : !GRID_ONLY && rk == 1 ? sh.mlen[ln][r]
+                                              : dp_grid(rk - (GRID_ONLY ? 1 : 2));
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
 // B5 bit pack — replaces flate_tpu/jx/pack.py:_pack_kernel (via
 // pack_fields).  Fields (value, width) of a row go LSB-first, each at the
 // exclusive prefix sum of the widths before it in its row; the words are
@@ -1133,6 +1306,30 @@ int flate_parse_walk(const void* step, void* mask, int R, int n,
         vec_in, vec_out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// window (B, S) u8, mlen and mdist (B, S) int32, each row contiguous and
+// ld* elements after the one before; ll_bits (B, 286) and d_bits (B, 30)
+// int32; sel (B * S / blk, blk) int32.
+int flate_squeeze_dp(const void* window, const void* mlen, const void* mdist,
+                     const void* ll_bits, const void* d_bits, void* sel, int B,
+                     int S, long long ldw, long long ldm, long long ldd,
+                     int blk, int grid_only, void* stream) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  if (blk <= 0 || blk > kDpMaxBlk || S % blk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = S / blk;                        // lanes a row
+  const int L = B * nb;
+  auto run = [&](auto kernel) {
+    kernel<<<static_cast<unsigned>((L + kDpLanes - 1) / kDpLanes),
+             kDpLanes * kDpOpts, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(window), static_cast<const int*>(mlen),
+        static_cast<const int*>(mdist), static_cast<const int*>(ll_bits),
+        static_cast<const int*>(d_bits), static_cast<int*>(sel), L, nb, ldw,
+        ldm, ldd, blk);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return grid_only ? run(squeeze_dp_kernel<true>) : run(squeeze_dp_kernel<false>);
 }
 
 // vals: (B, slots) u32, bits: (B, slots) int32 widths (<= 32); words: (B,

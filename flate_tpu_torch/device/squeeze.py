@@ -11,20 +11,23 @@ length, a match at one of a coarse grid of lengths}:
 
 Bit costs come from the code lengths of a first greedy pass's token
 histogram (_entropy_code_lens: the JAX pipeline's rounded -log2 p + 0.35
-as a step function of p).  All blocks run as lanes of one tensor;
-cost[i + l] is read from a ring of the next WIN costs.  The JAX function
-is plain XLA (no Pallas kernel), so this is plain PyTorch on either
-device; only the final token-start walk is a kernel (parse._parse_walk,
-B9).
+as a step function of p).  All blocks run as lanes; cost[i + l] is read
+from a ring of the next WIN costs.  The JAX function is plain XLA (no
+Pallas kernel).  Here the DP is one hand-written CUDA kernel a batch for
+CUDA tensors (csrc/encode_kernels.cu squeeze_dp_kernel: a half-warp a
+block, a thread an option, 32-bit keys), and the plain loop below for CPU
+tensors, the reference the kernel is held to; the token-start walk after
+it is kernel B9 (parse._parse_walk).
 
-The options of a step are stacked (O, L) and added to one indexed read of
-the ring, so a step is six launches whatever the grid's size.  The JAX
-loop tries the options in a fixed order — literal, full length, grid
-ascending — and replaces only on a strictly smaller cost, so the first
-minimum in that order wins.  Here the order is the low five bits of an
-int64 key `cost * 32 + rank`, and one min over the stack gives both.  Costs
-stay below 2**28 + 15 * blk, so neither the reference's int32 sums nor
-these keys overflow, and the integers are equal.
+In the plain loop the options of a step are stacked (O, L) and added to
+one indexed read of the ring, so a step is six launches whatever the
+grid's size.  The JAX loop tries the options in a fixed order — literal,
+full length, grid ascending — and replaces only on a strictly smaller
+cost, so the first minimum in that order wins.  Here the order is the low
+five bits of an int64 key `cost * 32 + rank`, and one min over the stack
+gives both.  Costs stay below 2**28 + 15 * blk, so neither the
+reference's int32 sums nor these keys overflow, and the integers are
+equal.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import os
 import numpy as np
 import torch
 
-from .. import consts
+from .. import _build, consts
 from . import encode as enc
 from . import huff, onehot
 from . import parse as prs
@@ -132,6 +135,50 @@ def squeeze_parse(window_tail: torch.Tensor, mlen: torch.Tensor,
     B, S = window_tail.shape
     if S % blk:
         raise ValueError("shard region must divide into parse blocks")
+    if _build.use_plain(window_tail):
+        sel = _squeeze_dp_plain(window_tail, mlen, mdist, ll_bits, d_bits,
+                                blk, grid_only)
+    else:
+        sel = _squeeze_dp_kernel(window_tail, mlen, mdist, ll_bits, d_bits,
+                                 blk, grid_only)
+    starts = prs._parse_walk(sel).reshape(B, S)
+    sel_pos = sel.reshape(B, S)
+    take = starts & (sel_pos >= consts.MIN_MATCH_LEN)
+    return take, starts, sel_pos
+
+
+def _squeeze_dp_kernel(window_tail, mlen, mdist, ll_bits, d_bits, blk: int,
+                       grid_only: bool) -> torch.Tensor:
+    """The cost DP on the card: one launch of flate_squeeze_dp, the chosen
+    length at every position (L, blk) int32.  window_tail uint8 and mlen,
+    mdist int32 (B, S) with contiguous rows (a column slice of the
+    windows passes); ll_bits (B, 286) and d_bits (B, 30) int32.  No host
+    sync and no host copy, so a CUDA graph captures it."""
+    B, S = window_tail.shape
+    ldw = _build.check_cuda("squeeze_parse.window_tail", window_tail,
+                            torch.uint8, (B, S), rows=True)
+    ldm = _build.check_cuda("squeeze_parse.mlen", mlen, torch.int32, (B, S),
+                            rows=True)
+    ldd = _build.check_cuda("squeeze_parse.mdist", mdist, torch.int32,
+                            (B, S), rows=True)
+    _build.check_cuda("squeeze_parse.ll_bits", ll_bits, torch.int32,
+                      (B, consts.NUM_LITLEN))
+    _build.check_cuda("squeeze_parse.d_bits", d_bits, torch.int32,
+                      (B, consts.NUM_DIST))
+    sel = torch.empty((B * (S // blk), blk), dtype=torch.int32,
+                      device=window_tail.device)
+    _build.launch("flate_squeeze_dp", window_tail.data_ptr(),
+                  mlen.data_ptr(), mdist.data_ptr(), ll_bits.data_ptr(),
+                  d_bits.data_ptr(), sel.data_ptr(), B, S, ldw, ldm, ldd,
+                  blk, int(grid_only))
+    return sel
+
+
+def _squeeze_dp_plain(window_tail, mlen, mdist, ll_bits, d_bits, blk: int,
+                      grid_only: bool) -> torch.Tensor:
+    """The cost DP as a loop of whole-tensor steps, the kernel's
+    reference: the chosen length at every position (L, blk) int32."""
+    B, S = window_tail.shape
     L = B * (S // blk)
     dev = window_tail.device
     i64 = torch.int64
@@ -212,12 +259,7 @@ def squeeze_parse(window_tail: torch.Tensor, mlen: torch.Tensor,
     sel = len_of[ranks]
     if not grid_only:
         sel = torch.where(ranks == 1, full_l, sel)
-    sel = sel.to(torch.int32).contiguous()
-
-    starts = prs._parse_walk(sel).reshape(B, S)
-    sel_pos = sel.reshape(B, S)
-    take = starts & (sel_pos >= consts.MIN_MATCH_LEN)
-    return take, starts, sel_pos
+    return sel.to(torch.int32).contiguous()
 
 
 def greedy_code_lengths(window_tail: torch.Tensor, mlen: torch.Tensor,

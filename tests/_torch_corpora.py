@@ -774,6 +774,77 @@ SWEEP_INPUTS = ("fuzz_mixed", "mixed", "text", "zeros", "random", "empty",
 WBITS = {"GZIP": 31, "ZLIB": 15, "RAW": -15}
 
 
+SQUEEZE_CASES = ("ties0", "ties1", "ties2", "blk256", "ragged", "no_match",
+                 "all15")
+
+
+def _squeeze_matches(rng, B: int, n: int, blk: int, dist):
+    """Match lengths, half on the squeeze's grid and half uniform in
+    0..258, cut at their parse block's end (below 3: no match), and a
+    distance from `dist` (B, n) where there is a match."""
+    from flate_tpu_torch.device.squeeze import GRID
+    grid = np.asarray(GRID)
+    ml = np.where(rng.random((B, n)) < 0.5, rng.choice(grid, (B, n)),
+                  rng.integers(0, 259, (B, n)))
+    room = blk - (np.arange(n) % blk)
+    ml = np.minimum(ml, room[None, :])
+    ml = np.where(ml < 3, 0, ml).astype(np.int32)
+    md = np.where(ml > 0, dist((B, n)), 0).astype(np.int32)
+    return ml, md
+
+
+def squeeze_case(name: str):
+    """squeeze_parse's inputs (window_tail uint8, mlen, mdist, ll_bits,
+    d_bits int32, blk) for one of SQUEEZE_CASES:
+
+    ties<seed>: flat code lengths, so that literal runs, the full length
+      and grid lengths tie (a length code costs two literals, distance
+      codes 0 or 2 bits), with an unseen byte (length 0 -> 15);
+    blk256: a small shard's fitted parse block, 256, over 3 rows of 8
+      blocks; code lengths 1-15 and distances over every distance code;
+    ragged: as blk256 with a 1,000-byte shard's block, 1,000 (not a
+      multiple of the kernel's tiles), 2 rows of 2 blocks;
+    no_match: as blk256 at blk 1,024, but the second block of row 0 has
+      no match at all;
+    all15: every code length 15 at blk 4,096 and 1 % of the matches, none
+      past the first 256 positions of the last block: the largest costs,
+      up to 15 * 4,096 = 61,440, with matches to choose there."""
+    if name.startswith("ties"):
+        seed = int(name[4:])
+        rng = np.random.default_rng(seed)
+        B, blk = 2, 1024
+        wt = rng.integers(0, 4, (B, 2 * blk), dtype=np.uint8)
+        ml, md = _squeeze_matches(rng, B, 2 * blk, blk,
+                                  lambda shape: rng.choice([1, 2, 5, 9],
+                                                           shape))
+        ll = np.full((B, 286), 2 + seed, np.int32)
+        ll[:, 257:] = 4 + 2 * seed                 # len code = two literals
+        ll[0, 3] = 0                               # an unseen byte
+        dd = np.zeros((B, 30), np.int32)           # distance codes: 0 bits
+        dd[1] = 2
+        return wt, ml, md, ll, dd, blk
+    B, blk, n = {"blk256": (3, 256, 2048), "ragged": (2, 1000, 2000),
+                 "no_match": (2, 1024, 2048), "all15": (2, 4096, 8192)}[name]
+    rng = np.random.default_rng(SQUEEZE_CASES.index(name))
+    wt = rng.integers(0, 256, (B, n), dtype=np.uint8)
+    ml, md = _squeeze_matches(
+        rng, B, n, blk,
+        lambda shape: np.minimum(2.0 ** (15 * rng.random(shape)) + 1, 32768))
+    if name == "all15":
+        ll = np.full((B, 286), 15, np.int32)
+        dd = np.full((B, 30), 15, np.int32)
+    else:
+        ll = rng.integers(1, 16, (B, 286), dtype=np.int32)
+        dd = rng.integers(1, 16, (B, 30), dtype=np.int32)
+    if name == "no_match":
+        ml[0, blk:2 * blk] = 0
+    if name == "all15":
+        ml[rng.random((B, n)) >= 0.01] = 0
+        ml[-1, 256 - blk:] = 0
+    md[ml == 0] = 0
+    return wt, ml, md, ll, dd, blk
+
+
 def squeeze_flip() -> bytes:
     """22,762 bytes on which the squeeze's code lengths decide the level-6
     bytes (ROADMAP C.18): in one shard of 32,768 the greedy parse has

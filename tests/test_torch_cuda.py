@@ -21,12 +21,13 @@ from flate_tpu_torch.device import checksum, graphs, match2
 from flate_tpu_torch.device import pack, parse, pipeline2, runs, scan
 from flate_tpu_torch.device import squeeze
 
-from _torch_corpora import (CTX, KINDS, PINNED, S, WBITS,
+from _torch_corpora import (CTX, KINDS, PINNED, S, SQUEEZE_CASES, WBITS,
                             big_block_streams, corpus,
                             first_stage_difference, lane_edge_rows,
                             long_block_streams, pack_edge_rows,
                             parse_edge_rows, scan_cases, sha256,
-                            small_blocks, small_run_edge_rows, stream_encode,
+                            small_blocks, small_run_edge_rows, squeeze_case,
+                            stream_encode,
                             sweep_cases, sweep_id, sweep_input,
                             too_far_streams, trap_stream, walk_edge_rows,
                             windows)
@@ -256,8 +257,10 @@ def test_cuda_bytes_equal_cpu(cuda, case):
               shard_len=shard_len, ctx=ctx, batch=batch)
     _build.LAUNCHES.clear()
     out = pipeline2.compress_device2(data, device=cuda, **kw)
+    squeezed = pipeline2.level_params(level, shard_len)["squeeze"]
     assert all(_build.LAUNCHES[n] > 0 for n in _build.ENCODE_KERNELS
-               if n != "flate_extend2")          # B8: fp=True only
+               if n != "flate_extend2"           # B8: fp=True only
+               and (squeezed or n != "flate_squeeze_dp"))
     cpu = pipeline2.compress_device2(data, device="cpu", **kw)
     if out != cpu:
         pytest.fail(f"staged: {len(out)} != {len(cpu)} bytes; first "
@@ -433,6 +436,35 @@ def test_squeeze_equal_cpu(cuda, blk, grid_only):
     for a, b in zip(run(cuda), run("cpu")):
         _eq(a, b)
     assert _build.LAUNCHES["flate_parse_walk"] == 1
+    assert _build.LAUNCHES["flate_squeeze_dp"] == 1
+
+
+@pytest.mark.parametrize("grid_only", [False, True])
+@pytest.mark.parametrize("case", SQUEEZE_CASES)
+def test_squeeze_cases_equal_cpu(cuda, case, grid_only):
+    """The cost DP's kernel against the CPU's loop on tests/_torch_corpora.py
+    squeeze_case: cost ties (the first minimum in rank order wins), a
+    small shard's parse block (256), a block with no match, every code
+    length at 15 bits at blk 4,096 (the largest costs).  The card takes
+    window, lengths and distances as column slices of wider tensors, as
+    the pipeline hands them over."""
+    wt, ml, md, ll, dd, blk = squeeze_case(case)
+
+    def sliced(x):
+        wide = np.zeros((x.shape[0], 40 + x.shape[1]), x.dtype)
+        wide[:, 40:] = x
+        return torch.from_numpy(wide).to(cuda)[:, 40:]
+    _build.LAUNCHES.clear()
+    got = squeeze.squeeze_parse(sliced(wt), sliced(ml), sliced(md),
+                                torch.from_numpy(ll).to(cuda),
+                                torch.from_numpy(dd).to(cuda), blk=blk,
+                                grid_only=grid_only)
+    assert _build.LAUNCHES["flate_squeeze_dp"] == 1
+    want = squeeze.squeeze_parse(*(torch.from_numpy(x) for x in
+                                   (wt, ml, md, ll, dd)),
+                                 blk=blk, grid_only=grid_only)
+    for a, b in zip(got, want):
+        _eq(a, b)
 
 
 def test_entropy_code_lens_equal_cpu(cuda):
@@ -472,6 +504,19 @@ def test_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(TypeError):              # keys are int32 since B1's
         match2._run_matcher(key.to(torch.int64), key, w8, fps,  # redesign
                             v[:, 0], v[:, 0], 100, 4, 32768, 1)
+    ll = torch.ones((2, 286), dtype=torch.int32, device=cuda)
+    dd = torch.ones((2, 30), dtype=torch.int32, device=cuda)
+    w8 = torch.zeros((2, 1024), dtype=torch.uint8, device=cuda)
+    m = torch.zeros((2, 1024), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        squeeze.squeeze_parse(w8, m.to(torch.int64), m, ll, dd, blk=512)
+    with pytest.raises(ValueError):             # a row not contiguous
+        squeeze.squeeze_parse(w8, m, torch.zeros_like(m.repeat(1, 2))[:, ::2],
+                              ll, dd, blk=512)
+    with pytest.raises(ValueError):
+        squeeze.squeeze_parse(w8, m, m, ll[:, :285], dd, blk=512)
+    with pytest.raises(ValueError):             # tables: contiguous only
+        squeeze.squeeze_parse(w8, m, m, ll, dd.repeat(1, 2)[:, ::2], blk=512)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ scan.  The card tests at the end hold scan_kernel to the plain version on
 the card (marked cuda; they skip here).  Tolerance: exact (bit offsets).
 """
 
+import time
 import zlib
 
 import numpy as np
@@ -40,8 +41,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+_RELOADED = []
+
+
 @pytest.fixture
 def c_scanner():
+    if not native.inflate_available() and not _RELOADED:
+        # A process that loaded the library while another process was still
+        # compiling it holds None from then on: load it again, once a
+        # process, while the compile may still be running.
+        _RELOADED.append(True)
+        for _ in range(60):
+            native._LIBS.pop("fastinflate", None)
+            if native.inflate_available():
+                break
+            time.sleep(1)
     if not native.inflate_available():
         pytest.skip("the JAX package's native scanner is not built")
     return native

@@ -351,8 +351,11 @@ def card_clock_check(data: bytes, **kw) -> dict:
     lead = device_lead_ns(prof)
     n, outside = squeeze_kernels_outside(prof, sp)
     _, beyond = squeeze_kernels_outside(prof, sp, lead)
+    dp = sum(1 for e in prof.profiler.kineto_results.events()
+             if "CUDA" in str(e.device_type())
+             and "squeeze_dp_kernel" in e.name())
     return {"squeeze_spans": names(sp).count("encode.squeeze"),
-            "kernels": n, "device_lead_ns": lead,
+            "kernels": n, "dp_kernels": dp, "device_lead_ns": lead,
             "n_outside": len(outside), "outside": outside[:5],
             "n_beyond_lead": len(beyond)}
 
@@ -378,6 +381,9 @@ def test_squeeze_kernels_lie_inside_their_spans_on_the_card():
                        text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]
     r = json.loads(p.stdout.strip().splitlines()[-1])
-    assert r["squeeze_spans"] == 4 and r["kernels"] > 4 * 6 * 1024, r
+    # a batch's span launches the greedy lengths' ops, the one DP kernel,
+    # the walk and the masks
+    assert r["squeeze_spans"] == 4 and r["dp_kernels"] == 4, r
+    assert r["kernels"] > 4 * 3, r
     assert r["device_lead_ns"] < 50_000, r
     assert r["n_beyond_lead"] == 0, r

@@ -23,7 +23,8 @@ from flate_tpu.jx import squeeze as j_squeeze
 
 from flate_tpu_torch.device import squeeze
 
-from _torch_corpora import CTX, KINDS, S, tt, windows
+from _torch_corpora import (CTX, KINDS, S, SQUEEZE_CASES, squeeze_case, tt,
+                            windows)
 
 torch.set_num_threads(1)         # the DP is thousands of tiny ops
 
@@ -145,26 +146,105 @@ def test_squeeze_parse_cost_ties(seed, grid_only):
     length and grid lengths tie, and the first in the reference's order
     (literal, full length, grid ascending) must win.  Unseen symbols
     (length 0 -> 15) and lengths on and off the grid are mixed in."""
-    rng = np.random.default_rng(seed)
-    B, blk = 2, 1024
-    n = 2 * blk
-    wt = rng.integers(0, 4, (B, n), dtype=np.uint8)
-    grid = np.asarray(squeeze.GRID)
-    ml = np.where(rng.random((B, n)) < 0.5,
-                  rng.choice(grid, (B, n)), rng.integers(0, 259, (B, n)))
-    ml = np.where(ml < 3, 0, ml)
-    room = blk - (np.arange(n) % blk)
-    ml = np.minimum(ml, room[None, :])
-    ml = np.where(ml < 3, 0, ml).astype(np.int32)
-    md = np.where(ml > 0, rng.choice([1, 2, 5, 9], (B, n)), 0
-                  ).astype(np.int32)
-    ll = np.full((B, 286), 2 + seed, np.int32)
-    ll[:, 257:] = 4 + 2 * seed                 # len code = two literals
-    ll[0, 3] = 0                               # an unseen byte
-    dd = np.zeros((B, 30), np.int32)           # distance codes cost 0 bits
-    dd[1] = 2
+    wt, ml, md, ll, dd, blk = squeeze_case(f"ties{seed}")
     starts, sel = _both_parse(wt, ml, md, ll, dd, blk, grid_only)
     assert (sel >= 3).any() and (sel == 1).any()
+
+
+@pytest.mark.parametrize("grid_only", [False, True])
+@pytest.mark.parametrize("case", ["blk256", "ragged", "no_match", "all15"])
+def test_squeeze_parse_edge_cases_equal(case, grid_only):
+    """A small shard's parse block (256), a 1,000-byte shard's block,
+    a block with no match at all and every code length at 15 bits at blk
+    4,096 (tests/_torch_corpora.py squeeze_case), against the JAX
+    package."""
+    wt, ml, md, ll, dd, blk = squeeze_case(case)
+    starts, sel = _both_parse(wt, ml, md, ll, dd, blk, grid_only)
+    if case == "no_match":
+        assert (sel[0, blk:2 * blk] == 1).all()
+
+
+def _code_tables():
+    """DEFLATE's (code, extra bits) of every length 0..258 (below 3: 0, 0)
+    and every distance 0..32768 (below 1 as 1), from their definitions."""
+    lc, le = np.zeros(259, np.int64), np.zeros(259, np.int64)
+    base, code = 3, 0
+    for e in range(6):                      # extra bits 0 (8 codes), 1..5
+        for _ in range(8 if e == 0 else 4):
+            for n in range(base, base + (1 << e)):
+                if n <= 258:
+                    lc[n], le[n] = code, e
+            base += 1 << e
+            code += 1
+    lc[258], le[258] = 28, 0
+    dc, de = np.zeros(32769, np.int64), np.zeros(32769, np.int64)
+    base, code = 1, 0
+    for e in range(14):                     # extra bits 0 (4 codes), 1..13
+        for _ in range(4 if e == 0 else 2):
+            dc[base:base + (1 << e)], de[base:base + (1 << e)] = code, e
+            base += 1 << e
+            code += 1
+    dc[0], de[0] = dc[1], de[1]
+    return lc, le, dc, de
+
+
+def _key32_sel(wt, ml, md, ll, dd, blk, grid_only):
+    """NumPy model of flate_squeeze_dp's step (csrc/encode_kernels.cu):
+    each option's cost from the DEFLATE code tables, 32-bit keys
+    (cost + cost[i + len]) << 5 | rank, 0xFFFFFFFF for an option without a
+    match, the literal's cost[i + 1] the cost just chosen and every other
+    option's read from the ring.  Returns the chosen length at every
+    position, (B, S)."""
+    lc, le, dc, de = _code_tables()
+    win, none = squeeze.WIN, np.uint32(0xFFFFFFFF)
+    B, S = wt.shape
+    L = B * (S // blk)
+    rows = np.arange(B)[:, None]
+    lit = np.where(ll[rows, wt] == 0, 15, ll[rows, wt])
+    dcost = dd[rows, dc[md]] + de[md]
+    grid = squeeze.GRID if grid_only else squeeze.GRID[:-1]
+    costs, lens, avail = [lit], [np.ones_like(ml)], [np.ones(ml.shape, bool)]
+    if not grid_only:
+        costs.append(ll[rows, 257 + lc[ml]] + le[ml] + dcost)
+        lens.append(np.where(ml >= 3, ml, 3))
+        avail.append(ml >= 3)
+    for g in grid:
+        costs.append(np.broadcast_to(ll[:, 257 + lc[g], None] + le[g],
+                                     ml.shape) + dcost)
+        lens.append(np.full_like(ml, g))
+        avail.append(ml >= g if grid_only else ml > g)
+    costs = np.stack(costs).reshape(16, L, blk).astype(np.uint32)
+    lens = np.stack(lens).reshape(16, L, blk)
+    avail = np.stack(avail).reshape(16, L, blk)
+    ranks = np.arange(16, dtype=np.uint32)[:, None]
+    lanes = np.arange(L)
+    ring = np.zeros((win, L), np.uint32)
+    sel = np.zeros((L, blk), np.int64)
+    prev, h = np.zeros(L, np.uint32), 0
+    for i in range(blk - 1, -1, -1):
+        r = ring[(h + lens[:, :, i] - 1) % win, lanes[None, :]]
+        r[0] = prev
+        keys = ((costs[:, :, i] + r) << np.uint32(5)) | ranks
+        best = np.where(avail[:, :, i], keys, none).min(axis=0)
+        prev = best >> np.uint32(5)
+        h = (h - 1) % win
+        ring[h] = prev
+        sel[:, i] = lens[best & np.uint32(31), lanes, i]
+    return sel.reshape(B, S)
+
+
+@pytest.mark.parametrize("grid_only", [False, True])
+@pytest.mark.parametrize("case", SQUEEZE_CASES)
+def test_key32_model_equal(case, grid_only):
+    """The card's 32-bit key rule, modelled in NumPy, chooses the lengths
+    the plain int64 loop chooses: every ring cost is a winning cost, at
+    most the literal path's (15 * blk = 61,440 here), so every key fits in
+    32 bits and orders as the int64 key does."""
+    wt, ml, md, ll, dd, blk = squeeze_case(case)
+    _, _, sel = squeeze.squeeze_parse(*_t((wt, ml, md, ll, dd)), blk=blk,
+                                      grid_only=grid_only)
+    np.testing.assert_array_equal(
+        _key32_sel(wt, ml, md, ll, dd, blk, grid_only), sel.numpy())
 
 
 def test_squeeze_parse_rejects_a_ragged_region():

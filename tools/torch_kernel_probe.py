@@ -1,4 +1,5 @@
-"""Where the time of kernels B1, B2, B3, B5, B6, B7, B9 and B10 goes.
+"""Where the time of kernels B1, B2, B3, B5, B6, B7, B9, B10 and the
+squeeze's cost DP goes.
 
     python3 tools/torch_kernel_probe.py [--reps 20]
 
@@ -149,6 +150,20 @@ on the host clock.
 
     python3 tools/torch_kernel_probe.py --part fused
 
+The squeeze's cost DP, `--part squeeze` (not in the default parts): on
+the level-6 batch at level 6's knobs (parse blocks of 1,024) and level
+9's (4,096), from the greedy pass's code lengths: the whole squeeze_parse
+call (DP and walk) by events and on the host clock, which a parent's
+tree has too; where the tree has the kernel (flate_squeeze_dp), the
+kernel alone by events over --reps launches and replayed from a CUDA
+graph (the device alone), equal to the plain loop on the same card
+tensors (timed once), against its bytes bound (13 bytes a position:
+byte, length and distance in, the chosen length out, and the tables) and
+its chain floor: blk steps times the ns a step of one lone lane, the
+slope between one lane of 4,096 and one of 1,024 positions.
+
+    python3 tools/torch_kernel_probe.py --part squeeze [--tree DIR]
+
 --tree DIR measures the kernels of another checkout (its flate_tpu_torch,
 built into DIR/build) with this probe's code, so that a parent and a change
 run in one call on one card.
@@ -159,6 +174,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -175,7 +191,7 @@ from chip_smoke import (B, CHAIN_STEP_NS, CTX, HBM_BYTES_PER_S,  # noqa: E402
 
 # the checkout whose flate_tpu_torch is measured: set by main() (--tree)
 api = bitonic = encode2 = header = inflate2 = match2 = pack = parse = None
-pipeline2 = runs = None
+pipeline2 = runs = squeeze = None
 
 
 def timed(fn, reps: int) -> float:
@@ -532,6 +548,73 @@ def prep(reps: int) -> dict:
                       reps)
     print(f"key sort of this tree's B1 keys ({key.dtype}): {line}",
           flush=True)
+    return out
+
+
+def sm_clock() -> str:
+    """The card's SM clock now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def squeeze_part(reps: int) -> dict:
+    out = {}
+    window, ctx_len, valid = level6_batch()
+    kernel = getattr(squeeze, "_squeeze_dp_kernel", None)
+    lone = {}
+    for L in (6, 9):
+        lvl = pipeline2.level_params(L, S)
+        blk = lvl["blk"]
+        ml, md = match2.find_matches_fused(window, ctx_len, valid, K=lvl["K"],
+                                           nw=lvl["nw"], ctx=CTX,
+                                           K3=lvl["K3"])
+        ml, md = parse.truncate_matches(ml, md, CTX, blk)
+        take, _ = parse.decide(ml, md, lvl["lazy"], lvl["max_lazy"])
+        starts = parse.parse_blocks(ml, md, start=CTX, lazy=lvl["lazy"],
+                                    max_lazy=lvl["max_lazy"], blk=blk)
+        wt, m_r, d_r = window[:, CTX:], ml[:, CTX:], md[:, CTX:]
+        ll, dd = squeeze.greedy_code_lengths(wt, m_r, d_r, starts[:, CTX:],
+                                             take[:, CTX:], valid)
+        tag = f"squeeze_l{L}"
+        line = three_ways(out, f"{tag}_parse", lambda: squeeze.squeeze_parse(
+            wt, m_r, d_r, ll, dd, blk=blk), reps)
+        print(f"{tag}: squeeze_parse (DP and walk), blk {blk}: {line}",
+              flush=True)
+        if kernel is None:
+            continue
+        args = (wt, m_r, d_r, ll, dd, blk, False)
+        got = kernel(*args)
+        t0 = time.perf_counter()        # the clocks up before the lone lanes
+        while time.perf_counter() - t0 < 0.5:
+            kernel(*args)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = squeeze._squeeze_dp_plain(*args)
+        torch.cuda.synchronize()
+        out[f"{tag}_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: flate_squeeze_dp != the plain loop "
+                                 f"({int((got != want).sum())} positions)")
+        line = three_ways(out, f"{tag}_dp", lambda: kernel(*args), reps)
+        moved = nbytes(wt, m_r, d_r, got, ll, dd)
+        out[f"{tag}_dp_bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        for n in sorted({1024, 4096, blk}):   # one lane of n positions
+            if n not in lone:
+                one = (wt[:1, :n], m_r[:1, :n], d_r[:1, :n], ll[:1], dd[:1],
+                       n, False)
+                lone[n] = timed(lambda: kernel(*one), reps)
+        ns_step = (lone[4096] - lone[1024]) / 3072 * 1e6
+        out[f"{tag}_dp_ns_per_step"] = ns_step
+        out[f"{tag}_dp_chain_floor_ms"] = blk * ns_step * 1e-6
+        out[f"{tag}_sm_clock"] = sm_clock()
+        print(f"{tag}: flate_squeeze_dp equal to the plain loop (plain "
+              f"{out[f'{tag}_plain_ms']:.4f} ms), {line}; bound "
+              f"{out[f'{tag}_dp_bound_ms']:.4f} ms by bytes ({moved} B); "
+              f"one lane {lone[1024]:.4f} ms at 1,024, {lone[4096]:.4f} at "
+              f"4,096 -> {ns_step:.3f} ns a step, chain floor "
+              f"{out[f'{tag}_dp_chain_floor_ms']:.4f} ms; SM clock after "
+              f"{out[f'{tag}_sm_clock']}", flush=True)
     return out
 
 
@@ -971,14 +1054,14 @@ def stream_part(reps: int) -> dict:
 
 def main() -> int:
     global api, bitonic, encode2, header, inflate2, match2, pack, parse
-    global pipeline2, runs
+    global pipeline2, runs, squeeze
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--part",
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
                          "lanes, prep, pack, compact, e2e, fused, scan, "
-                         "rounds, stream")
+                         "rounds, stream, squeeze")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -990,6 +1073,7 @@ def main() -> int:
     from flate_tpu_torch.device import bitonic, encode2, header, inflate2
     from flate_tpu_torch.device import match2
     from flate_tpu_torch.device import pack, parse, pipeline2, runs
+    from flate_tpu_torch.device import squeeze
     card = smi()
     print(card, flush=True)
     print(f"tree: {os.path.abspath(args.tree)}", flush=True)
@@ -999,7 +1083,7 @@ def main() -> int:
              "pack": pack_part, "compact": compact_part, "e2e": e2e,
              "fused": fused,
              "scan": scan_part, "rounds": rounds_part,
-             "stream": stream_part}
+             "stream": stream_part, "squeeze": squeeze_part}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
