@@ -79,8 +79,8 @@ Phases, one line each:
      between card and CPU (any raises); every PROD_PINNED case (levels 1-9
      at 128 KiB shards with 32 KiB context: one full shard and a tail of
      the mixed corpus, ZLIB and RAW at 1, 6, 9, text at 6 and 9, two full
-     shards in one batch, the headline's first 8 MiB batch and its whole
-     32 MiB at level 6) encoded
+     shards in one batch, the headline's first 8 MiB batch at level 6 and
+     in zlib at level 9, and its whole 32 MiB at level 6) encoded
      staged, fused and through api.<ns>.compress, each sha256 equal to the
      JAX package's pin (any other raises), a line a case with its bytes
      and sha256 prefix; the squeeze's rounded code lengths
@@ -312,7 +312,8 @@ JAX_RATIOS = {6: {"text": 0.9857, "mixed 8 MiB": 0.9399},
 # flate_tpu.jx.pipeline2.compress_device2(interpret=True) on
 # prod_input(input) (index on for gzip).  One full shard and a tail in
 # batches of 1 carry the context from batch 1 to batch 2; "mixed2" puts two
-# full shards in one batch; "mixed8M" is the headline's first batch and
+# full shards in one batch; "mixed8M" is the headline's first batch (at
+# level 6 in gzip, and at level 9 in zlib: the deployment pigz -9 -z) and
 # "mixed32M" the headline's whole 32 MiB at level 6 (4 batches).  Phase
 # 8 encodes each on the card; tests/test_torch_prodshape.py holds the
 # port's CPU bytes to them and recomputes them with the JAX package (slow).
@@ -358,6 +359,8 @@ PROD_PINNED = {
         "b37c793cf797673ffe675a800815962fadb3762590cb0b9e7be46a2503668296",
     (6, S, CTX, 64, "GZIP", "mixed32M"):
         "b09af66f1a0015e7137c713ef2a702e2d989a26f2abe49fbebb0b7b617181ea9",
+    (9, S, CTX, 64, "ZLIB", "mixed8M"):
+        "0be428a594d5d0ba34224757a29b91609df05bdc2ebecd087a962882d70f000b",
 }
 
 

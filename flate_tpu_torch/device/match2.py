@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build, consts
+from .. import _build, consts, metrics
 from . import runs, to_i32
 
 CTX = consts.MAX_DISTANCE        # context bytes prepended to each shard
@@ -368,38 +368,46 @@ def find_matches_fused(window: torch.Tensor, ctx_len: torch.Tensor,
     by fingerprints but emits exact lengths capped at 4*ne bytes
     (_split_words); the top-2 chain extension then recovers full lengths
     even where the next position's best candidate has another distance.
-    No level sets it.  Returns (mlen, mdist) int32 (B, W)."""
+    No level sets it.  Returns (mlen, mdist) int32 (B, W).
+
+    Its passes are spans inside the caller's encode.match (metrics.span):
+    encode.match.main, encode.match.k3 (K3 > 0 only) and
+    encode.match.extend (the small-distance runs, the chain extension and
+    the drop of far 3-byte matches)."""
     min_src = (ctx - ctx_len.to(torch.int32)).to(torch.int32)
     limit = (ctx + valid_len.to(torch.int32)).to(torch.int32)
     cap = 4 * _split_words(nw, fp)[0]
 
-    if fp:
-        ld, ld2 = _candidate_pass(
-            window, min_src, limit, K=K, nw=nw, hash_bytes=4,
-            max_dist=consts.MAX_DISTANCE, fp=fp, top2=True)
-        mlen, mdist = runs.extend_chains2(
-            ld >> 16, ld & 0xFFFF, ld2 >> 16, ld2 & 0xFFFF, limit, cap)
-    else:
-        ld = _candidate_pass(window, min_src, limit, K=K, nw=nw,
-                             hash_bytes=4, max_dist=consts.MAX_DISTANCE)
-        mlen = ld >> 16
-        mdist = ld & 0xFFFF
+    with metrics.span("encode.match.main"):
+        if fp:
+            ld, ld2 = _candidate_pass(
+                window, min_src, limit, K=K, nw=nw, hash_bytes=4,
+                max_dist=consts.MAX_DISTANCE, fp=fp, top2=True)
+            mlen, mdist = runs.extend_chains2(
+                ld >> 16, ld & 0xFFFF, ld2 >> 16, ld2 & 0xFFFF, limit, cap)
+        else:
+            ld = _candidate_pass(window, min_src, limit, K=K, nw=nw,
+                                 hash_bytes=4, max_dist=consts.MAX_DISTANCE)
+            mlen = ld >> 16
+            mdist = ld & 0xFFFF
 
     if K3 > 0:
-        ld3 = _candidate_pass(window, min_src, limit, K=K3, nw=1,
-                              hash_bytes=3, max_dist=4096)
-        l3 = torch.clamp(ld3 >> 16, max=3)
-        d3 = ld3 & 0xFFFF
-        upd3 = _score(l3, d3) > _score(mlen, mdist)
-        mlen = torch.where(upd3, l3, mlen)
-        mdist = torch.where(upd3, d3, mdist)
+        with metrics.span("encode.match.k3"):
+            ld3 = _candidate_pass(window, min_src, limit, K=K3, nw=1,
+                                  hash_bytes=3, max_dist=4096)
+            l3 = torch.clamp(ld3 >> 16, max=3)
+            d3 = ld3 & 0xFFFF
+            upd3 = _score(l3, d3) > _score(mlen, mdist)
+            mlen = torch.where(upd3, l3, mlen)
+            mdist = torch.where(upd3, d3, mdist)
 
-    rlen, rdist = runs.small_dist_runs(window, limit, min_src)
-    upd = _score(rlen, rdist) > _score(mlen, mdist)
-    mlen = torch.where(upd, rlen, mlen).contiguous()
-    mdist = torch.where(upd, rdist, mdist).contiguous()
+    with metrics.span("encode.match.extend"):
+        rlen, rdist = runs.small_dist_runs(window, limit, min_src)
+        upd = _score(rlen, rdist) > _score(mlen, mdist)
+        mlen = torch.where(upd, rlen, mlen).contiguous()
+        mdist = torch.where(upd, rdist, mdist).contiguous()
 
-    mlen = runs.extend_chains(mlen, mdist, limit, cap=cap)
+        mlen = runs.extend_chains(mlen, mdist, limit, cap=cap)
 
-    drop = (mlen == consts.MIN_MATCH_LEN) & (mdist > 4096)
-    return torch.where(drop, 0, mlen), torch.where(drop, 0, mdist)
+        drop = (mlen == consts.MIN_MATCH_LEN) & (mdist > 4096)
+        return torch.where(drop, 0, mlen), torch.where(drop, 0, mdist)

@@ -5,7 +5,8 @@ interpret=True) pinned in chip_smoke.py PROD_PINNED (chip_smoke.py phase 8
 holds the card's bytes, staged, fused and through the public entry point,
 to the same pins).  The inputs are bench.py's corpora (chip_smoke.py
 prod_input): one full shard and a tail, two full shards in one batch, the
-headline's first 8 MiB batch and its whole 32 MiB at level 6.
+headline's first 8 MiB batch (at level 6 in gzip, at level 9 in zlib)
+and its whole 32 MiB at level 6.
 
 The JAX encode takes 10-70 s a case at levels 1-6 and 3 to 17 minutes at
 levels 7-9 in interpret mode (its 8 MiB batch 7 minutes, the 32 MiB 4
@@ -52,8 +53,8 @@ def check_port(case):
 def test_pins_cover_the_matrix():
     """Mixed at every level in gzip, zlib and raw at levels 1, 6 and 9,
     text at 6 and 9, two full shards in one batch, the headline's first
-    batch and its whole 32 MiB, all at 128 KiB shards with 32 KiB of
-    context."""
+    batch (at level 6 in gzip and at level 9 in zlib) and its whole 32 MiB,
+    all at 128 KiB shards with 32 KiB of context."""
     S, CTX = 131_072, 32_768
     assert {c[1:3] for c in PROD_PINNED} == {(S, CTX)}
     got = {(c[0], c[3], c[4], c[5]) for c in PROD_PINNED}
@@ -61,7 +62,7 @@ def test_pins_cover_the_matrix():
             | {(L, 1, c, "mixed") for L in (1, 6, 9) for c in ("ZLIB", "RAW")}
             | {(6, 1, "GZIP", "text"), (9, 1, "GZIP", "text"),
                (6, 2, "GZIP", "mixed2"), (6, 64, "GZIP", "mixed8M"),
-               (6, 64, "GZIP", "mixed32M")})
+               (9, 64, "ZLIB", "mixed8M"), (6, 64, "GZIP", "mixed32M")})
     assert got == want
     assert all(len(h) == 64 for h in PROD_PINNED.values())
     assert len(prod_input("mixed")) == S + 12_345

@@ -27,7 +27,8 @@ from _torch_corpora import corpus
 
 SMALL = dict(device="cpu", shard_len=4096, ctx=1024, batch=2)
 DATA = corpus("text", 20_000, seed=43)
-ENCODE_STAGES = ["encode.dispatch", "encode.match", "encode.parse",
+ENCODE_STAGES = ["encode.dispatch", "encode.match", "encode.match.main",
+                 "encode.match.extend", "encode.parse",
                  "encode.squeeze", "encode.squeeze.lengths",
                  "encode.squeeze.dp", "encode.fields", "encode.pack",
                  "encode.compact"]
@@ -137,6 +138,7 @@ def test_ops_are_roots_records_unchanged():
     for s in sp[2:]:
         assert ids[s["parent"]]["name"] in ("device.compress",
                                             "encode.dispatch",
+                                            "encode.match",
                                             "encode.squeeze")
     assert [r["op"] for r in metrics.records()] \
         == ["device.compress", "gzip.compress"]
