@@ -63,7 +63,10 @@ Phases, one line each:
      (flate_squeeze_dp, D1) at levels 6 and 9 (parse blocks of 1,024 and
      4,096, from the greedy pass's code lengths of that level's parse),
      against the plain loop on the same card tensors, also from a CUDA
-     graph, its launches those of phase 8's call.  B2 at level
+     graph, its launches those of phase 8's call; and at every level of
+     phases 3 and 7 the field build, F1-F3 (csrc/field_kernels.cu, three
+     launches a batch), against its plain version on the same card
+     tensors, also from a CUDA graph (`fields_l<level>`).  B2 at level
      6 is also timed with the L2 flushed before each launch, and every B2
      case prints, beside its own bound, the bound of reading ne + nf words
      a position as the TPU kernel's inputs are laid out;
@@ -1236,9 +1239,25 @@ def main() -> int:
             take_r, starts_r, m_r = pipeline2._squeeze_stage(
                 window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
         seg = encode2.seg_size(S, blk)
-        vals, bits, _, _ = encode2.build_fields(
-            window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S,
-            seg)
+        fargs = (window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals,
+                 S, seg)
+        nseg = -(-S // seg)
+        parse_b = nbytes(*fargs[:5])
+        plan_b = B * (encode2._PLAN_FIXED + 4 * nseg) * 4
+        hist_b = B * nseg * encode2._HIST_STRIDE * 4
+        slots = encode2.slot_count(S, seg)
+        vals, bits, _, _ = case(
+            phase, path, f"fields_l{L}", "flate_fields_hist",
+            "flate_tpu/jx/encode2.py:116",
+            lambda: encode2._build_fields_kernels(*fargs),
+            lambda: encode2._build_fields_plain(*fargs),
+            # F1 and F3 read the parse, F1 writes the histograms and F2
+            # reads them, F2 writes the plan and F3 reads it and writes the
+            # fields (u32 values and widths)
+            2 * parse_b + 2 * hist_b + 2 * plan_b + 8 * B * slots + 16 * B,
+            # a histogram add and a table lookup a position, two fields
+            4 * B * S, note="F1-F3 (flate_fields_hist, _plan, _emit): "
+            "three launches a batch", graph=True)
         nwr = pipeline2._nwr(S, seg)
         # the whole pack_fields call (its offsets included), words as
         # (B, nwords) beside the plain version's cumsum + placement
@@ -1291,7 +1310,8 @@ def main() -> int:
     blobs = {}
     # B8 runs under find_matches_fused(fp=True) only, which no level sets;
     # the squeeze's DP at levels 2 and 4-9 only
-    level_kernels = [k for k in _build.ENCODE_KERNELS if k != "flate_extend2"]
+    level_kernels = [k for k in _build.ENCODE_KERNELS
+                     if k != "flate_extend2"] + list(_build.FIELD_KERNELS)
     unsqueezed = [k for k in level_kernels if k != "flate_squeeze_dp"]
 
     def need_launched(what, counts, names=level_kernels):
@@ -1628,8 +1648,9 @@ def main() -> int:
     raw = buf[:int(mo[0])].cpu().numpy().tobytes()
     secs = time.time() - t
     counts = dict(_build.LAUNCHES)
-    need_launched("fp batch", counts,
-                  [k for k in _build.ENCODE_KERNELS if k != "flate_squeeze_dp"])
+    need_launched("fp batch", counts, [k for k in level_kernels
+                                       if k != "flate_squeeze_dp"]
+                  + ["flate_extend2"])
     launches[("fp",)] = counts
     if zlib.decompress(raw, -15) != data8:
         raise AssertionError("fp batch: zlib round trip differs")

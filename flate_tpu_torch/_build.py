@@ -63,11 +63,20 @@ SORT_KERNELS = {
     "flate_bitonic": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,
                       _I, _P],
 }
+FIELD_KERNELS = {
+    "flate_fields_hist": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _L,
+                          _L, _L, _L, _L, _P],
+    "flate_fields_plan": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flate_fields_emit": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _P],
+}
 KERNELS_BY_SOURCE = {PKG / "csrc" / "encode_kernels.cu": ENCODE_KERNELS,
                      PKG / "csrc" / "decode_kernels.cu": DECODE_KERNELS,
-                     PKG / "csrc" / "sort_kernels.cu": SORT_KERNELS}
+                     PKG / "csrc" / "sort_kernels.cu": SORT_KERNELS,
+                     PKG / "csrc" / "field_kernels.cu": FIELD_KERNELS}
 SOURCES = tuple(KERNELS_BY_SOURCE)
-KERNELS = {**ENCODE_KERNELS, **DECODE_KERNELS, **SORT_KERNELS}
+KERNELS = {**ENCODE_KERNELS, **DECODE_KERNELS, **SORT_KERNELS,
+           **FIELD_KERNELS}
 
 
 HOST_SOURCE = PKG / "csrc" / "host_encode.c"

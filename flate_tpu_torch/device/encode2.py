@@ -12,10 +12,14 @@ per shard by exact cost); stored runs merge into stored blocks of up to
 65535 bytes.  Every shard ends with an empty stored block: the sync
 marker, or the BFINAL block of the last shard.
 
-u32 values are carried as int64, and the field values leave as int32 u32
-bit patterns, the packer's width.  The stored/coded estimate is the JAX
-formula, computed so that it is the same on every device and in every
-order of the symbols: log2 is taken in float64 and rounded once to
+On the card the build is three hand-written kernels a batch
+(csrc/field_kernels.cu: F1 segment histograms, F2 the shard's plan, F3 the
+slots); on the CPU it is _build_fields_plain, whole-tensor PyTorch ops, the
+reference the kernels are held to element for element.  In the plain
+version u32 values are carried as int64, and the field values leave as
+int32 u32 bit patterns, the packer's width.  The stored/coded estimate is
+the JAX formula, computed so that it is the same on every device and in
+every order of the symbols: log2 is taken in float64 and rounded once to
 float32 (squeeze's rule), and a segment's sum of counts times those
 float32 lengths is exact in float64 and rounded once to float32 before
 the comparison.
@@ -28,7 +32,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import consts, tables
+from .. import _build, consts, tables
 from . import encode as enc
 from . import header as hdr
 from . import huff
@@ -108,8 +112,8 @@ def _consts(S: int, seg: int, device: torch.device) -> dict:
     """The host-made constants of build_fields on `device`, made once per
     (shard, segment, device) so that no call copies from host memory (a
     CUDA graph captures none): segment lengths and starts, the
-    merge-grid columns, and the fixed tables' lengths and packed
-    codes."""
+    merge-grid columns, and the fixed tables' lengths and packed codes
+    (also as one int32 row, litlen then distance, for the kernels)."""
     nseg = _nseg(S, seg)
     merge = max(1, MAX_STORED // seg)
     host = {"seg_len": np.minimum(seg, S - seg * np.arange(nseg)),
@@ -117,7 +121,9 @@ def _consts(S: int, seg: int, device: torch.device) -> dict:
             "grid": (np.arange(nseg) % merge == 0)[None, :],
             "fix_ll": _FIX_LL_LENS[None, :], "fix_d": _FIX_D_LENS[None, :],
             "fix_ll_packed": _FIX_LL_PACKED[None, :],
-            "fix_d_packed": _FIX_D_PACKED[None, :]}
+            "fix_d_packed": _FIX_D_PACKED[None, :],
+            "fix_packed32": np.concatenate([_FIX_LL_PACKED, _FIX_D_PACKED]
+                                           ).astype(np.int32)}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}
 
@@ -131,9 +137,84 @@ def build_fields(window_tail: torch.Tensor, mlen: torch.Tensor,
     window_tail (B, S) uint8 shard bytes; mlen/mdist/starts/take (B, S)
     parse results; valid_len (B,) real bytes per shard; final (B,)
     last-shard flag.  Returns (vals (B, SLOTS) int32 u32 bit patterns,
-    bits (B, SLOTS) int32, total_bits (B,) int64, kind (B,) int64)."""
+    bits (B, SLOTS) int32, total_bits (B,) int64, kind (B,) int64).
+
+    On CUDA tensors three hand-written kernels a batch
+    (csrc/field_kernels.cu F1-F3); on CPU tensors the plain version, the
+    reference they are held to."""
     if seg is None:
         seg = seg_size(S)
+    args = (window_tail, mlen, mdist, starts, take, valid_len, final, S, seg)
+    if _build.use_plain(window_tail):
+        return _build_fields_plain(*args)
+    return _build_fields_kernels(*args)
+
+
+# F1's histogram row of a segment (litlen, distance and byte counts, its
+# extra bits, its crossing flag) and F2's plan row of a shard (the two
+# tables, the two headers' fields, 8 words, 4 a segment): int32
+_HIST_STRIDE = 2 * consts.NUM_LITLEN + consts.NUM_DIST + 2
+_PLAN_FIXED = consts.NUM_LITLEN + consts.NUM_DIST + 4 * hdr.HDR_SLOTS + 8
+
+
+def _int_vector(name: str, t: torch.Tensor, B: int) -> int:
+    """Check a (B,) int32 or int64 argument; 1 where it is int64."""
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: expected int32 or int64, got {t.dtype}")
+    _build.check_cuda(name, t, t.dtype, (B,))
+    return int(t.dtype == torch.int64)
+
+
+def _build_fields_kernels(window_tail, mlen, mdist, starts, take, valid_len,
+                          final, S: int, seg: int):
+    """The field build on the card: F1 (segment histograms), F2 (the
+    shard's plan) and F3 (the slots), one launch each, on the current
+    stream.  window_tail uint8, mlen and mdist int32, starts and take bool
+    (B, S), each row contiguous (a column slice of the windows passes);
+    valid_len and final (B,) int32 or int64.  No host sync and no host
+    copy, so a CUDA graph captures it."""
+    B = window_tail.shape[0]
+    dev = window_tail.device
+    nseg = _nseg(S, seg)
+    strides = tuple(
+        _build.check_cuda(f"build_fields.{name}", t, dt, (B, S), rows=True)
+        for name, t, dt in (("window_tail", window_tail, torch.uint8),
+                            ("mlen", mlen, torch.int32),
+                            ("mdist", mdist, torch.int32),
+                            ("starts", starts, torch.bool),
+                            ("take", take, torch.bool)))
+    vl64 = _int_vector("build_fields.valid_len", valid_len, B)
+    fin64 = _int_vector("build_fields.final", final, B)
+    fixtab = _consts(S, seg, dev)["fix_packed32"]
+    i32 = torch.int32
+    hist = torch.empty((B, nseg, _HIST_STRIDE), dtype=i32, device=dev)
+    plan_stride = _PLAN_FIXED + 4 * nseg
+    plan = torch.empty((B, plan_stride), dtype=i32, device=dev)
+    slots = slot_count(S, seg)
+    vals = torch.empty((B, slots), dtype=i32, device=dev)
+    bits = torch.empty((B, slots), dtype=i32, device=dev)
+    total_bits = torch.empty(B, dtype=torch.int64, device=dev)
+    kind = torch.empty(B, dtype=torch.int64, device=dev)
+    ptrs = tuple(t.data_ptr() for t in (window_tail, mlen, mdist, starts,
+                                        take, valid_len)) + (vl64,)
+    _build.launch("flate_fields_hist", *ptrs, hist.data_ptr(), B, S, seg,
+                  *strides)
+    _build.launch("flate_fields_plan", hist.data_ptr(), valid_len.data_ptr(),
+                  vl64, fixtab.data_ptr(), plan.data_ptr(),
+                  total_bits.data_ptr(), kind.data_ptr(), B, S, seg,
+                  plan_stride)
+    _build.launch("flate_fields_emit", *ptrs, final.data_ptr(), fin64,
+                  plan.data_ptr(), vals.data_ptr(), bits.data_ptr(), B, S,
+                  seg, plan_stride, slots, *strides)
+    return vals, bits, total_bits, kind
+
+
+def _build_fields_plain(window_tail: torch.Tensor, mlen: torch.Tensor,
+                        mdist: torch.Tensor, starts: torch.Tensor,
+                        take: torch.Tensor, valid_len: torch.Tensor,
+                        final: torch.Tensor, S: int, seg: int):
+    """build_fields as whole-tensor PyTorch ops on any device: the
+    kernels' reference."""
     nseg = _nseg(S, seg)
     P = nseg * seg
     MERGE = max(1, MAX_STORED // seg)

@@ -1,5 +1,5 @@
-"""Where the time of kernels B1, B2, B3, B5, B6, B7, B9, B10 and the
-squeeze's cost DP goes.
+"""Where the time of kernels B1, B2, B3, B5, B6, B7, B9, B10, the
+squeeze's cost DP and the field build goes.
 
     python3 tools/torch_kernel_probe.py [--reps 20]
 
@@ -163,6 +163,17 @@ its chain floor: blk steps times the ns a step of one lone lane, the
 slope between one lane of 4,096 and one of 1,024 positions.
 
     python3 tools/torch_kernel_probe.py --part squeeze [--tree DIR]
+
+The field build, `--part fields` (not in the default parts): on the
+batch at levels 1, 6 and 9 (the stages before it as encode_core runs
+them), the whole build_fields call by events, replayed from a CUDA graph
+(the device alone) and on the host clock, which a parent's tree has too,
+with its kernel launch calls and device time by kernel from one call
+under torch.profiler; where the tree has F1-F3 (csrc/field_kernels.cu),
+each kernel's device time against its bytes bound over 3.35 TB/s, and the
+outputs equal to the plain version on the same card tensors (timed once).
+
+    python3 tools/torch_kernel_probe.py --part fields [--tree DIR]
 
 --tree DIR measures the kernels of another checkout (its flate_tpu_torch,
 built into DIR/build) with this probe's code, so that a parent and a change
@@ -618,8 +629,8 @@ def squeeze_part(reps: int) -> dict:
     return out
 
 
-def batch_fields(level: int = 6):
-    """build_fields' (vals, bits) of the batch at a level's knobs and its
+def batch_field_args(level: int = 6):
+    """build_fields' arguments for the batch at a level's knobs and its
     segment size, through the measured tree's stages as
     encode_batch_packed runs them."""
     window, ctx_len, valid = level6_batch()
@@ -638,9 +649,95 @@ def batch_fields(level: int = 6):
             window[:, CTX:], m_r, d_r, take_r, starts_r, valid, blk=blk)
     seg = encode2.seg_size(S, blk)
     finals = torch.zeros(B, dtype=torch.int32, device=window.device)
-    vals, bits, _, _ = encode2.build_fields(
-        window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S, seg)
-    return vals, bits, seg
+    return (window[:, CTX:], m_r, d_r, starts_r, take_r, valid, finals, S,
+            seg)
+
+
+def batch_fields(level: int = 6):
+    """build_fields' (vals, bits) of the batch at a level's knobs, and its
+    segment size."""
+    args = batch_field_args(level)
+    vals, bits, _, _ = encode2.build_fields(*args)
+    return vals, bits, args[-1]
+
+
+FIELD_KERNEL_NAMES = ("fields_hist_kernel", "fields_plan_kernel",
+                      "fields_emit_kernel")
+LAUNCH_CALL = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+
+
+def profiled(fn) -> tuple[int, dict]:
+    """One fn() call under torch.profiler: (the host's kernel launch
+    calls, device ms by kernel name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls, dev = 0, {}
+    for e in prof.events():
+        if e.name.split("_v")[0] in LAUNCH_CALL:
+            calls += 1
+        if e.device_type.name == "CUDA":
+            dev[e.name] = dev.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    return calls, dev
+
+
+def fields_part(reps: int) -> dict:
+    """The field build of the batch at levels 1, 6 and 9: the whole
+    build_fields call three ways, its launch calls and device time by
+    kernel from one profiled call; where the tree has the kernels (F1-F3),
+    each kernel's device time, their bytes bound, and the outputs equal to
+    the plain version's on the same card tensors."""
+    out = {}
+    for L in (1, 6, 9):
+        args = batch_field_args(L)
+        tag = f"fields_l{L}"
+        line = three_ways(out, f"{tag}_build", lambda: encode2.build_fields(
+            *args), reps)
+        calls, dev = profiled(lambda: encode2.build_fields(*args))
+        out[f"{tag}_launch_calls"] = calls
+        out[f"{tag}_profiled_ms"] = sum(dev.values())
+        print(f"{tag}: build_fields {line}; {calls} kernel launch calls, "
+              f"{out[f'{tag}_profiled_ms']:.4f} ms of device time in "
+              f"{len(dev)} kernels (profiler)", flush=True)
+        if not hasattr(encode2, "_build_fields_kernels"):
+            continue
+        got = encode2.build_fields(*args)
+        t0 = time.perf_counter()
+        want = encode2._build_fields_plain(*args)
+        torch.cuda.synchronize()
+        out[f"{tag}_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        for name, a, b in zip(("vals", "bits", "total_bits", "kind"), got,
+                              want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: {name} != the plain version")
+        mine = {k: sum(v for n, v in dev.items() if k in n)
+                for k in FIELD_KERNEL_NAMES}
+        out[f"{tag}_kernels_ms"] = mine
+        # F1 and F3 read the parse (11 bytes a position) each; F1 writes
+        # the histograms, F2 reads them and writes the plan, F3 reads it
+        # and writes the fields
+        B_, nseg = args[0].shape[0], -(-S // args[-1])
+        parse_b = nbytes(*args[:5])
+        hist_b = B_ * nseg * encode2._HIST_STRIDE * 4
+        plan_b = B_ * (encode2._PLAN_FIXED + 4 * nseg) * 4
+        moved = {"fields_hist_kernel": parse_b + hist_b,
+                 "fields_plan_kernel": hist_b + plan_b,
+                 "fields_emit_kernel": parse_b + plan_b + nbytes(*got)}
+        bound = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
+        out[f"{tag}_bound_ms"] = bound
+        out[f"{tag}_bound_total_ms"] = sum(bound.values())
+        print(f"{tag}: F1-F3 equal to the plain version (plain "
+              f"{out[f'{tag}_plain_ms']:.4f} ms on the host clock); device "
+              + ", ".join(f"{k} {mine[k]:.4f} ms (bound {bound[k]:.4f} by "
+                          f"{moved[k]} B)" for k in FIELD_KERNEL_NAMES)
+              + f"; bound of the three {out[f'{tag}_bound_total_ms']:.4f} ms",
+              flush=True)
+    return out
 
 
 def pack_part(reps: int) -> dict:
@@ -919,19 +1016,7 @@ PORT_KERNELS = ("prep_kernel", "matcher_kernel", "small_runs_kernel",
 def replay_profile(replay) -> dict:
     """Device time (ms) by kernel name of one replay, from torch.profiler
     (empty when the profiler sees no kernel inside a graph)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        replay()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = getattr(e, "cuda_time_total", 0)
-        if t:
-            out[e.key] = out.get(e.key, 0.0) + t / 1e3
-    return out
+    return profiled(replay)[1]
 
 
 def fused(reps: int) -> dict:
@@ -1061,7 +1146,7 @@ def main() -> int:
                     default="matcher,network,walks,runs,lanes,prep,pack",
                     help="comma-separated: matcher, network, walks, runs, "
                          "lanes, prep, pack, compact, e2e, fused, scan, "
-                         "rounds, stream, squeeze")
+                         "rounds, stream, squeeze, fields")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose flate_tpu_torch is measured")
     args = ap.parse_args()
@@ -1083,7 +1168,8 @@ def main() -> int:
              "pack": pack_part, "compact": compact_part, "e2e": e2e,
              "fused": fused,
              "scan": scan_part, "rounds": rounds_part,
-             "stream": stream_part, "squeeze": squeeze_part}
+             "stream": stream_part, "squeeze": squeeze_part,
+             "fields": fields_part}
     for part in args.part.split(","):
         res.update(parts[part](args.reps))
     print(json.dumps(res))
